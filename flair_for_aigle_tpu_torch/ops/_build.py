@@ -1,0 +1,135 @@
+"""Build and bind the CUDA kernels under ``csrc/``.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
+plain C interface, loaded through ctypes. The library lands in
+``build/torch_kernels/`` at the repository root, keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+loaded as it is. Nothing here runs at import time: the first wrapper that
+launches a kernel on a CUDA tensor triggers the build.
+
+Every C entry point returns ``cudaGetLastError()`` after its launches;
+``check`` raises on anything but 0, so a refused launch (too many threads,
+too much shared memory) never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
+                         "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures: name -> argtypes (all return int = cudaError_t)
+_SIGNATURES = {
+    # x, scale, bias, out, b, h, w, c, ws, ss, eps, dtype, stream
+    "prep_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, wqkv, bqkv, wproj, bproj, bias, qkv, o, out,
+    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, dtype, stream
+    "window_attn_fwd": [_P] * 9 + [_I] * 10 + [_P],
+    # x, attn, ln_scale, ln_bias, w1, b1, w2, b2, ln, h, out,
+    # n, c, hidden, eps, dtype, stream
+    "ffn_fwd": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
+    # logits, row_lo, row_hi, row_w_lo, row_w_hi, col_lo, col_hi, col_w_lo,
+    # col_w_hi, out, b, k, h4, w4, inner, class_prob, dtype, stream
+    "epilogue_fwd": [_P] * 10 + [_I] * 7 + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+#: seconds the last nvcc build in this process took (0.0: none ran)
+LAST_BUILD_SECONDS = 0.0
+
+
+def _sources() -> list[str]:
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
+            "kernels of flair_for_aigle_tpu_torch build only where the CUDA "
+            "toolkit is installed")
+    return found
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libflair_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if no library for the current sources exists;
+    returns the library path."""
+    global LAST_BUILD_SECONDS
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    LAST_BUILD_SECONDS = time.perf_counter() - t0
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(so, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = so
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {rc}")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t) -> int:
+    import torch
+
+    return {torch.float32: 0, torch.bfloat16: 1}[t.dtype]
