@@ -8,7 +8,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
 1. environment: the card (name and power limit from nvidia-smi), TF32 off;
 2. build: compile the CUDA kernels under flair_for_aigle_tpu_torch/csrc/;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the swin-base@512 shapes of the zonal main path (batch 2), max and median
+   the swin-base@512 shapes (batch 2): K1-K4 at the zonal path's stages,
+   K5 (patch merge) at the three merge transitions and K6 (attention
+   backward, plain version: autograd through the plain forward) at the
+   four stages, in bf16 and float32, both softmax modes; max and median
    error against the stated bound, kernel and plain times (CUDA events,
    median of 20);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
@@ -17,7 +20,18 @@ Phases, one printed line each (any failure raises and exits non-zero):
    bf16, attn_f32 False, device normalisation, random seeded weights):
    output geometry, labels < 19, every kernel's launch count during the run,
    argmax agreement of one batch with a forward built from the plain
-   versions (float32 and bf16), and the warm wall time, tiles/s and km2/h.
+   versions (float32 and bf16), and the warm wall time, tiles/s and km2/h;
+5. train: the host probe (pandas), then the port's ``training_stage`` and
+   ``predict_stage`` with the reference's default training configuration
+   (configs/train/*.yaml: swin-base-UPerNet, AERIAL_RGBI channels [4,1,2],
+   19 classes and their loss weights, 512 px, batch 5, AdamW, one_cycle_lr,
+   float32) for 2 epochs on a synthetic FLAIR-HUB-style split (20 train,
+   5 val, 5 test patches, random seeded weights): every kernel's launch
+   count during the run, finite losses, the checkpoint reloading strictly,
+   the prediction rasters and metrics; the cosine between the gradients of
+   one batch-5 float32 step through the kernels and through the plain
+   versions; ms/step and peak device memory of both routes in float32 and
+   with ``compute_dtype: bfloat16``.
 
 The line before the last is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``. Needs one card, the CUDA toolkit (nvcc)
@@ -26,7 +40,11 @@ and the repository checkout; exits non-zero without a card.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import glob
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,7 +71,47 @@ KERNELS = {
             "flair_for_aigle_tpu/ops/pallas/ffn.py:152"),
     "epilogue": ("flair_for_aigle_tpu_torch/csrc/epilogue.cu",
                  "flair_for_aigle_tpu/ops/pallas/epilogue.py:119"),
+    "merge": ("flair_for_aigle_tpu_torch/csrc/merge.cu",
+              "flair_for_aigle_tpu/ops/pallas/merge.py:32"),
+    "window_attn_bwd": ("flair_for_aigle_tpu_torch/csrc/window_attn_bwd.cu",
+                        "flair_for_aigle_tpu/ops/pallas/window_attn.py:534"),
 }
+# (H = W, C) entering each merge of swin-base@512 (stages 1->2, 2->3, 3->4)
+MERGES = [(128, 128), (64, 256), (32, 512)]
+TRAIN_N = {"train": 20, "val": 5, "test": 5}
+TRAIN_PX = 512
+DEVICE = "cuda"
+STEPS_WARM, STEPS_TIMED = 2, 5  # train_step timing: warm-up, then timed
+
+
+def kernel_fns() -> dict:
+    """name -> the wrapper whose ``launches`` counts that kernel."""
+    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, merge, prep, window_attn
+
+    return {"prep": prep.fused_ln_shift_partition,
+            "window_attn": window_attn.fused_window_attention,
+            "window_attn_bwd": window_attn.fused_window_attention_backward,
+            "ffn": ffn.fused_ln_mlp_residual,
+            "merge": merge.fused_patch_merge,
+            "epilogue": epilogue.upsample_crop_convert}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """The model's ops resolve to their plain versions inside the block."""
+    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, merge, prep, window_attn
+
+    mods = [(prep, "fused_ln_shift_partition"), (window_attn, "fused_window_attention"),
+            (ffn, "fused_ln_mlp_residual"), (merge, "fused_patch_merge"),
+            (epilogue, "upsample_crop_convert")]
+    saved = [getattr(m, n) for m, n in mods]
+    try:
+        for m, n in mods:
+            setattr(m, n, getattr(m, n + "_reference"))
+        yield
+    finally:
+        for (m, n), fn in zip(mods, saved):
+            setattr(m, n, fn)
 
 
 def say(phase: str, msg: str) -> None:
@@ -112,6 +170,11 @@ def phase_build() -> None:
         f"(nvcc {_build.LAST_BUILD_SECONDS:.1f} s)")
 
 
+def _add_time(stats, name, t_k, t_p):
+    stats[name]["ms"] += t_k
+    stats[name]["plain_ms"] += t_p
+
+
 def _compare(name, case, got, want, bound, t_k, t_p, stats):
     import torch
 
@@ -128,12 +191,43 @@ def _compare(name, case, got, want, bound, t_k, t_p, stats):
     torch.cuda.synchronize()
 
 
-def phase_kernels() -> dict:
-    """Every kernel against its plain version; returns per-kernel stats
-    (main-path times: bf16 cases summed over the four stages)."""
+def _compare_grads(case, got, want, f32: bool, t_k, t_p, stats):
+    """K6 against the plain backward, per gradient: float32 elementwise
+    |a - b| <= 2e-3 + 2e-3 |b|; bf16 median relative error < 0.04
+    (tests/test_window_attn_kernel.py's bounds for the TPU backward)."""
     import torch
 
-    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, prep, window_attn
+    s = stats.setdefault("window_attn_bwd", {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    parts, ok = [], True
+    for name, a, b in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"], got, want):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        mx = err.max().item()
+        s["max_abs_err"] = max(s["max_abs_err"], mx)
+        if f32:
+            worst = (err / (2e-3 + 2e-3 * b.abs())).max().item()
+            ok &= worst <= 1.0 and bool(torch.isfinite(a).all())
+            parts.append(f"{name} max {mx:.2e} (x{worst:.3f} of bound)")
+        else:
+            med = (err / b.abs().clamp(min=1e-2)).median().item()
+            ok &= med < 0.04 and bool(torch.isfinite(a).all())
+            parts.append(f"{name} max {mx:.2e} med_rel {med:.2e}")
+    say("kernel", f"window_attn_bwd {case}: {'; '.join(parts)} "
+        f"bound {'2e-3 + 2e-3|ref|' if f32 else 'median rel < 0.04'} "
+        f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+    if not ok:
+        raise AssertionError(f"window_attn_bwd {case}: outside the bound")
+    torch.cuda.synchronize()
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version; returns per-kernel stats
+    (times summed over the stages, in the dtype of the path each kernel
+    serves: bf16 for K1-K4, the zonal slice's; float32 for K5 and K6, the
+    training configuration's)."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, merge, prep, window_attn
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -164,8 +258,7 @@ def phase_kernels() -> dict:
             t_p = cuda_ms(lambda: prep.fused_ln_shift_partition_reference(x, s, b, **kw))
             _compare("prep", tag, got, want, bound(want, dtype, 1, 1e-5), t_k, t_p, stats)
             if dtype == bf:
-                stats["prep"]["ms"] += t_k
-                stats["prep"]["plain_ms"] += t_p
+                _add_time(stats, "prep", t_k, t_p)
 
             # K2: window attention, both softmax modes
             hp = hw + (WS - hw % WS) % WS
@@ -185,8 +278,7 @@ def phase_kernels() -> dict:
                 _compare("window_attn", f"{tag} attn_f32={attn_f32}", got, want,
                          bound(want, dtype, 4, 1e-4), t_k, t_p, stats)
                 if dtype == bf and not attn_f32:  # the slice's configuration
-                    stats["window_attn"]["ms"] += t_k
-                    stats["window_attn"]["plain_ms"] += t_p
+                    _add_time(stats, "window_attn", t_k, t_p)
 
             # K3: residual + LN + MLP + residual
             a = randn(2, hw, hw, c, dtype=dtype, std=0.5)
@@ -199,8 +291,52 @@ def phase_kernels() -> dict:
             _compare("ffn", tag, got, want, bound(want, dtype, 4, 1e-4),
                      t_k, t_p, stats)
             if dtype == bf:
-                stats["ffn"]["ms"] += t_k
-                stats["ffn"]["plain_ms"] += t_p
+                _add_time(stats, "ffn", t_k, t_p)
+
+    # K5: patch merge at the three transitions; times summed in float32,
+    # the training configuration's dtype
+    for (hw, c) in MERGES:
+        for dtype in (bf, f32):
+            tag = f"B2 {hw}x{hw}x{c}->{2 * c} {'bf16' if dtype == bf else 'f32'}"
+            x = randn(2, hw, hw, c, dtype=dtype)
+            mp = (randn(4 * c, dtype=f32) * 0.1 + 1, randn(4 * c, dtype=f32) * 0.1,
+                  randn(2 * c, 4 * c, dtype=f32, std=(4 * c) ** -0.5))
+            got = merge.fused_patch_merge(x, *mp)
+            want = merge.fused_patch_merge_reference(x, *mp)
+            t_k = cuda_ms(lambda: merge.fused_patch_merge(x, *mp))
+            t_p = cuda_ms(lambda: merge.fused_patch_merge_reference(x, *mp))
+            # bf16: LN rows round to bf16 before the product, so a rounding
+            # flip there moves an output by up to one ulp at its scale
+            _compare("merge", tag, got, want, bound(want, dtype, 2, 1e-4), t_k, t_p, stats)
+            if dtype == f32:
+                _add_time(stats, "merge", t_k, t_p)
+
+    # K6: attention backward at the four stages, both softmax modes, against
+    # autograd through the plain forward; times summed over the stages in
+    # float32 with attn_f32 True (the training configuration)
+    for (hw, c, nh) in STAGES:
+        hp = hw + (WS - hw % WS) % WS
+        nwh = hp // WS
+        for dtype in (bf, f32):
+            x = randn(2 * nwh * nwh, WS * WS, c, dtype=dtype)
+            gy = randn(2 * nwh * nwh, WS * WS, c, dtype=dtype)
+            bound_c = c ** -0.5
+            ap = (randn(3 * c, c, dtype=f32, std=bound_c), randn(3 * c, dtype=f32, std=0.02),
+                  randn(c, c, dtype=f32, std=bound_c), randn(c, dtype=f32, std=0.02),
+                  randn(nh, WS * WS, WS * WS, dtype=f32, std=0.5))
+            for attn_f32 in (True, False):
+                tag = (f"B2 {hw}x{hw}x{c} {'bf16' if dtype == bf else 'f32'} "
+                       f"attn_f32={attn_f32}")
+                akw = dict(num_heads=nh, window_size=WS, shift_size=SS,
+                           grid_hw=(nwh, nwh), attn_f32=attn_f32)
+                got = window_attn.fused_window_attention_backward(gy, x, *ap, **akw)
+                want = window_attn.fused_window_attention_backward_reference(gy, x, *ap, **akw)
+                t_k = cuda_ms(lambda: window_attn.fused_window_attention_backward(gy, x, *ap, **akw))
+                t_p = cuda_ms(lambda: window_attn.fused_window_attention_backward_reference(
+                    gy, x, *ap, **akw))
+                _compare_grads(tag, got, want, dtype == f32, t_k, t_p, stats)
+                if dtype == f32 and attn_f32:
+                    _add_time(stats, "window_attn_bwd", t_k, t_p)
 
     # K4: epilogue at (2, 19, 128, 128), margin 40, both output types
     for dtype in (bf, f32):
@@ -225,8 +361,7 @@ def phase_kernels() -> dict:
             else:
                 _compare("epilogue", tag, got.int(), want.int(), 1.0, t_k, t_p, stats)
             if dtype == bf and output_type == "argmax":
-                stats["epilogue"]["ms"] += t_k
-                stats["epilogue"]["plain_ms"] += t_p
+                _add_time(stats, "epilogue", t_k, t_p)
     return stats
 
 
@@ -301,7 +436,6 @@ def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
     import torch
     from safetensors.torch import save_file
 
-    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, prep, window_attn
     from flair_for_aigle_tpu_torch.zonal import inference as zi
     from flair_for_aigle_tpu_torch.zonal.model_utils import build_inference_model
 
@@ -322,10 +456,7 @@ def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
     save_file({k: v.contiguous() for k, v in seed_model.state_dict().items()}, weights)
     del seed_model
 
-    fns = {"prep": prep.fused_ln_shift_partition,
-           "window_attn": window_attn.fused_window_attention,
-           "ffn": ffn.fused_ln_mlp_residual,
-           "epilogue": epilogue.upsample_crop_convert}
+    fns = {k: fn for k, fn in kernel_fns().items() if k != "window_attn_bwd"}
     # the user entry point, with every launch count at 0 just before it
     for fn in fns.values():
         fn.launches = 0
@@ -368,21 +499,11 @@ def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
     tiles = torch.stack([torch.from_numpy(raster[:, y:y + 512, x:x + 512]) for y, x in offs]).cuda()
     batch = {"AERIAL_RGBI": tiles,
              "AERIAL_LABEL-COSIA": torch.zeros((len(offs), 1, 512, 512), device="cuda")}
-    mods = {"prep": (prep, "fused_ln_shift_partition"),
-            "window_attn": (window_attn, "fused_window_attention"),
-            "ffn": (ffn, "fused_ln_mlp_residual"),
-            "epilogue": (epilogue, "upsample_crop_convert")}
 
     def forward(plain: bool, dtype) -> torch.Tensor:
         step.compute_dtype = dtype
-        try:
-            if plain:
-                for mod, name in mods.values():
-                    setattr(mod, name, getattr(mod, name + "_reference"))
+        with plain_versions() if plain else contextlib.nullcontext():
             return step.forward_convert(batch)["AERIAL_LABEL-COSIA"]
-        finally:
-            for key, (mod, name) in mods.items():
-                setattr(mod, name, fns[key])
 
     pred_k, pred_r = forward(False, torch.bfloat16), forward(True, torch.bfloat16)
     agree = (pred_k == pred_r).float().mean().item()
@@ -414,6 +535,251 @@ def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
     return launches
 
 
+def train_config(root: str) -> dict:
+    """The reference's default training configuration (configs/train/
+    *.yaml, merged in file order as its read_config does) on the synthetic
+    split: random seeded weights (no published checkpoint here) and 2
+    epochs; everything else as configured."""
+    import yaml
+
+    cfg: dict = {}
+    cdir = os.path.join(REPO, "configs", "train")
+    for name in sorted(os.listdir(cdir)):
+        if name.endswith(".yaml"):
+            with open(os.path.join(cdir, name)) as f:
+                cfg.update(yaml.safe_load(f) or {})
+    cfg["paths"].update(out_folder=os.path.join(root, "out"), out_model_name="chip-smoke",
+                        ckpt_model_path="",
+                        **{f"{s}_csv": os.path.join(root, f"{s}.csv") for s in TRAIN_N})
+    cfg["tasks"]["train_tasks"]["init_weights_only_from_ckpt"] = False
+    cfg["hyperparams"]["num_epochs"] = 2
+    return cfg
+
+
+def synthetic_split(cfg: dict, root: str, write_geotiff, seed: int = 0):
+    """FLAIR-HUB-style patches (tests/test_training.py:19-50 at 512 px):
+    4-band uint8 images and 1-band labels of 19 classes in 32 px blocks,
+    the intensity correlated with the class. Returns the (train, val, test)
+    split dicts of ``data/paths.py get_datasets``: through the CSVs when
+    pandas imports, else built here in the same structure."""
+    import numpy as np
+
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+
+    rng = np.random.default_rng(seed)
+    task = cfg["labels"][0]
+    files = {}
+    for split, n in TRAIN_N.items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        files[split] = []
+        for i in range(n):
+            area = f"D01_2020-{split}-{i:03d}"
+            img = os.path.join(root, split, f"IMG_{area}_0_{i}.tif")
+            lab = os.path.join(root, split, f"LAB_{area}_0_{i}.tif")
+            blocks = rng.integers(0, N_CLASSES, (TRAIN_PX // 32, TRAIN_PX // 32))
+            labels = np.kron(blocks, np.ones((32, 32))).astype(np.uint8)
+            pixels = (labels[None].repeat(4, 0) * 12.0
+                      + rng.normal(0, 8, (4, TRAIN_PX, TRAIN_PX))).clip(0, 255).astype(np.uint8)
+            tr = zi.from_origin(700000.0 + i * 200, 6600000.0, RES, RES)
+            write_geotiff(img, pixels, tr, "EPSG:2154")
+            write_geotiff(lab, labels[None], tr, "EPSG:2154")
+            files[split].append((img, lab))
+        with open(cfg["paths"][f"{split}_csv"], "w") as f:
+            f.write("\n".join([f"AERIAL_RGBI,{task}"] + [f"{a},{b}" for a, b in files[split]]))
+            f.write("\n")
+    try:
+        import pandas  # noqa: F401  (the reference's CSV reader needs it)
+    except ImportError as e:
+        how = f"pandas missing ({e}): split dicts built in get_datasets' structure"
+        dicts = []
+        for split in TRAIN_N:
+            d = {m: [] for m in cfg["modalities"]["inputs"]}
+            d["AERIAL_RGBI"] = [a for a, _ in files[split]]
+            d[task] = [b for _, b in files[split]]
+            d.update({"SENTINEL2_MSK-SC": [], "DATES_S2": {}, "DATES_S1_ASC": {},
+                      "DATES_S1_DESC": {}})
+            dicts.append(d)
+        return tuple(dicts), how
+    from flair_for_aigle_tpu_torch.train.stages import get_datasets
+
+    return get_datasets(cfg), "pandas imports: split dicts from the CSVs (get_datasets)"
+
+
+def _route_step(cfg, batch, plain: bool, bf16: bool):
+    """(ms per training step, peak device GiB) of the port's train_step on
+    one batch, through the kernels or the plain versions."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.train.optim import make_optimizer
+    from flair_for_aigle_tpu_torch.train.stages import build_model
+    from flair_for_aigle_tpu_torch.train.task import make_steps
+
+    c = copy.deepcopy(cfg)
+    if bf16:
+        c["hyperparams"]["compute_dtype"] = "bfloat16"
+    torch.cuda.empty_cache()
+    model = build_model(c).to(DEVICE)
+    opt = make_optimizer(c["hyperparams"], model.parameters())
+    steps = make_steps(model, c, opt, DEVICE)
+    with plain_versions() if plain else contextlib.nullcontext():
+        for _ in range(STEPS_WARM):
+            steps.train_step(batch, 1e-5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(STEPS_TIMED):
+            loss = steps.train_step(batch, 1e-5)["loss"]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / STEPS_TIMED * 1e3
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"non-finite loss on the {'plain' if plain else 'kernel'} route")
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_train(card: str, write_geotiff) -> dict:
+    import torch
+
+    from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
+    from flair_for_aigle_tpu_torch.train.stages import (
+        build_data_module,
+        build_model,
+        predict_stage,
+        training_stage,
+    )
+    from flair_for_aigle_tpu_torch.train.task import make_steps
+    from flair_for_aigle_tpu_torch.train.trainer import load_state_safetensors
+
+    root = os.path.join(TMP, "train")
+    cfg = train_config(root)
+    (d_train, d_val, d_test), how = synthetic_split(cfg, root, write_geotiff)
+    say("train", f"host probe: {how}")
+    dm = build_data_module(cfg, d_train, d_val, d_test)
+    out_dir = os.path.join(cfg["paths"]["out_folder"], cfg["paths"]["out_model_name"])
+    out_pred = os.path.join(out_dir, "results_chip-smoke")
+    os.makedirs(out_pred, exist_ok=True)
+    hp = cfg["hyperparams"]
+    say("train", f"{cfg['models']['monotemp_model']['arch']}, {N_CLASSES} classes, "
+        f"{TRAIN_PX} px, batch {hp['batch_size']}, {hp['optimizer']} lr {hp['learning_rate']}, "
+        f"{hp['scheduler']} warmup {hp['warmup_fraction']}, "
+        f"{hp.get('compute_dtype', 'float32')}, attn_f32 "
+        f"{cfg['models']['monotemp_model'].get('attn_f32', True)}, augmentation "
+        f"{cfg['modalities']['pre_processings']['use_augmentation']}, {hp['num_epochs']} epochs "
+        f"of {TRAIN_N['train'] // hp['batch_size']} steps")
+
+    fns = {k: fn for k, fn in kernel_fns().items() if k != "epilogue"}
+    history = []
+    # the user entry points, with every launch count at 0 just before them
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model = training_stage(cfg, dm, out_dir, device=DEVICE,
+                           epoch_hook=lambda e, m: history.append(m))
+    predict_stage(cfg, dm, out_pred, model, device=DEVICE)
+    torch.cuda.synchronize()
+    t_entry = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    say("train", f"training_stage + predict_stage {t_entry:.2f} s; launches during them: "
+        f"{launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel did not run on the training path: {launches}")
+    losses = [(m["train_loss"], m["val_loss"]) for m in history]
+    if len(history) != hp["num_epochs"] or not all(map(math.isfinite, sum(losses, ()))):
+        raise AssertionError(f"losses not finite or epochs missing: {losses}")
+    say("train", "epochs (train_loss, val_loss, val_miou): " + "; ".join(
+        f"{m['train_loss']:.4f}, {m['val_loss']:.4f}, {m['val_miou']:.4f}" for m in history))
+
+    ckpts = sorted(glob.glob(os.path.join(out_dir, "checkpoints", "*.safetensors")))
+    best = [p for p in ckpts if os.path.basename(p).startswith("ckpt-epoch")]
+    if len(best) != 1 or not any(os.path.basename(p).startswith("last_") for p in ckpts):
+        raise AssertionError(f"checkpoints: {ckpts}")
+    load_state_safetensors(FlairHubModel(cfg), best[0])
+    task = cfg["labels"][0]
+    preds = glob.glob(os.path.join(out_pred, "predictions_chip-smoke", task, "PRED_*.tif"))
+    metrics_file = os.path.join(out_pred, "metrics_chip-smoke", task, "metrics.json")
+    with open(metrics_file) as f:
+        metrics = json.load(f)
+    if len(preds) != TRAIN_N["test"] or "Avg_metrics" not in metrics:
+        raise AssertionError(f"predictions {len(preds)} / metrics {sorted(metrics)}")
+    say("train", f"checkpoints {[os.path.basename(p) for p in ckpts]}; "
+        f"{os.path.basename(best[0])} loads strictly into a fresh model; "
+        f"{len(preds)} prediction rasters; metrics.json Avg_metrics {metrics['Avg_metrics']}")
+
+    # one float32 step at batch 5: gradients through the kernels vs the
+    # plain versions, same weights, same batch
+    batch = next(iter(dm.train_dataloader()))
+    steps = make_steps(build_model(cfg).to(DEVICE), cfg, None, DEVICE)
+    loss_k, grads_k, _, _ = steps.loss_and_grads(batch)
+    with plain_versions():
+        loss_p, grads_p, _, _ = steps.loss_and_grads(batch)
+    flat_k = torch.cat([g.flatten() for g in grads_k]).double()
+    flat_p = torch.cat([g.flatten() for g in grads_p]).double()
+    cos = torch.nn.functional.cosine_similarity(flat_k, flat_p, dim=0).item()
+    gmax = flat_p.abs().max().item()
+    names = [n for n, p in steps.model.named_parameters() if p.requires_grad]
+    rel = [((a - b).abs().max() / max(b.abs().max().item(), 1e-6 * gmax)).item()
+           for a, b in zip(grads_k, grads_p)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    say("train", f"gradient check, one float32 step at batch {hp['batch_size']}: loss kernels "
+        f"{loss_k.item():.6f} plain {loss_p.item():.6f}; cosine {cos:.7f} (bound >= 0.9999); "
+        f"worst per-tensor relative error {rel[worst]:.3e} ({names[worst]}; relative to the "
+        f"tensor's largest gradient, floored at 1e-6 of the model's)")
+    if not cos >= 0.9999:
+        raise AssertionError(f"kernel gradients disagree with the plain ones: cosine {cos}")
+    del steps, grads_k, grads_p, flat_k, flat_p
+
+    timing = {}
+    for dtype in ("float32", "bfloat16"):
+        for route in ("kernels", "plain"):
+            timing[(dtype, route)] = _route_step(cfg, batch, route == "plain",
+                                                 dtype == "bfloat16")
+    cli_launches = _cli_run(cfg, root, pandas_ok=how.startswith("pandas imports"))
+    say("train", f"train_step at batch {hp['batch_size']} on {card} ({STEPS_TIMED} steps after "
+        f"{STEPS_WARM} warm-up; ms/step, peak GiB): " + "; ".join(
+            f"{d} {r} {ms:.1f} ms {gib:.2f} GiB" for (d, r), (ms, gib) in timing.items()))
+    return {k: launches[k] + cli_launches.get(k, 0) for k in launches}
+
+
+def _cli_run(cfg: dict, root: str, pandas_ok: bool) -> dict:
+    """The user's command, ``python -m flair_for_aigle_tpu_torch.train_main
+    --config <yaml>``, run in this process for one epoch on the same split
+    (it reads the CSVs, so it needs pandas); returns its kernel launches."""
+    if not pandas_ok:
+        say("train", "train_main CLI not run: it reads the split CSVs through pandas, "
+            "which this host lacks")
+        return {}
+    import yaml
+
+    from flair_for_aigle_tpu_torch.train_main import main as train_main
+
+    c = copy.deepcopy(cfg)
+    c["paths"]["out_model_name"] = "chip-smoke-cli"
+    c["hyperparams"]["num_epochs"] = 1
+    path = os.path.join(root, "cli.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(c, f)
+    fns = {k: fn for k, fn in kernel_fns().items() if k != "epilogue"}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    train_main(["--config", path])
+    launches = {k: fn.launches for k, fn in fns.items()}
+    out = os.path.join(c["paths"]["out_folder"], "chip-smoke-cli")
+    task = c["labels"][0]
+    n_ckpt = len(glob.glob(os.path.join(out, "checkpoints", "*.safetensors")))
+    n_pred = len(glob.glob(os.path.join(out, "results_chip-smoke-cli",
+                                        "predictions_chip-smoke-cli", task, "PRED_*.tif")))
+    metrics = os.path.join(out, "results_chip-smoke-cli", "metrics_chip-smoke-cli", task,
+                           "metrics.json")
+    say("train", f"train_main --config {os.path.relpath(path, REPO)} (1 epoch + predict) "
+        f"{time.perf_counter() - t0:.2f} s: {n_ckpt} checkpoints, {n_pred} prediction "
+        f"rasters, metrics.json {'written' if os.path.exists(metrics) else 'MISSING'}; "
+        f"launches {launches}")
+    if not (all(launches.values()) and n_ckpt == 2 and n_pred == TRAIN_N["test"]
+            and os.path.exists(metrics)):
+        raise AssertionError("the train_main CLI run is incomplete")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "flair_for_aigle_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -426,10 +792,13 @@ def main() -> int:
     phase_build()
     stats = phase_kernels()
     with host_io() as (write_geotiff, io_desc):
-        launches = phase_slice(env["card"], write_geotiff, io_desc)
+        zonal = phase_slice(env["card"], write_geotiff, io_desc)
+        train = phase_train(env["card"], write_geotiff)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": stats[name]["max_abs_err"],
+         "launches": zonal.get(name, 0) + train.get(name, 0),
+         "launches_zonal": zonal.get(name, 0), "launches_train": train.get(name, 0),
+         "max_abs_err": stats[name]["max_abs_err"],
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["kind"],

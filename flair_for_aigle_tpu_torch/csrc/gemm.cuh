@@ -1,29 +1,45 @@
-// Shared-memory tiled GEMM with a fused epilogue: C = A @ W^T.
+// Shared-memory tiled GEMM with a fused epilogue, in three layouts:
 //
-// A is (M, K) row-major (activations), W is (N, K) row-major (nn.Linear
-// weight layout), C is (M, N). Used by K2 (qkv and output projections) and
-// K3 (fc1, fc2). bf16 inputs run on the tensor cores through nvcuda::wmma
-// (m16n16k16, float32 accumulate); float32 inputs run a SIMT FMA loop so the
-// float32 path keeps full float32 precision (no TF32).
+//   A @ W^T   A (M, K) row-major, W (N, K) row-major (nn.Linear weight)
+//   A @ B     A (M, K), B (K, N) row-major              (BKN = true)
+//   A^T @ B   A (K, M), B (K, N) row-major    (AT = true, BKN = true)
+//
+// C is (M, N). Used by K2 (qkv and output projections), K3 (fc1, fc2), K5
+// (patch-merge reduction) and K6 (the backward's do = g Wproj, dx = dqkv
+// Wqkv, and the weight gradients g^T o and dqkv^T x, whose reduction runs
+// over all B*nW*T rows). bf16 inputs run on the tensor cores through
+// nvcuda::wmma (m16n16k16, float32 accumulate); float32 inputs run a SIMT
+// FMA loop so the float32 path keeps full float32 precision (no TF32).
 //
 // Block tile 128 x 64 x 32, 8 warps (4 x 2 warps of 32 x 32). One stage, no
 // cp.async / TMA pipeline: a first, simple kernel (Wgmma + TMA is later work).
-// Requires K % (16 / sizeof(T)) == 0 so every 16-byte load stays in a row.
+// Every 16-byte load runs along a tile's contiguous dimension, so that
+// dimension's extent must be a multiple of 16 / sizeof(T) (K for A and W,
+// M for A^T, N for B); the other dimension is masked row by row.
+//
+// Split-K (EPI_F32 only): block z of the grid reduces rows
+// [z * k_chunk, (z + 1) * k_chunk) of K and writes its own float32 partial
+// C_z at Cout + z * M * N; sum_partials_kernel adds them in a fixed order,
+// so the result repeats exactly from run to run (no atomics).
 //
 // Epilogues, in the JAX reference's rounding order (models/layers.py
 // TorchLinear, ops/pallas/ffn.py :132-146):
 //   EPI_BIAS       out = rnd(rnd(acc) + b[n])
 //   EPI_BIAS_GELU  h = rnd(rnd(acc) + b[n]); out = 0.5 h (1 + erf(h / sqrt 2))
 //   EPI_RESID      out = (rnd(x + a) + b[n]) + acc      (float32, then rounded)
+//   EPI_NONE       out = rnd(acc)
+//   EPI_F32        out = acc, float32 (the split-K partials)
 #pragma once
 
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace flair {
 
-enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_RESID = 2 };
+enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_RESID = 2, EPI_NONE = 3, EPI_F32 = 4 };
 
 constexpr int GEMM_BM = 128;
 constexpr int GEMM_BN = 64;
@@ -31,30 +47,57 @@ constexpr int GEMM_BK = 32;
 constexpr int GEMM_THREADS = 256;
 constexpr int GEMM_LDC = GEMM_BN + 4;
 
-template <typename T> __host__ __device__ constexpr int gemm_lds() { return GEMM_BK + (sizeof(T) == 2 ? 8 : 4); }
+template <typename T> __host__ __device__ constexpr int gemm_pad() { return sizeof(T) == 2 ? 8 : 4; }
 
 template <typename T> __host__ __device__ constexpr size_t gemm_smem_bytes() {
-  const size_t ab = (size_t)(GEMM_BM + GEMM_BN) * gemm_lds<T>() * sizeof(T);
+  // A and B tiles in either orientation hold (rows + pad) x cols elements;
+  // the float32 C tile reuses the same buffer after the main loop
+  const size_t a = (size_t)(GEMM_BM + gemm_pad<T>()) * (GEMM_BK + gemm_pad<T>()) * sizeof(T);
+  const size_t b = (size_t)(GEMM_BN + gemm_pad<T>()) * (GEMM_BK + gemm_pad<T>()) * sizeof(T);
   const size_t c = (size_t)GEMM_BM * GEMM_LDC * sizeof(float);
-  return ab > c ? ab : c;
+  return a + b > c ? a + b : c;
 }
 
-template <typename T, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ Wt, T* __restrict__ Cout,
-            int M, int N, int K, const T* __restrict__ bias,
-            const T* __restrict__ ra, const T* __restrict__ rb) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int LDS = gemm_lds<T>();
+// Load a (ROWS x COLS) tile whose COLS run along the contiguous dimension of
+// a row-major source with leading dimension ld, rows [r0, r_end) and columns
+// [c0, c_end) valid; out-of-range elements are zero.
+template <typename T, int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(T* dst, int ldd, const T* __restrict__ src, long long ld,
+                                          int r0, int r_end, int c0, int c_end) {
   constexpr int VEC = 16 / sizeof(T);
+  for (int v = threadIdx.x; v < ROWS * COLS / VEC; v += GEMM_THREADS) {
+    const int row = v / (COLS / VEC), col = (v % (COLS / VEC)) * VEC;
+    const int gr = r0 + row, gc = c0 + col;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (gr < r_end && gc < c_end) val = *reinterpret_cast<const uint4*>(src + (long long)gr * ld + gc);
+    *reinterpret_cast<uint4*>(dst + row * ldd + col) = val;
+  }
+}
+
+template <typename T, int EPI, bool AT, bool BKN>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__ Cout,
+            int M, int N, int K, int k_chunk, const T* __restrict__ bias,
+            const T* __restrict__ ra, const T* __restrict__ rb) {
+  static_assert(EPI == EPI_F32 || !AT, "A^T @ B is only used for float32 weight gradients");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int PAD = gemm_pad<T>();
+  // A tile: (BM x BK) as [m][k], or [k][m] when A is stored (K, M)
+  constexpr int LDA = AT ? GEMM_BM + PAD : GEMM_BK + PAD;
+  // B tile: (BK x BN) as [n][k] for a (N, K) weight, or [k][n]
+  constexpr int LDB = BKN ? GEMM_BN + PAD : GEMM_BK + PAD;
   T* As = reinterpret_cast<T*>(smem_raw);
-  T* Bs = As + GEMM_BM * LDS;
+  T* Bs = As + (AT ? GEMM_BK * LDA : GEMM_BM * LDA);
   float* Cs = reinterpret_cast<float*>(smem_raw);
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * GEMM_BM;
   const int n0 = blockIdx.x * GEMM_BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
 
   constexpr bool TC = sizeof(T) == 2;
+  using LA = typename std::conditional<AT, nvcuda::wmma::col_major, nvcuda::wmma::row_major>::type;
+  using LB = typename std::conditional<BKN, nvcuda::wmma::row_major, nvcuda::wmma::col_major>::type;
   const int warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int tr = tid >> 4, tc = tid & 15;
@@ -72,33 +115,33 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ Wt, T* __restrict__ C
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < K; k0 += GEMM_BK) {
-    for (int v = tid; v < GEMM_BM * GEMM_BK / VEC; v += GEMM_THREADS) {
-      const int row = v / (GEMM_BK / VEC), col = (v % (GEMM_BK / VEC)) * VEC;
-      const int gm = m0 + row, gk = k0 + col;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gm < M && gk < K) val = *reinterpret_cast<const uint4*>(A + (long long)gm * K + gk);
-      *reinterpret_cast<uint4*>(As + row * LDS + col) = val;
+  for (int k0 = k_begin; k0 < k_end; k0 += GEMM_BK) {
+    if constexpr (AT) {
+      load_tile<T, GEMM_BK, GEMM_BM>(As, LDA, A, M, k0, k_end, m0, M);
+    } else {
+      load_tile<T, GEMM_BM, GEMM_BK>(As, LDA, A, K, m0, M, k0, k_end);
     }
-    for (int v = tid; v < GEMM_BN * GEMM_BK / VEC; v += GEMM_THREADS) {
-      const int row = v / (GEMM_BK / VEC), col = (v % (GEMM_BK / VEC)) * VEC;
-      const int gn = n0 + row, gk = k0 + col;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gn < N && gk < K) val = *reinterpret_cast<const uint4*>(Wt + (long long)gn * K + gk);
-      *reinterpret_cast<uint4*>(Bs + row * LDS + col) = val;
+    if constexpr (BKN) {
+      load_tile<T, GEMM_BK, GEMM_BN>(Bs, LDB, B, N, k0, k_end, n0, N);
+    } else {
+      load_tile<T, GEMM_BN, GEMM_BK>(Bs, LDB, B, K, n0, N, k0, k_end);
     }
     __syncthreads();
     if constexpr (TC) {
 #pragma unroll
       for (int kk = 0; kk < GEMM_BK; kk += 16) {
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, T, nvcuda::wmma::row_major> fa[2];
-        nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, T, nvcuda::wmma::col_major> fb[2];
+        nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, T, LA> fa[2];
+        nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, T, LB> fb[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          nvcuda::wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDS + kk, LDS);
+        for (int i = 0; i < 2; ++i) {
+          const int mm = wm * 32 + i * 16;
+          nvcuda::wmma::load_matrix_sync(fa[i], AT ? As + kk * LDA + mm : As + mm * LDA + kk, LDA);
+        }
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          nvcuda::wmma::load_matrix_sync(fb[j], Bs + (wn * 32 + j * 16) * LDS + kk, LDS);
+        for (int j = 0; j < 2; ++j) {
+          const int nn = wn * 32 + j * 16;
+          nvcuda::wmma::load_matrix_sync(fb[j], BKN ? Bs + kk * LDB + nn : Bs + nn * LDB + kk, LDB);
+        }
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -110,9 +153,15 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ Wt, T* __restrict__ C
       for (int kk = 0; kk < GEMM_BK; ++kk) {
         float a[8], b[4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = to_f<T>(As[(tr * 8 + i) * LDS + kk]);
+        for (int i = 0; i < 8; ++i) {
+          const int mm = tr * 8 + i;
+          a[i] = to_f<T>(AT ? As[kk * LDA + mm] : As[mm * LDA + kk]);
+        }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = to_f<T>(Bs[(tc * 4 + j) * LDS + kk]);
+        for (int j = 0; j < 4; ++j) {
+          const int nn = tc * 4 + j;
+          b[j] = to_f<T>(BKN ? Bs[kk * LDB + nn] : Bs[nn * LDB + kk]);
+        }
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -144,10 +193,16 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ Wt, T* __restrict__ C
     if (gm >= M || gn >= N) continue;
     const float v = Cs[r * GEMM_LDC + c];
     const long long idx = (long long)gm * N + gn;
+    if constexpr (EPI == EPI_F32) {
+      reinterpret_cast<float*>(Cout)[(long long)blockIdx.z * M * N + idx] = v;
+      continue;
+    }
     float o;
     if constexpr (EPI == EPI_RESID) {
       const float x2 = rnd<T>(to_f<T>(ra[idx]) + to_f<T>(rb[idx]));
       o = (x2 + to_f<T>(bias[gn])) + v;
+    } else if constexpr (EPI == EPI_NONE) {
+      o = v;
     } else {
       const float h = rnd<T>(rnd<T>(v) + to_f<T>(bias[gn]));
       if constexpr (EPI == EPI_BIAS_GELU) {
@@ -156,17 +211,34 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ Wt, T* __restrict__ C
         o = h;
       }
     }
-    Cout[idx] = from_f<T>(o);
+    reinterpret_cast<T*>(Cout)[idx] = from_f<T>(o);
   }
 }
 
-// Launch C = A @ W^T with the chosen epilogue on `stream`.
-template <typename T, int EPI>
-void launch_gemm(const T* A, const T* Wt, T* C, int M, int N, int K, const T* bias,
-                 const T* ra, const T* rb, cudaStream_t stream) {
-  dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
-  gemm_kernel<T, EPI><<<grid, GEMM_THREADS, gemm_smem_bytes<T>(), stream>>>(
-      A, Wt, C, M, N, K, bias, ra, rb);
+// out[i] = sum_z part[z * n + i] for z in [0, nz), in order.
+static __global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                    long long n, int nz) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < nz; ++z) s += part[(long long)z * n + i];
+  out[i] = s;
+}
+
+static inline void launch_sum_partials(const float* part, float* out, long long n, int nz,
+                                cudaStream_t stream) {
+  sum_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, out, n, nz);
+}
+
+// Launch C = A op B with the chosen epilogue on `stream`. For EPI_F32 with
+// k_chunk < K, C receives ceil(K / k_chunk) partials of M x N (see above).
+template <typename T, int EPI, bool AT = false, bool BKN = false>
+void launch_gemm(const T* A, const T* B, void* C, int M, int N, int K, const T* bias,
+                 const T* ra, const T* rb, cudaStream_t stream, int k_chunk = 0) {
+  if (k_chunk <= 0) k_chunk = K;
+  dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM, (K + k_chunk - 1) / k_chunk);
+  gemm_kernel<T, EPI, AT, BKN><<<grid, GEMM_THREADS, gemm_smem_bytes<T>(), stream>>>(
+      A, B, C, M, N, K, k_chunk, bias, ra, rb);
 }
 
 }  // namespace flair

@@ -1,4 +1,4 @@
-"""FLAIR-HUB model, single mono-modality case (the zonal main path).
+"""FLAIR-HUB model, single mono-modality case (the zonal and training paths).
 
 Port of ``flair_for_aigle_tpu/models/flair_model.py``: ``resolve_model_plan``
 and ``FlairHubModel`` for one active mono modality, where the fusion handler

@@ -133,12 +133,17 @@ class TorchLayerNorm(nn.Module):
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm over the last (channel) axis, inference form with the
-    running statistics (the zonal path never trains)."""
+    """BatchNorm over the last (channel) axis, torch semantics
+    (``flair_for_aigle_tpu/models/layers.py:229``). In training mode it
+    normalises with the batch's float32 mean and biased variance over every
+    axis but the last, and updates the running statistics with momentum
+    0.1 and the unbiased variance; in eval mode it uses the running
+    statistics."""
 
-    def __init__(self, ch: int, eps: float = 1e-5):
+    def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.empty(ch))
         self.bias = nn.Parameter(torch.empty(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -152,8 +157,20 @@ class TorchBatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * inv + self.bias).to(x.dtype)
+        xf = x.float()
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mean = xf.mean(axes)
+            var = ((xf - mean) ** 2).mean(axes)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * inv + self.bias).to(x.dtype)
 
 
 class MLP(nn.Module):

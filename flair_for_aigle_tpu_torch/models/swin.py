@@ -5,14 +5,15 @@ state-dict keys (``layers.{i}.blocks.{j}.attn.qkv`` ..., downsample at stage
 entry on layers 1-3). Returned features follow smp's TimmUniversalEncoder:
 ``[input, zero-channel dummy at stride 2, s4, s8, s16, s32]``.
 
-Each block runs the three fused ops of the reference's default inference
-path (``swin.py:239-250, 156-171, 309-318``): the LN + shift + pad +
-partition prologue (``ops/prep.py``), the fused window attention
+Each block runs the three fused ops of the reference's default path
+(``swin.py:239-250, 156-171, 309-318``): the LN + shift + pad + partition
+prologue (``ops/prep.py``), the fused window attention
 (``ops/window_attn.py``) and the residual + LN + MLP + residual tail
-(``ops/ffn.py``). Each op launches its CUDA kernel on a CUDA tensor and runs
-its plain version on a CPU tensor. ``PatchMerging`` is the plain
-composition (the reference with ``FLAIR_SWIN_MERGE=0``); its fused kernel is
-not ported yet.
+(``ops/ffn.py``); ``PatchMerging`` runs the fused patch merge
+(``ops/merge.py``, the reference's default ``FLAIR_SWIN_MERGE=1``,
+``swin.py:344-356``). Each op launches its CUDA kernel on a CUDA tensor and
+runs its plain version on a CPU tensor, and each is differentiable, so
+training runs the same ops (the attention backward is kernel K6).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from flair_for_aigle_tpu_torch.models.layers import (
     TorchLayerNorm,
     TorchLinear,
 )
-from flair_for_aigle_tpu_torch.ops import ffn, prep, window_attn
+from flair_for_aigle_tpu_torch.ops import ffn, merge, prep, window_attn
 from flair_for_aigle_tpu_torch.ops.prep import window_reverse
 
 
@@ -149,7 +150,8 @@ class SwinBlock(nn.Module):
 
 class PatchMerging(nn.Module):
     """2x2 neighbourhood gather in timm order [x00, x10, x01, x11], LN over
-    the 4C concat, bias-free reduction (plain composition)."""
+    the 4C concat, bias-free reduction (the fused merge op); an odd H or W
+    is zero-padded first."""
 
     def __init__(self, dim: int, out_dim: int):
         super().__init__()
@@ -157,13 +159,11 @@ class PatchMerging(nn.Module):
         self.reduction = TorchLinear(4 * dim, out_dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
+        h, w = x.shape[1:3]
         if h % 2 or w % 2:
             x = torch.nn.functional.pad(x, (0, 0, 0, w % 2, 0, h % 2))
-            b, h, w, c = x.shape
-        x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 4, 2, 5)
-        x = x.reshape(b, h // 2, w // 2, 4 * c)
-        return self.reduction(self.norm(x))
+        return merge.fused_patch_merge(x.contiguous(), self.norm.weight,
+                                       self.norm.bias, self.reduction.weight)
 
 
 class _PatchEmbed(nn.Module):

@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels under ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
-plain C interface, loaded through ctypes. The library lands in
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into one shared library
+with a plain C interface, loaded through ctypes. The library lands in
 ``build/torch_kernels/`` at the repository root, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 loaded as it is. Nothing here runs at import time: the first wrapper that
@@ -27,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,14 @@ _SIGNATURES = {
     # logits, row_lo, row_hi, row_w_lo, row_w_hi, col_lo, col_hi, col_w_lo,
     # col_w_hi, out, b, k, h4, w4, inner, class_prob, dtype, stream
     "epilogue_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    # x, ln_scale, ln_bias, w_red, ln, out, b, h, w, c, out_c, eps, dtype,
+    # stream
+    "merge_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    # x, g, wqkv, bqkv, wproj, bias, qkv, do, o, dqkv, dbias_part,
+    # dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj, dbproj, dbias,
+    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, k_chunk, dtype,
+    # stream
+    "window_attn_bwd": [_P] * 19 + [_I] * 12 + [_P],
 }
 
 _lock = threading.Lock()
@@ -82,6 +91,19 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libflair_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands as concurrent processes; raise with the output of
+    the first that fails, after every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+
+
 def build() -> str:
     """Compile the kernels if no library for the current sources exists;
     returns the library path."""
@@ -91,15 +113,19 @@ def build() -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    tmp = f"{path}.{os.getpid()}.tmp"
+    tag = f"{path}.{os.getpid()}"
+    nvcc = _nvcc()
     cus = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
+    objs = [f"{tag}.{os.path.basename(cu)}.o" for cu in cus]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", cu, "-o", obj]
+                  for cu, obj in zip(cus, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tag}.tmp", *objs]])
+        os.replace(f"{tag}.tmp", path)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     LAST_BUILD_SECONDS = time.perf_counter() - t0
     return path
 

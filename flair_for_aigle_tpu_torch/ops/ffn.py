@@ -8,6 +8,9 @@ float32 residual (fc2, recomputing x + attn); the LayerNorm is one
 bandwidth-bound pass. See the CUDA source for the bounds.
 
 Weights use the ``nn.Linear`` layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
+Differentiable: the backward recomputes through the plain version from the
+saved raw inputs, the reference's default route (``ffn.py:474-475``; its
+opt-in backward kernel, ``FLAIR_FFN_BWD=kernel``, is not ported yet).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from flair_for_aigle_tpu_torch.ops import _build
+from flair_for_aigle_tpu_torch.ops._vjp import plain_vjp
 
 
 def gelu_exact(h: torch.Tensor) -> torch.Tensor:
@@ -42,12 +46,8 @@ def fused_ln_mlp_residual_reference(x, attn, ln_scale, ln_bias, w1, b1, w2,
     return ((x2 + b2.to(dt).float()) + part).to(dt).reshape(shape)
 
 
-def fused_ln_mlp_residual(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, *,
-                          eps: float = 1e-5) -> torch.Tensor:
-    """``x2 = x + attn; x2 + fc2(gelu(fc1(LN(x2))))`` over (..., C) rows.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 or bfloat16, contiguous, C <= 1024, C and hidden multiples
-    of 8)."""
+def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
+    """The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return fused_ln_mlp_residual_reference(x, attn, ln_scale, ln_bias, w1,
                                                b1, w2, b2, eps=eps)
@@ -85,6 +85,30 @@ def fused_ln_mlp_residual(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, *,
     _build.check(rc, "ffn_fwd")
     fused_ln_mlp_residual.launches += 1
     return out
+
+
+class _Ffn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, attn, ln_scale, ln_bias, w1, b1, w2, b2)
+        ctx.eps = eps
+        return _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = plain_vjp(
+            lambda *a: fused_ln_mlp_residual_reference(*a, eps=ctx.eps),
+            ctx.saved_tensors, g, ctx.needs_input_grad[:8])
+        return (*grads, None)
+
+
+def fused_ln_mlp_residual(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, *,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """``x2 = x + attn; x2 + fc2(gelu(fc1(LN(x2))))`` over (..., C) rows.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32 or bfloat16, contiguous, C <= 1024, C and hidden multiples
+    of 8). Differentiable in every input."""
+    return _Ffn.apply(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps)
 
 
 fused_ln_mlp_residual.launches = 0

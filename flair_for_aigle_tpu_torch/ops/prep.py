@@ -7,6 +7,9 @@ of the activation, one write of the windows); the kernel resolves the
 shift/pad/partition gather per output token and keeps each token's channels
 in registers between the LayerNorm statistics and the write, so the
 activation is read once and no shifted or padded copy exists.
+
+Differentiable: the backward recomputes through the plain version from the
+saved raw inputs, as the reference's ``custom_vjp`` does (``prep.py:137-141``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from flair_for_aigle_tpu_torch.ops import _build
+from flair_for_aigle_tpu_torch.ops._vjp import plain_vjp
 
 
 def _padded(n: int, ws: int) -> int:
@@ -53,11 +57,9 @@ def fused_ln_shift_partition_reference(x: torch.Tensor, ln_scale, ln_bias, *,
     return window_partition(y, ws)
 
 
-def fused_ln_shift_partition(x: torch.Tensor, ln_scale, ln_bias, *, ws: int,
-                             ss: int, eps: float = 1e-5) -> torch.Tensor:
-    """(B, H, W, C) -> (B*nW, ws*ws, C): LN + roll(-ss) + pad-to-window +
-    window partition. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (float32 or bfloat16, contiguous NHWC, C <= 1024)."""
+def _launch(x: torch.Tensor, ln_scale, ln_bias, ws: int, ss: int,
+            eps: float) -> torch.Tensor:
+    """The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return fused_ln_shift_partition_reference(x, ln_scale, ln_bias, ws=ws,
                                                   ss=ss, eps=eps)
@@ -84,6 +86,30 @@ def fused_ln_shift_partition(x: torch.Tensor, ln_scale, ln_bias, *, ws: int,
     _build.check(rc, "prep_fwd")
     fused_ln_shift_partition.launches += 1
     return out
+
+
+class _Prep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, ws, ss, eps):
+        ctx.save_for_backward(x, ln_scale, ln_bias)
+        ctx.cfg = dict(ws=ws, ss=ss, eps=eps)
+        return _launch(x, ln_scale, ln_bias, ws, ss, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = plain_vjp(
+            lambda *a: fused_ln_shift_partition_reference(*a, **ctx.cfg),
+            ctx.saved_tensors, g, ctx.needs_input_grad[:3])
+        return (*grads, None, None, None)
+
+
+def fused_ln_shift_partition(x: torch.Tensor, ln_scale, ln_bias, *, ws: int,
+                             ss: int, eps: float = 1e-5) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nW, ws*ws, C): LN + roll(-ss) + pad-to-window +
+    window partition. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (float32 or bfloat16, contiguous NHWC, C <= 1024).
+    Differentiable in x and the LayerNorm parameters."""
+    return _Prep.apply(x, ln_scale, ln_bias, ws, ss, eps)
 
 
 fused_ln_shift_partition.launches = 0

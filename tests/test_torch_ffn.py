@@ -68,3 +68,29 @@ def test_gelu_exact_matches_torch_gelu():
         ffn.gelu_exact(h).numpy(),
         torch.nn.functional.gelu(h, approximate="none").numpy(),
         rtol=1e-5, atol=1e-6)
+
+
+def test_ffn_gradient_matches_jax_vjp():
+    """Autograd through the port's op (its backward recomputes through the
+    plain version) vs ``jax.vjp`` of the Pallas op (its default
+    recompute route), float32, 1e-4."""
+    import jax
+
+    c, hidden = 128, 512
+    rng = np.random.default_rng(5)
+    vals = [rng.normal(size=(2, 4, 8, c)), rng.normal(size=(2, 4, 8, c)),
+            rng.normal(size=(c,)) * 0.1 + 1, rng.normal(size=(c,)) * 0.1,
+            rng.normal(size=(c, hidden)) * 0.05, rng.normal(size=(hidden,)) * 0.05,
+            rng.normal(size=(hidden, c)) * 0.05, rng.normal(size=(c,)) * 0.05]
+    vals = [v.astype(np.float32) for v in vals]
+    g = rng.normal(size=(2, 4, 8, c)).astype(np.float32)
+    _, pullback = jax.vjp(lambda *a: jffn(*a, interpret=True),
+                          *(jnp.asarray(v.copy()) for v in vals))
+    want = [np.asarray(v) for v in pullback(jnp.asarray(g.copy()))]
+    want[4], want[6] = want[4].T, want[6].T           # nn.Linear layout
+    tv = [v.T if i in (4, 6) else v for i, v in enumerate(vals)]
+    leaves = [torch.from_numpy(v.copy()).requires_grad_() for v in tv]
+    ffn.fused_ln_mlp_residual(*leaves).backward(torch.from_numpy(g))
+    names = ["dx", "dattn", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2"]
+    for name, t, e in zip(names, leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), e, rtol=1e-4, atol=1e-4, err_msg=name)

@@ -9,15 +9,19 @@ these tests do not need):
 Shapes are small and cover what the full-size smoke run (chip_smoke.py)
 does not: windows smaller than 12 (T = 64, 16, 4, as swin at small inputs
 clamps them), non-square window grids, odd token counts for the GEMM edges,
-and the whole swin_micro-upernet model on the card against the CPU.
-Tolerances: float32 1e-4 relative to the largest reference magnitude;
-bfloat16 4 units in the last place at that magnitude (1 for the prologue).
+and the whole swin_micro-upernet model on the card against the CPU, in
+inference and in a training step. Tolerances: float32 1e-4 relative to the
+largest reference magnitude; bfloat16 4 units in the last place at that
+magnitude (1 for the prologue). The attention backward (K6) against
+autograd through the plain forward: float32 2e-3 relative to each
+gradient's largest magnitude, bfloat16 median relative error < 0.04 per
+gradient (tests/test_window_attn_kernel.py's bounds for the TPU backward).
 """
 
 import pytest
 import torch
 
-from flair_for_aigle_tpu_torch.ops import epilogue, ffn, prep, window_attn
+from flair_for_aigle_tpu_torch.ops import epilogue, ffn, merge, prep, window_attn
 
 pytestmark = pytest.mark.cuda
 
@@ -122,6 +126,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # float16
         prep.fused_ln_shift_partition(torch.randn((1, 12, 12, 32), device=dev).half(),
                                       torch.ones(32), torch.zeros(32), ws=12, ss=0)
+    with pytest.raises(ValueError):  # odd H
+        merge.fused_patch_merge(torch.randn((1, 7, 8, 32), device=dev), torch.ones(128),
+                                torch.zeros(128), torch.ones((64, 128)))
+    with pytest.raises(ValueError):  # float16
+        window_attn.fused_window_attention_backward(
+            x.half(), x.half(), w, w[:, 0], w[:64], w[:64, 0],
+            torch.zeros((2, 144, 144), device=dev), num_heads=2, window_size=12,
+            shift_size=0, grid_hw=(2, 2))
 
 
 def test_swin_micro_model_on_the_card_matches_cpu(dev):
@@ -142,3 +154,128 @@ def test_swin_micro_model_on_the_card_matches_cpu(dev):
         model.to(dev)
         got = model({k: v.to(dev) for k, v in batch.items()})[0]["T"].cpu()
     _assert_close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,out_c", [((2, 16, 16, 128), 256), ((1, 8, 12, 96), 192),
+                                         ((3, 6, 6, 512), 1024)])
+def test_merge_kernel(dev, dtype, shape, out_c):
+    g = torch.Generator(device=dev).manual_seed(4)
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    p = (torch.randn(4 * c, generator=g, device=dev) * 0.1 + 1,
+         torch.randn(4 * c, generator=g, device=dev) * 0.1,
+         torch.randn((out_c, 4 * c), generator=g, device=dev) * (4 * c) ** -0.5)
+    merge.fused_patch_merge.launches = 0
+    got = merge.fused_patch_merge(x, *p)
+    want = merge.fused_patch_merge_reference(x, *p)
+    torch.cuda.synchronize()
+    assert merge.fused_patch_merge.launches == 1
+    _assert_close(got, want, dtype)
+
+
+def _assert_grads_close(got, want, dtype):
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all()
+        if dtype == torch.float32:
+            assert (a - b).abs().max().item() <= 2e-3 * max(b.abs().max().item(), 1e-6)
+        else:
+            assert ((a - b).abs() / b.abs().clamp(min=1e-2)).median().item() < 0.04
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("attn_f32", [True, False])
+@pytest.mark.parametrize("ws,ss,grid,c,nh", [(12, 6, (2, 3), 128, 4), (8, 0, (1, 1), 256, 8),
+                                            (4, 2, (3, 2), 96, 3), (2, 0, (1, 1), 1024, 32)])
+def test_window_attn_backward_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
+    g = torch.Generator(device=dev).manual_seed(5)
+    t = ws * ws
+    bnw = 2 * grid[0] * grid[1]
+    x = torch.randn((bnw, t, c), generator=g, device=dev).to(dtype)
+    gy = torch.randn((bnw, t, c), generator=g, device=dev).to(dtype)
+    p = (torch.randn((3 * c, c), generator=g, device=dev) * c ** -0.5,
+         torch.randn(3 * c, generator=g, device=dev) * 0.02,
+         torch.randn((c, c), generator=g, device=dev) * c ** -0.5,
+         torch.randn(c, generator=g, device=dev) * 0.02,
+         torch.randn((nh, t, t), generator=g, device=dev) * 0.5)
+    kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=attn_f32)
+    window_attn.fused_window_attention_backward.launches = 0
+    got = window_attn.fused_window_attention_backward(gy, x, *p, **kw)
+    want = window_attn.fused_window_attention_backward_reference(gy, x, *p, **kw)
+    torch.cuda.synchronize()
+    assert window_attn.fused_window_attention_backward.launches == 1
+    assert [a.shape for a in got] == [a.shape for a in want]
+    _assert_grads_close(got, want, dtype)
+
+
+def test_backward_kernel_repeats_exactly(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    c, nh = 256, 8
+    x, gy = (torch.randn((8, 144, c), generator=g, device=dev) for _ in range(2))
+    p = (torch.randn((3 * c, c), generator=g, device=dev) * c ** -0.5,
+         torch.randn(3 * c, generator=g, device=dev), torch.randn((c, c), generator=g, device=dev),
+         torch.randn(c, generator=g, device=dev), torch.randn((nh, 144, 144), generator=g, device=dev))
+    kw = dict(num_heads=nh, window_size=12, shift_size=6, grid_hw=(2, 2))
+    a = window_attn.fused_window_attention_backward(gy, x, *p, **kw)
+    b = window_attn.fused_window_attention_backward(gy, x, *p, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_swin_ops_pass_gradients_on_the_card(dev):
+    """Every parameter of a shifted swin block and a patch merge gets the
+    gradient the CPU computes (the kernel wrappers are differentiable)."""
+    from flair_for_aigle_tpu_torch.models.layers import init_weights
+    from flair_for_aigle_tpu_torch.models.swin import PatchMerging, SwinBlock
+
+    torch.manual_seed(0)
+    for mod, shape in ((SwinBlock(128, 4, 12, shift=True), (2, 20, 28, 128)),
+                       (PatchMerging(128, 256), (2, 16, 16, 128))):
+        init_weights(mod, torch.Generator().manual_seed(1))
+        for p in mod.parameters():  # no zero-initialised parameter
+            p.data.add_(torch.randn(p.shape) * 0.02)
+        x = torch.randn(shape)
+        r = torch.randn_like(mod(x))
+        grads = {}
+        for d in ("cpu", dev):
+            mod.to(d).zero_grad()
+            xd = x.to(d).detach().requires_grad_()
+            (mod(xd) * r.to(d)).sum().backward()
+            # copies: moving the module to the card moves the CPU .grad too
+            grads[str(d)] = {n: p.grad.to("cpu", copy=True) for n, p in mod.named_parameters()}
+            grads[str(d)]["x"] = xd.grad.to("cpu", copy=True)
+        for n, want in grads["cpu"].items():
+            got = grads[str(dev)][n]
+            assert got.abs().max() > 0, n
+            _assert_close(got, want, torch.float32)
+
+
+def test_training_step_on_the_card_matches_cpu(dev):
+    """One training-mode loss + gradients of swin_micro-upernet through the
+    kernels (K1, K2 + K6, K3, K5) against the CPU's plain versions."""
+    from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
+    from flair_for_aigle_tpu_torch.models.layers import init_weights
+    from flair_for_aigle_tpu_torch.train.optim import make_optimizer
+    from flair_for_aigle_tpu_torch.train.task import make_steps
+    from flair_for_aigle_tpu_torch.zonal.model_utils import prepare_model_config
+
+    cfg = prepare_model_config({
+        "model_weights": "", "monotemp_arch": "swin_micro_patch4_window12_384-upernet",
+        "modalities": {"inputs": {"AERIAL_RGBI": True}, "AERIAL_RGBI": {"channels": [1, 2, 3]}},
+        "tasks": [{"name": "T", "active": True, "class_names": ["a", "b", "c", "d", "e"]}]})
+    cfg["labels_configs"]["T"]["value_weights"] = {"default": 1}
+    cfg["modalities"]["aux_loss"] = {}
+    cfg["hyperparams"] = {"optimizer": "adamw", "learning_rate": 1e-4}
+    rng = torch.Generator().manual_seed(2)
+    batch = {"AERIAL_RGBI": torch.randn((2, 3, 64, 64), generator=rng).numpy(),
+             "T": torch.nn.functional.one_hot(torch.randint(0, 5, (2, 64, 64), generator=rng),
+                                              5).permute(0, 3, 1, 2).float().numpy()}
+    out = {}
+    for d in ("cpu", dev):
+        model = init_weights(FlairHubModel(cfg), torch.Generator().manual_seed(0)).to(d)
+        steps = make_steps(model, cfg, make_optimizer(cfg["hyperparams"], model.parameters()), d)
+        loss, grads, _, _ = steps.loss_and_grads(batch)
+        out[str(d)] = (loss.item(), torch.cat([g.flatten().cpu() for g in grads]))
+    (l0, g0), (l1, g1) = out["cpu"], out[str(dev)]
+    assert abs(l0 - l1) <= 1e-4 * abs(l0)
+    assert torch.nn.functional.cosine_similarity(g0, g1, dim=0).item() >= 0.9999

@@ -53,3 +53,26 @@ def test_window_partition_roundtrip():
     win = prep.window_partition(x, 12)
     assert win.shape == (2 * 2 * 3, 144, 3)
     assert torch.equal(prep.window_reverse(win, 12, 24, 36), x)
+
+
+@pytest.mark.parametrize("hw,ss", [(24, 0), (20, 6)])
+def test_prep_gradient_matches_jax_vjp(hw, ss):
+    """Autograd through the port's op (its backward recomputes through the
+    plain version) vs ``jax.vjp`` of the Pallas op, float32, 1e-4."""
+    import jax
+
+    b, c, ws = 2, 128, 12
+    rng = np.random.default_rng(hw + ss)
+    x = rng.normal(size=(b, hw, hw, c)).astype(np.float32)
+    s = (rng.normal(size=(c,)) * 0.1 + 1).astype(np.float32)
+    bias = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
+    hp = hw + (ws - hw % ws) % ws
+    g = rng.normal(size=(b * (hp // ws) ** 2, ws * ws, c)).astype(np.float32)
+    _, pullback = jax.vjp(
+        lambda *a: jprep.fused_ln_shift_partition(*a, ws=ws, ss=ss, interpret=True),
+        *(jnp.asarray(v.copy()) for v in (x, s, bias)))
+    want = [np.asarray(v) for v in pullback(jnp.asarray(g.copy()))]
+    leaves = [torch.from_numpy(v.copy()).requires_grad_() for v in (x, s, bias)]
+    prep.fused_ln_shift_partition(*leaves, ws=ws, ss=ss).backward(torch.from_numpy(g))
+    for name, t, e in zip(["dx", "dscale", "dbias"], leaves, want):
+        np.testing.assert_allclose(t.grad.numpy(), e, rtol=1e-4, atol=1e-4, err_msg=name)
