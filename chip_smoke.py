@@ -9,11 +9,13 @@ Phases, one printed line each (any failure raises and exits non-zero):
 2. build: compile the CUDA kernels under flair_for_aigle_tpu_torch/csrc/;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the swin-base@512 shapes (batch 2): K1-K4 at the zonal path's stages,
-   K5 (patch merge) at the three merge transitions and K6 (attention
-   backward, plain version: autograd through the plain forward) at the
-   four stages, in bf16 and float32, both softmax modes; max and median
-   error against the stated bound, kernel and plain times (CUDA events,
-   median of 20);
+   K5 (patch merge) at the three merge transitions, K6 (attention
+   backward, plain version: autograd through the plain forward), K7 (ffn
+   backward) and K8 (fused finish, with the real shift) at the four stages,
+   in bf16 and float32, both softmax modes; max and median error against
+   the stated bound, kernel and plain times (CUDA events, median of 20)
+   and each kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   operations over the peak for its dtype);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -21,6 +23,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
    output geometry, labels < 19, every kernel's launch count during the run,
    argmax agreement of one batch with a forward built from the plain
    versions (float32 and bf16), and the warm wall time, tiles/s and km2/h;
+   then a pass of the same raster with ``FLAIR_SWIN_FINISH=1`` (K8 in every
+   block, K3 in none): its launches, its label agreement with the default
+   pass and both passes' tiles/s;
 5. train: the host probe (pandas), then the port's ``training_stage`` and
    ``predict_stage`` with the reference's default training configuration
    (configs/train/*.yaml: swin-base-UPerNet, AERIAL_RGBI channels [4,1,2],
@@ -30,8 +35,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    count during the run, finite losses, the checkpoint reloading strictly,
    the prediction rasters and metrics; the cosine between the gradients of
    one batch-5 float32 step through the kernels and through the plain
-   versions; ms/step and peak device memory of both routes in float32 and
-   with ``compute_dtype: bfloat16``.
+   versions, and again with ``FLAIR_FFN_BWD=kernel`` (K7 in every block's
+   backward) and with ``FLAIR_SWIN_FINISH=1`` (K8 in every block); ms/step
+   and peak device memory of the kernel, plain and K7 routes in float32
+   and with ``compute_dtype: bfloat16``.
 
 The line before the last is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``. Needs one card, the CUDA toolkit (nvcc)
@@ -75,7 +82,19 @@ KERNELS = {
               "flair_for_aigle_tpu/ops/pallas/merge.py:32"),
     "window_attn_bwd": ("flair_for_aigle_tpu_torch/csrc/window_attn_bwd.cu",
                         "flair_for_aigle_tpu/ops/pallas/window_attn.py:534"),
+    "ffn_bwd": ("flair_for_aigle_tpu_torch/csrc/ffn_bwd.cu",
+                "flair_for_aigle_tpu/ops/pallas/ffn.py:297"),
+    "finish": ("flair_for_aigle_tpu_torch/csrc/finish.cu",
+               "flair_for_aigle_tpu/ops/pallas/finish.py:41"),
 }
+# kernels that run only under the reference's opt-in fused-block switches
+SWITCHED = {"ffn_bwd": ("FLAIR_FFN_BWD", "kernel"), "finish": ("FLAIR_SWIN_FINISH", "1")}
+# the H100 SXM's published peaks (on-chip-measurement guide): memory bytes/s,
+# and dense operations/s for the dtype a kernel's products run in (bf16 on
+# the tensor cores; float32 on the SIMT units, the kernels take no TF32)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+T = WS * WS  # tokens per window
 # (H = W, C) entering each merge of swin-base@512 (stages 1->2, 2->3, 3->4)
 MERGES = [(128, 128), (64, 256), (32, 512)]
 TRAIN_N = {"train": 20, "val": 5, "test": 5}
@@ -86,24 +105,48 @@ STEPS_WARM, STEPS_TIMED = 2, 5  # train_step timing: warm-up, then timed
 
 def kernel_fns() -> dict:
     """name -> the wrapper whose ``launches`` counts that kernel."""
-    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, merge, prep, window_attn
+    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, finish, merge, prep, window_attn
 
     return {"prep": prep.fused_ln_shift_partition,
             "window_attn": window_attn.fused_window_attention,
             "window_attn_bwd": window_attn.fused_window_attention_backward,
             "ffn": ffn.fused_ln_mlp_residual,
+            "ffn_bwd": ffn.fused_ln_mlp_residual_backward,
             "merge": merge.fused_patch_merge,
+            "finish": finish.fused_reverse_ln_mlp_residual,
             "epilogue": epilogue.upsample_crop_convert}
+
+
+def zero_launches(names) -> dict:
+    """Set the named kernels' launch counts to 0; returns their wrappers."""
+    fns = {k: fn for k, fn in kernel_fns().items() if k in names}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+@contextlib.contextmanager
+def switch(name: str, value: str):
+    """The environment variable ``name`` set to ``value`` inside the block."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = saved
 
 
 @contextlib.contextmanager
 def plain_versions():
     """The model's ops resolve to their plain versions inside the block."""
-    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, merge, prep, window_attn
+    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, finish, merge, prep, window_attn
 
     mods = [(prep, "fused_ln_shift_partition"), (window_attn, "fused_window_attention"),
             (ffn, "fused_ln_mlp_residual"), (merge, "fused_patch_merge"),
-            (epilogue, "upsample_crop_convert")]
+            (finish, "fused_reverse_ln_mlp_residual"), (epilogue, "upsample_crop_convert")]
     saved = [getattr(m, n) for m, n in mods]
     try:
         for m, n in mods:
@@ -170,12 +213,94 @@ def phase_build() -> None:
         f"(nvcc {_build.LAST_BUILD_SECONDS:.1f} s)")
 
 
-def _add_time(stats, name, t_k, t_p):
-    stats[name]["ms"] += t_k
-    stats[name]["plain_ms"] += t_p
+def _stat(stats, name) -> dict:
+    return stats.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                   "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
 
 
-def _compare(name, case, got, want, bound, t_k, t_p, stats):
+def _bound(cost) -> tuple[float, float]:
+    """(bytes, operations) of ``cost = (bytes, operations, dtype)`` as the
+    least ms the card takes for each; the bound is the larger."""
+    nbytes, ops, dt = cost
+    return nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S[dt] * 1e3
+
+
+def _bound_text(cost) -> str:
+    t_bytes, t_ops = _bound(cost)
+    return f"bound {max(t_bytes, t_ops):.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})"
+
+
+def _add_time(stats, name, t_k, t_p, cost):
+    """Add one timed call to the kernel's sums: its time, its plain
+    version's, and its bound."""
+    s = _stat(stats, name)
+    t_bytes, t_ops = _bound(cost)
+    s["ms"] += t_k
+    s["plain_ms"] += t_p
+    s["bytes_ms"] += t_bytes
+    s["ops_ms"] += t_ops
+    s["bound_ms"] += max(t_bytes, t_ops)
+
+
+# (bytes, operations) of each kernel's function at one call's shapes: every
+# input read once, every output written once (activations in the compute
+# dtype of itemsize ``isz``, parameters float32 as the wrappers receive
+# them); operations of the products (2 per multiply-add) and ~8 per element
+# of the normalisations and the epilogue's interpolation
+def _ffn_param_bytes(c):
+    return (8 * c * c + 7 * c) * 4  # LN scale, bias; W1, b1, W2, b2 (hidden 4C)
+
+
+def cost_prep(b, hw, c, isz):
+    nw = b * (-(-hw // WS)) ** 2
+    return (b * hw * hw * c + nw * T * c) * isz + 2 * c * 4, 8 * b * hw * hw * c
+
+
+def cost_window_attn(bnw, c, nh, isz):
+    m = bnw * T
+    return (2 * m * c * isz + (4 * c * c + 4 * c + nh * T * T) * 4,
+            8 * m * c * c + 4 * bnw * T * T * c)
+
+
+def cost_window_attn_bwd(bnw, c, nh, isz):
+    # recompute qkv, s and o; then do, dWproj, dp, dv, dq, dk, dWqkv, dx
+    m = bnw * T
+    return (3 * m * c * isz + 2 * (4 * c * c + 4 * c + nh * T * T) * 4,
+            22 * m * c * c + 12 * bnw * T * T * c)
+
+
+def cost_ffn(n, c, isz):
+    return 3 * n * c * isz + _ffn_param_bytes(c), 16 * n * c * c
+
+
+def cost_ffn_bwd(n, c, isz):
+    # x, attn, g in; dx (= dattn) out; five products of 2 n C 4C each
+    return 4 * n * c * isz + 2 * _ffn_param_bytes(c), 40 * n * c * c
+
+
+def cost_finish(b, hw, c, isz):
+    n, nw = b * hw * hw, b * (-(-hw // WS)) ** 2
+    return (nw * T * c + 2 * n * c) * isz + _ffn_param_bytes(c), 16 * n * c * c
+
+
+def cost_merge(b, hw, c, isz):
+    n_out = b * (hw // 2) ** 2
+    return ((b * hw * hw * c + n_out * 2 * c) * isz + (8 * c + 8 * c * c) * 4,
+            16 * n_out * c * c)
+
+
+def cost_epilogue(b, k, hw, margin, isz, out_ch):
+    # out_ch: 1 (argmax labels) or k (class_prob bytes)
+    kept = 4 * hw - 2 * margin
+    return b * k * hw * hw * isz + b * out_ch * kept * kept, 8 * b * kept * kept * k
+
+
+def cost_attn_dots(bnw, c):
+    # tools/exp_attn_dots.py: q, k, v in, out; QK^T and P V per window, bf16
+    return 4 * bnw * T * c * 2, 4 * bnw * T * T * c
+
+
+def _compare(name, case, got, want, bound, t_k, t_p, stats, cost):
     import torch
 
     err = (got.float() - want.float()).abs()
@@ -183,23 +308,24 @@ def _compare(name, case, got, want, bound, t_k, t_p, stats):
     ok = mx <= bound
     say("kernel", f"{name} {case}: max_abs_err {mx:.3e} median {med:.3e} "
         f"bound {bound:.3e} {'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms")
-    s = stats.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        f"plain {t_p:.4f} ms, {_bound_text(cost)}")
+    s = _stat(stats, name)
     s["max_abs_err"] = max(s["max_abs_err"], mx)
     if not ok:
         raise AssertionError(f"{name} {case}: max_abs_err {mx} > bound {bound}")
     torch.cuda.synchronize()
 
 
-def _compare_grads(case, got, want, f32: bool, t_k, t_p, stats):
-    """K6 against the plain backward, per gradient: float32 elementwise
-    |a - b| <= 2e-3 + 2e-3 |b|; bf16 median relative error < 0.04
-    (tests/test_window_attn_kernel.py's bounds for the TPU backward)."""
+def _compare_grads(name, grad_names, case, got, want, f32: bool, t_k, t_p, stats, cost):
+    """A backward kernel against its plain version, per gradient: float32
+    elementwise |a - b| <= 2e-3 + 2e-3 |b|; bf16 median relative error <
+    0.04 (tests/test_window_attn_kernel.py's and tests/test_ffn_kernel.py's
+    bounds for the TPU backwards)."""
     import torch
 
-    s = stats.setdefault("window_attn_bwd", {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+    s = _stat(stats, name)
     parts, ok = [], True
-    for name, a, b in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"], got, want):
+    for gname, a, b in zip(grad_names, got, want):
         a, b = a.float(), b.float()
         err = (a - b).abs()
         mx = err.max().item()
@@ -207,27 +333,28 @@ def _compare_grads(case, got, want, f32: bool, t_k, t_p, stats):
         if f32:
             worst = (err / (2e-3 + 2e-3 * b.abs())).max().item()
             ok &= worst <= 1.0 and bool(torch.isfinite(a).all())
-            parts.append(f"{name} max {mx:.2e} (x{worst:.3f} of bound)")
+            parts.append(f"{gname} max {mx:.2e} (x{worst:.3f} of bound)")
         else:
             med = (err / b.abs().clamp(min=1e-2)).median().item()
             ok &= med < 0.04 and bool(torch.isfinite(a).all())
-            parts.append(f"{name} max {mx:.2e} med_rel {med:.2e}")
-    say("kernel", f"window_attn_bwd {case}: {'; '.join(parts)} "
+            parts.append(f"{gname} max {mx:.2e} med_rel {med:.2e}")
+    say("kernel", f"{name} {case}: {'; '.join(parts)} "
         f"bound {'2e-3 + 2e-3|ref|' if f32 else 'median rel < 0.04'} "
-        f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"{_bound_text(cost)}")
     if not ok:
-        raise AssertionError(f"window_attn_bwd {case}: outside the bound")
+        raise AssertionError(f"{name} {case}: outside the bound")
     torch.cuda.synchronize()
 
 
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns per-kernel stats
-    (times summed over the stages, in the dtype of the path each kernel
-    serves: bf16 for K1-K4, the zonal slice's; float32 for K5 and K6, the
-    training configuration's)."""
+    (times and bounds summed over the stages, in the dtype of the path each
+    kernel serves: bf16 for K1-K4 and K8, the zonal slice's; float32 for K5,
+    K6 and K7, the training configuration's)."""
     import torch
 
-    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, merge, prep, window_attn
+    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, finish, merge, prep, window_attn
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -244,10 +371,19 @@ def phase_kernels() -> dict:
         scale = max(1.0, ref.float().abs().max().item())
         return (bf16_ulps * 2.0 ** -7 if dtype == bf else f32_rel) * scale
 
+    def ffn_params(c):
+        return (randn(c, dtype=f32) * 0.1 + 1, randn(c, dtype=f32) * 0.1,
+                randn(4 * c, c, dtype=f32, std=c ** -0.5), randn(4 * c, dtype=f32, std=0.02),
+                randn(c, 4 * c, dtype=f32, std=(4 * c) ** -0.5), randn(c, dtype=f32, std=0.02))
+
     for (hw, c, nh) in STAGES:
         geom = f"B2 {hw}x{hw}x{c}"
+        hp = hw + (WS - hw % WS) % WS
+        nwh = hp // WS
         for dtype in ([bf, f32] if hw == 128 else [bf]):
-            tag = f"{geom} {'bf16' if dtype == bf else 'f32'}"
+            dts = "bf16" if dtype == bf else "f32"
+            tag = f"{geom} {dts}"
+            isz = 2 if dtype == bf else 4
             # K1: LN + shift + pad + partition
             x = randn(2, hw, hw, c, dtype=dtype)
             s, b = randn(c, dtype=f32) * 0.1 + 1, randn(c, dtype=f32) * 0.1
@@ -256,18 +392,17 @@ def phase_kernels() -> dict:
             want = prep.fused_ln_shift_partition_reference(x, s, b, **kw)
             t_k = cuda_ms(lambda: prep.fused_ln_shift_partition(x, s, b, **kw))
             t_p = cuda_ms(lambda: prep.fused_ln_shift_partition_reference(x, s, b, **kw))
-            _compare("prep", tag, got, want, bound(want, dtype, 1, 1e-5), t_k, t_p, stats)
+            cost = (*cost_prep(2, hw, c, isz), dts)
+            _compare("prep", tag, got, want, bound(want, dtype, 1, 1e-5), t_k, t_p, stats, cost)
             if dtype == bf:
-                _add_time(stats, "prep", t_k, t_p)
+                _add_time(stats, "prep", t_k, t_p, cost)
 
             # K2: window attention, both softmax modes
-            hp = hw + (WS - hw % WS) % WS
-            nwh = hp // WS
             win = prep.fused_ln_shift_partition(x, s, b, **kw)
             bound_c = c ** -0.5
             params = (randn(3 * c, c, dtype=f32, std=bound_c), randn(3 * c, dtype=f32, std=0.02),
                       randn(c, c, dtype=f32, std=bound_c), randn(c, dtype=f32, std=0.02),
-                      randn(nh, WS * WS, WS * WS, dtype=f32, std=0.02))
+                      randn(nh, T, T, dtype=f32, std=0.02))
             for attn_f32 in (True, False):
                 akw = dict(num_heads=nh, window_size=WS, shift_size=SS,
                            grid_hw=(nwh, nwh), attn_f32=attn_f32)
@@ -275,29 +410,73 @@ def phase_kernels() -> dict:
                 want = window_attn.fused_window_attention_reference(win, *params, **akw)
                 t_k = cuda_ms(lambda: window_attn.fused_window_attention(win, *params, **akw))
                 t_p = cuda_ms(lambda: window_attn.fused_window_attention_reference(win, *params, **akw))
+                cost = (*cost_window_attn(win.shape[0], c, nh, isz), dts)
                 _compare("window_attn", f"{tag} attn_f32={attn_f32}", got, want,
-                         bound(want, dtype, 4, 1e-4), t_k, t_p, stats)
+                         bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost)
                 if dtype == bf and not attn_f32:  # the slice's configuration
-                    _add_time(stats, "window_attn", t_k, t_p)
+                    _add_time(stats, "window_attn", t_k, t_p, cost)
 
             # K3: residual + LN + MLP + residual
             a = randn(2, hw, hw, c, dtype=dtype, std=0.5)
-            fp = (s, b, randn(4 * c, c, dtype=f32, std=bound_c), randn(4 * c, dtype=f32, std=0.02),
-                  randn(c, 4 * c, dtype=f32, std=(4 * c) ** -0.5), randn(c, dtype=f32, std=0.02))
+            fp = ffn_params(c)
             got = ffn.fused_ln_mlp_residual(x, a, *fp)
             want = ffn.fused_ln_mlp_residual_reference(x, a, *fp)
             t_k = cuda_ms(lambda: ffn.fused_ln_mlp_residual(x, a, *fp))
             t_p = cuda_ms(lambda: ffn.fused_ln_mlp_residual_reference(x, a, *fp))
-            _compare("ffn", tag, got, want, bound(want, dtype, 4, 1e-4),
-                     t_k, t_p, stats)
+            cost = (*cost_ffn(2 * hw * hw, c, isz), dts)
+            _compare("ffn", tag, got, want, bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost)
             if dtype == bf:
-                _add_time(stats, "ffn", t_k, t_p)
+                _add_time(stats, "ffn", t_k, t_p, cost)
+
+    # K8: the fused finish at the four stages with the real shift, both
+    # dtypes; K3's bounds (after its gather it computes K3's function); times
+    # summed in bf16, the zonal slice's dtype
+    for (hw, c, nh) in STAGES:
+        nwh = -(-hw // WS)
+        for dtype in (bf, f32):
+            dts = "bf16" if dtype == bf else "f32"
+            tag = f"B2 {hw}x{hw}x{c} ws{WS} ss{SS} {dts}"
+            win = randn(2 * nwh * nwh, T, c, dtype=dtype)
+            x = randn(2, hw, hw, c, dtype=dtype)
+            fp = ffn_params(c)
+            fkw = dict(ws=WS, ss=SS)
+            got = finish.fused_reverse_ln_mlp_residual(win, x, *fp, **fkw)
+            want = finish.fused_reverse_ln_mlp_residual_reference(win, x, *fp, **fkw)
+            t_k = cuda_ms(lambda: finish.fused_reverse_ln_mlp_residual(win, x, *fp, **fkw))
+            t_p = cuda_ms(lambda: finish.fused_reverse_ln_mlp_residual_reference(win, x, *fp, **fkw))
+            cost = (*cost_finish(2, hw, c, 2 if dtype == bf else 4), dts)
+            _compare("finish", tag, got, want, bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost)
+            if dtype == bf:
+                _add_time(stats, "finish", t_k, t_p, cost)
+
+    # K7: the ffn backward at the four stages (N = 2 H W rows), both dtypes,
+    # against its plain version; times summed in float32
+    for (hw, c, nh) in STAGES:
+        n = 2 * hw * hw
+        for dtype in (bf, f32):
+            dts = "bf16" if dtype == bf else "f32"
+            tag = f"N{n} C{c} {dts}"
+            x, a, gy = randn(n, c, dtype=dtype), randn(n, c, dtype=dtype), randn(n, c, dtype=dtype)
+            s, b, w1, b1, w2, _ = ffn_params(c)
+            args = (gy, x, a, s, b, w1, b1, w2)
+            got = ffn.fused_ln_mlp_residual_backward(*args)
+            want = ffn.fused_ln_mlp_residual_backward_reference(x, a, s, b, w1, b1, w2, gy)
+            t_k = cuda_ms(lambda: ffn.fused_ln_mlp_residual_backward(*args))
+            t_p = cuda_ms(lambda: ffn.fused_ln_mlp_residual_backward_reference(
+                x, a, s, b, w1, b1, w2, gy))
+            cost = (*cost_ffn_bwd(n, c, 2 if dtype == bf else 4), dts)
+            _compare_grads("ffn_bwd", ["dx", "dattn", "dln_scale", "dln_bias", "dw1", "db1",
+                                       "dw2", "db2"], tag, got, want, dtype == f32, t_k, t_p,
+                           stats, cost)
+            if dtype == f32:
+                _add_time(stats, "ffn_bwd", t_k, t_p, cost)
 
     # K5: patch merge at the three transitions; times summed in float32,
     # the training configuration's dtype
     for (hw, c) in MERGES:
         for dtype in (bf, f32):
-            tag = f"B2 {hw}x{hw}x{c}->{2 * c} {'bf16' if dtype == bf else 'f32'}"
+            dts = "bf16" if dtype == bf else "f32"
+            tag = f"B2 {hw}x{hw}x{c}->{2 * c} {dts}"
             x = randn(2, hw, hw, c, dtype=dtype)
             mp = (randn(4 * c, dtype=f32) * 0.1 + 1, randn(4 * c, dtype=f32) * 0.1,
                   randn(2 * c, 4 * c, dtype=f32, std=(4 * c) ** -0.5))
@@ -307,9 +486,10 @@ def phase_kernels() -> dict:
             t_p = cuda_ms(lambda: merge.fused_patch_merge_reference(x, *mp))
             # bf16: LN rows round to bf16 before the product, so a rounding
             # flip there moves an output by up to one ulp at its scale
-            _compare("merge", tag, got, want, bound(want, dtype, 2, 1e-4), t_k, t_p, stats)
+            cost = (*cost_merge(2, hw, c, 2 if dtype == bf else 4), dts)
+            _compare("merge", tag, got, want, bound(want, dtype, 2, 1e-4), t_k, t_p, stats, cost)
             if dtype == f32:
-                _add_time(stats, "merge", t_k, t_p)
+                _add_time(stats, "merge", t_k, t_p, cost)
 
     # K6: attention backward at the four stages, both softmax modes, against
     # autograd through the plain forward; times summed over the stages in
@@ -318,15 +498,16 @@ def phase_kernels() -> dict:
         hp = hw + (WS - hw % WS) % WS
         nwh = hp // WS
         for dtype in (bf, f32):
-            x = randn(2 * nwh * nwh, WS * WS, c, dtype=dtype)
-            gy = randn(2 * nwh * nwh, WS * WS, c, dtype=dtype)
+            x = randn(2 * nwh * nwh, T, c, dtype=dtype)
+            gy = randn(2 * nwh * nwh, T, c, dtype=dtype)
             bound_c = c ** -0.5
             ap = (randn(3 * c, c, dtype=f32, std=bound_c), randn(3 * c, dtype=f32, std=0.02),
                   randn(c, c, dtype=f32, std=bound_c), randn(c, dtype=f32, std=0.02),
-                  randn(nh, WS * WS, WS * WS, dtype=f32, std=0.5))
+                  randn(nh, T, T, dtype=f32, std=0.5))
+            dts = "bf16" if dtype == bf else "f32"
+            cost = (*cost_window_attn_bwd(x.shape[0], c, nh, 2 if dtype == bf else 4), dts)
             for attn_f32 in (True, False):
-                tag = (f"B2 {hw}x{hw}x{c} {'bf16' if dtype == bf else 'f32'} "
-                       f"attn_f32={attn_f32}")
+                tag = f"B2 {hw}x{hw}x{c} {dts} attn_f32={attn_f32}"
                 akw = dict(num_heads=nh, window_size=WS, shift_size=SS,
                            grid_hw=(nwh, nwh), attn_f32=attn_f32)
                 got = window_attn.fused_window_attention_backward(gy, x, *ap, **akw)
@@ -334,9 +515,11 @@ def phase_kernels() -> dict:
                 t_k = cuda_ms(lambda: window_attn.fused_window_attention_backward(gy, x, *ap, **akw))
                 t_p = cuda_ms(lambda: window_attn.fused_window_attention_backward_reference(
                     gy, x, *ap, **akw))
-                _compare_grads(tag, got, want, dtype == f32, t_k, t_p, stats)
+                _compare_grads("window_attn_bwd", ["dx", "dwqkv", "dbqkv", "dwproj", "dbproj",
+                                                   "dbias"], tag, got, want, dtype == f32,
+                               t_k, t_p, stats, cost)
                 if dtype == f32 and attn_f32:
-                    _add_time(stats, "window_attn_bwd", t_k, t_p)
+                    _add_time(stats, "window_attn_bwd", t_k, t_p, cost)
 
     # K4: epilogue at (2, 19, 128, 128), margin 40, both output types
     for dtype in (bf, f32):
@@ -347,21 +530,32 @@ def phase_kernels() -> dict:
             want = epilogue.upsample_crop_convert_reference(lg, **ekw)
             t_k = cuda_ms(lambda: epilogue.upsample_crop_convert(lg, **ekw))
             t_p = cuda_ms(lambda: epilogue.upsample_crop_convert_reference(lg, **ekw))
-            tag = f"(2,19,128,128) m40 {'bf16' if dtype == bf else 'f32'} {output_type}"
+            dts = "bf16" if dtype == bf else "f32"
+            tag = f"(2,19,128,128) m40 {dts} {output_type}"
+            cost = (*cost_epilogue(2, N_CLASSES, 128, 40, 2 if dtype == bf else 4,
+                                   1 if output_type == "argmax" else N_CLASSES), dts)
             if output_type == "argmax":
                 # the kernel's two-tap sums and the plain matmuls round apart:
                 # only near-ties may flip; allow 1e-4 of the pixels
                 frac = (got != want).float().mean().item()
                 say("kernel", f"epilogue {tag}: differing pixels {frac:.2e} "
                     f"bound 1.0e-04 {'ok' if frac <= 1e-4 else 'FAIL'}; kernel "
-                    f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+                    f"{t_k:.4f} ms, plain {t_p:.4f} ms, {_bound_text(cost)}")
                 if frac > 1e-4:
                     raise AssertionError(f"epilogue {tag}: {frac} of pixels differ")
-                stats.setdefault("epilogue", {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+                _stat(stats, "epilogue")
             else:
-                _compare("epilogue", tag, got.int(), want.int(), 1.0, t_k, t_p, stats)
+                _compare("epilogue", tag, got.int(), want.int(), 1.0, t_k, t_p, stats, cost)
             if dtype == bf and output_type == "argmax":
-                _add_time(stats, "epilogue", t_k, t_p)
+                _add_time(stats, "epilogue", t_k, t_p, cost)
+    # the one TPU kernel still to port (an A/B tool on no path of the
+    # system), at its default shapes: its bound only
+    say("kernel", "tools/exp_attn_dots.py (not ported) at B16 128x128x128, 4 heads, bf16: "
+        + _bound_text((*cost_attn_dots(16 * 11 * 11, 128), "bf16")))
+    for name, st in stats.items():
+        say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
+            f"bound {st['bound_ms']:.4f} ms (bytes {st['bytes_ms']:.4f}, operations "
+            f"{st['ops_ms']:.4f}); share of bound {st['bound_ms'] / st['ms']:.3f}")
     return stats
 
 
@@ -387,10 +581,10 @@ def slice_config(img: str, weights: str) -> dict:
     }
 
 
-def _zonal_pass(cfg: dict, model) -> tuple[float, dict]:
+def _zonal_pass(cfg: dict, model) -> tuple[float, dict, str]:
     """Wall seconds of one zonal pass (tiling, dataset, inference, stitch,
-    D2H, write) with a prebuilt model, as bench.py times it, and the
-    engine's phase timings of that pass."""
+    D2H, write) with a prebuilt model, as bench.py times it, the engine's
+    phase timings of that pass and the label raster it wrote."""
     import torch
 
     from flair_for_aigle_tpu_torch.zonal import inference as zi
@@ -406,14 +600,14 @@ def _zonal_pass(cfg: dict, model) -> tuple[float, dict]:
     dataset = zi.prep_dataset(c, tiles, patch_sizes)
     loader = zi.BatchedLoader(dataset, batch_size=BATCH, num_workers=c["num_worker"])
     ref_img = zi.open_raster(c["modalities"]["AERIAL_RGBI"]["input_img_path"])
-    output_files, _ = zi.init_outputs(c, ref_img)
+    output_files, paths = zi.init_outputs(c, ref_img)
     zi.inference_and_write(model, loader, tiles, c, output_files, ref_img,
                            torch.device("cuda"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ref_img.close()
     dataset.close()
-    return wall, dict(LAST_TIMINGS)
+    return wall, dict(LAST_TIMINGS), paths["AERIAL_LABEL-COSIA"]
 
 
 def synthetic_raster(seed: int = 0):
@@ -456,10 +650,8 @@ def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
     save_file({k: v.contiguous() for k, v in seed_model.state_dict().items()}, weights)
     del seed_model
 
-    fns = {k: fn for k, fn in kernel_fns().items() if k != "window_attn_bwd"}
     # the user entry point, with every launch count at 0 just before it
-    for fn in fns.values():
-        fn.launches = 0
+    fns = zero_launches({"prep", "window_attn", "ffn", "merge", "epilogue"})
     t0 = time.perf_counter()
     paths = zi.run_inference(dict(cfg))
     torch.cuda.synchronize()
@@ -526,13 +718,33 @@ def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
 
     # bench.py's metric: read -> tile -> infer -> stitch -> write with a
     # prebuilt model, one warm-up pass then one timed pass
-    (first, _), (wall, phases) = [_zonal_pass(cfg, model) for _ in range(2)]
+    (first, _, _), (wall, phases, out) = [_zonal_pass(cfg, model) for _ in range(2)]
+    with zi.open_raster(out) as src:
+        pred_default = src.read().copy()
     km2 = SIDE * SIDE * RES * RES / 1e6
     say("slice", f"warm wall {wall:.3f} s (first pass {first:.3f} s), "
         f"{n_tiles / wall:.2f} tiles/s, {km2 / wall * 3600:.1f} km2/h on {card}; "
         "phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items()
                                    if k.endswith("_s")))
-    return launches
+
+    # the reference's fused-block switch: K8 in every block, K3 in none; one
+    # warm-up pass, then the timed pass with the counts at 0 just before it
+    with switch("FLAIR_SWIN_FINISH", "1"):
+        _zonal_pass(cfg, model)
+        fin = zero_launches({"prep", "window_attn", "ffn", "finish", "merge", "epilogue"})
+        wall_f, _, out = _zonal_pass(cfg, model)
+    launches_f = {k: fn.launches for k, fn in fin.items()}
+    with zi.open_raster(out) as src:
+        pred_finish = src.read()
+    agree_f = float((pred_finish == pred_default).mean())
+    say("slice", f"FLAIR_SWIN_FINISH=1 pass: launches {launches_f} (bound: finish 48, ffn 0); "
+        f"bf16 label agreement with the default pass {agree_f:.5f} (bound >= 0.99); "
+        f"warm wall {wall_f:.3f} s, {n_tiles / wall_f:.2f} tiles/s (default pass "
+        f"{n_tiles / wall:.2f} tiles/s, same run)")
+    if launches_f["finish"] != 48 or launches_f["ffn"] != 0 or agree_f < 0.99:
+        raise AssertionError("the FLAIR_SWIN_FINISH=1 pass did not run K8 in every block "
+                             "or disagrees with the default pass")
+    return {**launches, "finish": launches_f["finish"]}
 
 
 def train_config(root: str) -> dict:
@@ -605,9 +817,10 @@ def synthetic_split(cfg: dict, root: str, write_geotiff, seed: int = 0):
     return get_datasets(cfg), "pandas imports: split dicts from the CSVs (get_datasets)"
 
 
-def _route_step(cfg, batch, plain: bool, bf16: bool):
+def _route_step(cfg, batch, plain: bool, bf16: bool, env=None):
     """(ms per training step, peak device GiB) of the port's train_step on
-    one batch, through the kernels or the plain versions."""
+    one batch, through the kernels or the plain versions; ``env``: an
+    environment switch (name, value) set around the steps."""
     import torch
 
     from flair_for_aigle_tpu_torch.train.optim import make_optimizer
@@ -621,7 +834,8 @@ def _route_step(cfg, batch, plain: bool, bf16: bool):
     model = build_model(c).to(DEVICE)
     opt = make_optimizer(c["hyperparams"], model.parameters())
     steps = make_steps(model, c, opt, DEVICE)
-    with plain_versions() if plain else contextlib.nullcontext():
+    with (plain_versions() if plain else contextlib.nullcontext(),
+          switch(*env) if env else contextlib.nullcontext()):
         for _ in range(STEPS_WARM):
             steps.train_step(batch, 1e-5)
         torch.cuda.synchronize()
@@ -636,7 +850,7 @@ def _route_step(cfg, batch, plain: bool, bf16: bool):
     return ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def phase_train(card: str, write_geotiff) -> dict:
+def phase_train(card: str, write_geotiff) -> tuple[dict, dict]:
     import torch
 
     from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
@@ -666,11 +880,9 @@ def phase_train(card: str, write_geotiff) -> dict:
         f"{cfg['modalities']['pre_processings']['use_augmentation']}, {hp['num_epochs']} epochs "
         f"of {TRAIN_N['train'] // hp['batch_size']} steps")
 
-    fns = {k: fn for k, fn in kernel_fns().items() if k != "epilogue"}
     history = []
     # the user entry points, with every launch count at 0 just before them
-    for fn in fns.values():
-        fn.launches = 0
+    fns = zero_launches({"prep", "window_attn", "window_attn_bwd", "ffn", "merge"})
     t0 = time.perf_counter()
     model = training_stage(cfg, dm, out_dir, device=DEVICE,
                            epoch_hook=lambda e, m: history.append(m))
@@ -705,38 +917,54 @@ def phase_train(card: str, write_geotiff) -> dict:
         f"{len(preds)} prediction rasters; metrics.json Avg_metrics {metrics['Avg_metrics']}")
 
     # one float32 step at batch 5: gradients through the kernels vs the
-    # plain versions, same weights, same batch
+    # plain versions, same weights, same batch; then through the kernels
+    # under each fused-block switch (counts at 0 just before each step)
     batch = next(iter(dm.train_dataloader()))
     steps = make_steps(build_model(cfg).to(DEVICE), cfg, None, DEVICE)
-    loss_k, grads_k, _, _ = steps.loss_and_grads(batch)
     with plain_versions():
         loss_p, grads_p, _, _ = steps.loss_and_grads(batch)
-    flat_k = torch.cat([g.flatten() for g in grads_k]).double()
     flat_p = torch.cat([g.flatten() for g in grads_p]).double()
-    cos = torch.nn.functional.cosine_similarity(flat_k, flat_p, dim=0).item()
     gmax = flat_p.abs().max().item()
     names = [n for n, p in steps.model.named_parameters() if p.requires_grad]
-    rel = [((a - b).abs().max() / max(b.abs().max().item(), 1e-6 * gmax)).item()
-           for a, b in zip(grads_k, grads_p)]
-    worst = max(range(len(rel)), key=rel.__getitem__)
-    say("train", f"gradient check, one float32 step at batch {hp['batch_size']}: loss kernels "
-        f"{loss_k.item():.6f} plain {loss_p.item():.6f}; cosine {cos:.7f} (bound >= 0.9999); "
-        f"worst per-tensor relative error {rel[worst]:.3e} ({names[worst]}; relative to the "
-        f"tensor's largest gradient, floored at 1e-6 of the model's)")
-    if not cos >= 0.9999:
-        raise AssertionError(f"kernel gradients disagree with the plain ones: cosine {cos}")
-    del steps, grads_k, grads_p, flat_k, flat_p
+    step_launches = {}
+    for route, env, want in (("kernels", None, {"ffn_bwd": 0, "finish": 0}),
+                             ("FLAIR_FFN_BWD=kernel", SWITCHED["ffn_bwd"], {"ffn_bwd": 24}),
+                             ("FLAIR_SWIN_FINISH=1", SWITCHED["finish"], {"finish": 24, "ffn": 0})):
+        with switch(*env) if env else contextlib.nullcontext():
+            fns_s = zero_launches({"ffn", "ffn_bwd", "finish"})
+            loss_k, grads_k, _, _ = steps.loss_and_grads(batch)
+            torch.cuda.synchronize()
+        got = {k: fns_s[k].launches for k in want}
+        step_launches[route] = got
+        flat_k = torch.cat([g.flatten() for g in grads_k]).double()
+        cos = torch.nn.functional.cosine_similarity(flat_k, flat_p, dim=0).item()
+        rel = [((a - b).abs().max() / max(b.abs().max().item(), 1e-6 * gmax)).item()
+               for a, b in zip(grads_k, grads_p)]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        say("train", f"gradient check, one float32 step at batch {hp['batch_size']}, {route}: "
+            f"loss {loss_k.item():.6f}, plain {loss_p.item():.6f}; cosine {cos:.7f} (bound >= "
+            f"0.9999); worst per-tensor relative error {rel[worst]:.3e} ({names[worst]}; "
+            f"relative to the tensor's largest gradient, floored at 1e-6 of the model's); "
+            f"launches {got} (bound {want})")
+        if not cos >= 0.9999 or got != want:
+            raise AssertionError(f"{route}: gradients disagree with the plain ones (cosine "
+                                 f"{cos}) or launches {got} != {want}")
+        del grads_k, flat_k
+    del steps, grads_p, flat_p
 
     timing = {}
     for dtype in ("float32", "bfloat16"):
-        for route in ("kernels", "plain"):
-            timing[(dtype, route)] = _route_step(cfg, batch, route == "plain",
-                                                 dtype == "bfloat16")
+        for route in ("kernels", "plain", "FLAIR_FFN_BWD=kernel"):
+            timing[(dtype, route)] = _route_step(
+                cfg, batch, route == "plain", dtype == "bfloat16",
+                SWITCHED["ffn_bwd"] if route.startswith("FLAIR") else None)
     cli_launches = _cli_run(cfg, root, pandas_ok=how.startswith("pandas imports"))
     say("train", f"train_step at batch {hp['batch_size']} on {card} ({STEPS_TIMED} steps after "
         f"{STEPS_WARM} warm-up; ms/step, peak GiB): " + "; ".join(
             f"{d} {r} {ms:.1f} ms {gib:.2f} GiB" for (d, r), (ms, gib) in timing.items()))
-    return {k: launches[k] + cli_launches.get(k, 0) for k in launches}
+    return ({k: launches[k] + cli_launches.get(k, 0) for k in launches},
+            {"ffn_bwd": step_launches["FLAIR_FFN_BWD=kernel"]["ffn_bwd"],
+             "finish": step_launches["FLAIR_SWIN_FINISH=1"]["finish"]})
 
 
 def _cli_run(cfg: dict, root: str, pandas_ok: bool) -> dict:
@@ -757,9 +985,7 @@ def _cli_run(cfg: dict, root: str, pandas_ok: bool) -> dict:
     path = os.path.join(root, "cli.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(c, f)
-    fns = {k: fn for k, fn in kernel_fns().items() if k != "epilogue"}
-    for fn in fns.values():
-        fn.launches = 0
+    fns = zero_launches({"prep", "window_attn", "window_attn_bwd", "ffn", "merge"})
     t0 = time.perf_counter()
     train_main(["--config", path])
     launches = {k: fn.launches for k, fn in fns.items()}
@@ -793,13 +1019,22 @@ def main() -> int:
     stats = phase_kernels()
     with host_io() as (write_geotiff, io_desc):
         zonal = phase_slice(env["card"], write_geotiff, io_desc)
-        train = phase_train(env["card"], write_geotiff)
+        train, train_switched = phase_train(env["card"], write_geotiff)
+    # launches: the main path's runs (zonal, training stages and CLI) and,
+    # for K7 and K8, the runs under their switches (the zonal finish pass,
+    # one training step each); library_ms: no single PyTorch call computes
+    # any of these fused functions
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": zonal.get(name, 0) + train.get(name, 0),
+         "launches": (zonal.get(name, 0) + train.get(name, 0)
+                      + train_switched.get(name, 0)),
          "launches_zonal": zonal.get(name, 0), "launches_train": train.get(name, 0),
+         "launches_train_switched": train_switched.get(name, 0),
          "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+         "bound_ms": stats[name]["bound_ms"],
+         "bound_by": "bytes" if stats[name]["bytes_ms"] >= stats[name]["ops_ms"] else "operations",
+         "library_ms": None}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["kind"],
                                               "count": env["count"]}}), flush=True)

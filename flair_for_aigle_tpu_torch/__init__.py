@@ -2,10 +2,15 @@
 
 The JAX package stays the numerical reference; this package mirrors its
 layout (``models/``, ``ops/``, ``zonal/``, ``train/``, ``writer/``,
-``parallel/``) so each counterpart is easy to find. Framework-free host
-modules (``geo``, ``data``, ``zonal.slicing``, ``zonal.dataset``,
-``zonal.config``, ``writer.metrics_*``, ``utils``) are imported from the
-JAX package, which does not pull ``jax`` into ``sys.modules``.
+``parallel/``) so each counterpart is easy to find. It imports nothing of
+the JAX package: the framework-free host modules it needs (``geo``,
+``data``, ``zonal.{slicing,dataset,config}``, ``writer.metrics_*``,
+``utils``) are copies, which differ from the originals only in their
+imports.
+
+Entry points run on the CUDA card unless the caller asks for the CPU
+(``device="cpu"``, the CLIs' ``--device cpu``); they raise when ``cuda`` is
+asked for and there is no card.
 
 The Pallas kernels on the zonal and training paths are hand-written CUDA
 C++ kernels under ``csrc/``, built with ``nvcc`` at first use

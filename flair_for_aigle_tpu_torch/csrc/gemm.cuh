@@ -4,10 +4,11 @@
 //   A @ B     A (M, K), B (K, N) row-major              (BKN = true)
 //   A^T @ B   A (K, M), B (K, N) row-major    (AT = true, BKN = true)
 //
-// C is (M, N). Used by K2 (qkv and output projections), K3 (fc1, fc2), K5
-// (patch-merge reduction) and K6 (the backward's do = g Wproj, dx = dqkv
-// Wqkv, and the weight gradients g^T o and dqkv^T x, whose reduction runs
-// over all B*nW*T rows). bf16 inputs run on the tensor cores through
+// C is (M, N). Used by K2 (qkv and output projections), K3 and K8 (fc1,
+// fc2), K5 (patch-merge reduction), K6 (the backward's do = g Wproj, dx =
+// dqkv Wqkv, and the weight gradients g^T o and dqkv^T x, whose reduction
+// runs over all B*nW*T rows) and K7 (fc1 recomputed, dh = g W2, dln = dh0 W1
+// and the weight gradients g^T h and dh0^T ln). bf16 inputs run on the tensor cores through
 // nvcuda::wmma (m16n16k16, float32 accumulate); float32 inputs run a SIMT
 // FMA loop so the float32 path keeps full float32 precision (no TF32).
 //
@@ -29,6 +30,11 @@
 //   EPI_RESID      out = (rnd(x + a) + b[n]) + acc      (float32, then rounded)
 //   EPI_NONE       out = rnd(acc)
 //   EPI_F32        out = acc, float32 (the split-K partials)
+//   EPI_ADD        out = (r[m, n] + b[n]) + acc    (r = ra, float32, then rounded)
+//   EPI_BIAS_GELU_AUX  as EPI_BIAS_GELU, and h (before GELU) to aux (T)
+//   EPI_DGELU      d = acc * gelu'(z), z = ra[m, n]; out = rnd(d); and the
+//                  block's float32 column sums of d to aux[blockIdx.y * N + n]
+//                  (one partial per 128-row tile, summed later in a fixed order)
 #pragma once
 
 #include <mma.h>
@@ -39,7 +45,25 @@
 
 namespace flair {
 
-enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_RESID = 2, EPI_NONE = 3, EPI_F32 = 4 };
+enum {
+  EPI_BIAS = 0,
+  EPI_BIAS_GELU = 1,
+  EPI_RESID = 2,
+  EPI_NONE = 3,
+  EPI_F32 = 4,
+  EPI_ADD = 5,
+  EPI_BIAS_GELU_AUX = 6,
+  EPI_DGELU = 7
+};
+
+// exact GELU and its derivative Phi(z) + z phi(z), in float32
+__device__ __forceinline__ float gelu_f(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
+}
+__device__ __forceinline__ float gelu_grad_f(float z) {
+  return 0.5f * (1.f + erff(z * 0.7071067811865476f)) +
+         z * expf(-0.5f * z * z) * 0.3989422804014327f;
+}
 
 constexpr int GEMM_BM = 128;
 constexpr int GEMM_BN = 64;
@@ -78,7 +102,7 @@ template <typename T, int EPI, bool AT, bool BKN>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__ Cout,
             int M, int N, int K, int k_chunk, const T* __restrict__ bias,
-            const T* __restrict__ ra, const T* __restrict__ rb) {
+            const T* __restrict__ ra, const T* __restrict__ rb, void* __restrict__ aux) {
   static_assert(EPI == EPI_F32 || !AT, "A^T @ B is only used for float32 weight gradients");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int PAD = gemm_pad<T>();
@@ -201,17 +225,29 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__
     if constexpr (EPI == EPI_RESID) {
       const float x2 = rnd<T>(to_f<T>(ra[idx]) + to_f<T>(rb[idx]));
       o = (x2 + to_f<T>(bias[gn])) + v;
+    } else if constexpr (EPI == EPI_ADD) {
+      o = (to_f<T>(ra[idx]) + to_f<T>(bias[gn])) + v;
     } else if constexpr (EPI == EPI_NONE) {
       o = v;
+    } else if constexpr (EPI == EPI_DGELU) {
+      o = v * gelu_grad_f(to_f<T>(ra[idx]));
+      Cs[r * GEMM_LDC + c] = o;  // kept for the column sums below
     } else {
       const float h = rnd<T>(rnd<T>(v) + to_f<T>(bias[gn]));
-      if constexpr (EPI == EPI_BIAS_GELU) {
-        o = 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
-      } else {
-        o = h;
-      }
+      if constexpr (EPI == EPI_BIAS_GELU_AUX) reinterpret_cast<T*>(aux)[idx] = from_f<T>(h);
+      o = (EPI == EPI_BIAS) ? h : gelu_f(h);
     }
     reinterpret_cast<T*>(Cout)[idx] = from_f<T>(o);
+  }
+  if constexpr (EPI == EPI_DGELU) {
+    // this tile's column sums, rows in order: one float32 partial per tile
+    __syncthreads();
+    const int gn = n0 + tid;
+    if (tid < GEMM_BN && gn < N) {
+      float s = 0.f;
+      for (int r = 0; r < min(GEMM_BM, M - m0); ++r) s += Cs[r * GEMM_LDC + tid];
+      reinterpret_cast<float*>(aux)[(long long)blockIdx.y * N + gn] = s;
+    }
   }
 }
 
@@ -232,13 +268,16 @@ static inline void launch_sum_partials(const float* part, float* out, long long 
 
 // Launch C = A op B with the chosen epilogue on `stream`. For EPI_F32 with
 // k_chunk < K, C receives ceil(K / k_chunk) partials of M x N (see above).
+// aux: the second output of EPI_BIAS_GELU_AUX (M x N, T) and EPI_DGELU
+// (ceil(M / GEMM_BM) x N, float32).
 template <typename T, int EPI, bool AT = false, bool BKN = false>
 void launch_gemm(const T* A, const T* B, void* C, int M, int N, int K, const T* bias,
-                 const T* ra, const T* rb, cudaStream_t stream, int k_chunk = 0) {
+                 const T* ra, const T* rb, cudaStream_t stream, int k_chunk = 0,
+                 void* aux = nullptr) {
   if (k_chunk <= 0) k_chunk = K;
   dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM, (K + k_chunk - 1) / k_chunk);
   gemm_kernel<T, EPI, AT, BKN><<<grid, GEMM_THREADS, gemm_smem_bytes<T>(), stream>>>(
-      A, B, C, M, N, K, k_chunk, bias, ra, rb);
+      A, B, C, M, N, K, k_chunk, bias, ra, rb, aux);
 }
 
 }  // namespace flair

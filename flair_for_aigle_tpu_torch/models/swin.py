@@ -9,7 +9,10 @@ Each block runs the three fused ops of the reference's default path
 (``swin.py:239-250, 156-171, 309-318``): the LN + shift + pad + partition
 prologue (``ops/prep.py``), the fused window attention
 (``ops/window_attn.py``) and the residual + LN + MLP + residual tail
-(``ops/ffn.py``); ``PatchMerging`` runs the fused patch merge
+(``ops/ffn.py``). With ``FLAIR_SWIN_FINISH=1`` (read at call time, as
+``swin.py:261`` reads it) the window reverse, crop, un-shift and tail are
+one op instead, the fused finish (``ops/finish.py``, ``swin.py:261-280``).
+``PatchMerging`` runs the fused patch merge
 (``ops/merge.py``, the reference's default ``FLAIR_SWIN_MERGE=1``,
 ``swin.py:344-356``). Each op launches its CUDA kernel on a CUDA tensor and
 runs its plain version on a CPU tensor, and each is differentiable, so
@@ -18,6 +21,7 @@ training runs the same ops (the attention backward is kernel K6).
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from typing import Sequence
 
@@ -31,7 +35,7 @@ from flair_for_aigle_tpu_torch.models.layers import (
     TorchLayerNorm,
     TorchLinear,
 )
-from flair_for_aigle_tpu_torch.ops import ffn, merge, prep, window_attn
+from flair_for_aigle_tpu_torch.ops import ffn, finish, merge, prep, window_attn
 from flair_for_aigle_tpu_torch.ops.prep import window_reverse
 
 
@@ -140,6 +144,11 @@ class SwinBlock(nn.Module):
                                             self.norm1.bias, ws=ws, ss=ss)
         y = self.attn(win, window_size=ws, shift_size=ss,
                       grid_hw=(hp // ws, wp // ws))
+        if os.environ.get("FLAIR_SWIN_FINISH", "0") == "1":
+            return finish.fused_reverse_ln_mlp_residual(
+                y, x, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+                ws=ws, ss=ss)
         y = window_reverse(y, ws, hp, wp)[:, :h, :w]
         if ss:
             y = torch.roll(y, (ss, ss), dims=(1, 2))

@@ -54,6 +54,13 @@ _SIGNATURES = {
     # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, k_chunk, dtype,
     # stream
     "window_attn_bwd": [_P] * 19 + [_I] * 12 + [_P],
+    # win, x, ln_scale, ln_bias, w1, b1, w2, b2, ln, x2, h, out,
+    # b, h, w, c, hidden, ws, ss, eps, dtype, stream
+    "finish_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    # x, attn, g, ln_scale, ln_bias, w1, b1, w2, ln, h0, h, dh0c, db1_part,
+    # wpart, dln, row_part, dx, dvec, dw1, db1, dw2,
+    # n, c, hidden, k_chunk, rows, eps, dtype, stream
+    "ffn_bwd": [_P] * 21 + [_I] * 5 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

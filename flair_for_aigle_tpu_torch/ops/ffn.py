@@ -1,5 +1,6 @@
 """K3: fused transformer-block tail — residual + LayerNorm + MLP + residual
-(CUDA kernel ``csrc/ffn.cu``) and its plain PyTorch version.
+(CUDA kernel ``csrc/ffn.cu``) and its plain PyTorch version; K7: its
+backward (CUDA kernel ``csrc/ffn_bwd.cu``) and the backward's plain version.
 
 Replaces ``flair_for_aigle_tpu/ops/pallas/ffn.py:481 fused_ln_mlp_residual``
 (forward; body ``_kernel_body`` :120). On the card the fc1/fc2 products are
@@ -8,12 +9,17 @@ float32 residual (fc2, recomputing x + attn); the LayerNorm is one
 bandwidth-bound pass. See the CUDA source for the bounds.
 
 Weights use the ``nn.Linear`` layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
-Differentiable: the backward recomputes through the plain version from the
-saved raw inputs, the reference's default route (``ffn.py:474-475``; its
-opt-in backward kernel, ``FLAIR_FFN_BWD=kernel``, is not ported yet).
+Differentiable. The backward reads ``FLAIR_FFN_BWD`` when it runs, as the
+reference's custom VJP does (``ffn.py:464-475``): ``kernel`` runs K7
+(``fused_ln_mlp_residual_backward``, which replaces ``ffn.py:297
+_build_bwd_call`` and the LayerNorm epilogue of ``_kernel_bwd`` :370) on
+CUDA tensors and K7's plain version on CPU tensors; anything else, the
+reference's default, recomputes through the plain forward under autograd.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -96,6 +102,13 @@ class _Ffn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if os.environ.get("FLAIR_FFN_BWD", "xla") == "kernel":
+            x, attn, ln_scale, ln_bias, w1, b1, w2, b2 = ctx.saved_tensors
+            grads = fused_ln_mlp_residual_backward(
+                g, x, attn, ln_scale, ln_bias, w1, b1, w2, eps=ctx.eps)
+            grads = (*grads[:7], grads[7].to(b2.dtype))
+            return (*(gr if need else None
+                      for gr, need in zip(grads, ctx.needs_input_grad)), None)
         grads = plain_vjp(
             lambda *a: fused_ln_mlp_residual_reference(*a, eps=ctx.eps),
             ctx.saved_tensors, g, ctx.needs_input_grad[:8])
@@ -112,3 +125,132 @@ def fused_ln_mlp_residual(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, *,
 
 
 fused_ln_mlp_residual.launches = 0
+
+
+def fused_ln_mlp_residual_backward_reference(x, attn, ln_scale, ln_bias, w1, b1,
+                                             w2, g, *, eps: float = 1e-5) -> tuple:
+    """K7's plain version, step by step in the rounding order of the Pallas
+    backward (``_bwd_body`` :245-291 and ``_kernel_bwd``'s LayerNorm epilogue
+    :393-419): h0 = rnd(ln W1^T) + b1 in the compute dtype, h = GELU(h0);
+    g cast to the compute dtype for the products, db2 = sum g in float32;
+    dh = g W2 in float32, dh0 = dh * gelu'(h0) with gelu' = Phi + z phi in
+    float32, db1 = sum dh0; dh0c = rnd(dh0) for dW1 = dh0c^T ln and dln =
+    dh0c W1 (float32); the LayerNorm backward in float32 and dx = rnd(g +
+    dx2) = dattn. Returns (dx, dattn, dln_scale, dln_bias, dw1, db1, dw2,
+    db2), the weight gradients in the ``nn.Linear`` layout and the inputs'
+    dtypes (db2 in w2's)."""
+    shape = x.shape
+    dt = x.dtype
+    c = shape[-1]
+    x2 = (x + attn.to(dt)).reshape(-1, c).float()
+    mean = x2.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x2 - mean) ** 2).mean(-1, keepdim=True) + eps)
+    nrm = (x2 - mean) * rstd
+    ln = (nrm * ln_scale.float() + ln_bias.float()).to(dt)
+    h0 = torch.matmul(ln, w1.to(dt).t()) + b1.to(dt)
+    h = gelu_exact(h0)
+    gc = g.reshape(-1, c).to(dt).float()
+    db2 = gc.sum(0)
+    dw2 = gc.t() @ h.float()
+    z = h0.float()
+    dgelu = (0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+             + z * torch.exp(-0.5 * z * z) * 0.3989422804014327)
+    dh0 = (gc @ w2.to(dt).float()) * dgelu
+    db1 = dh0.sum(0)
+    dh0c = dh0.to(dt).float()
+    dw1 = dh0c.t() @ ln.float()
+    dln = dh0c @ w1.to(dt).float()
+    dlns = (dln * nrm).sum(0)
+    dlnb = dln.sum(0)
+    dnrm = dln * ln_scale.float()
+    m1 = dnrm.mean(-1, keepdim=True)
+    m2 = (dnrm * nrm).mean(-1, keepdim=True)
+    dx2 = rstd * (dnrm - m1 - nrm * m2)
+    dx = (g.reshape(-1, c).float() + dx2).to(dt).reshape(shape)
+    return (dx, dx.to(attn.dtype), dlns.to(ln_scale.dtype),
+            dlnb.to(ln_bias.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype), db2.to(w2.dtype))
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bwd_plan(n: int, c: int, hidden: int, n_sm: int) -> tuple[int, int]:
+    """(k_chunk of the weight-gradient GEMMs, rows per block of the
+    LayerNorm-backward pass): about two blocks per SM in each launch."""
+    want = 2 * n_sm
+    tiles = _ceil(c, 128) * _ceil(hidden, 64)
+    n_split = max(1, min(_ceil(want, tiles), _ceil(n, 256)))
+    k_chunk = _ceil(_ceil(n, n_split), 32) * 32
+    rows = max(8, _ceil(n, 2 * want))
+    return k_chunk, rows
+
+
+def fused_ln_mlp_residual_backward(g, x, attn, ln_scale, ln_bias, w1, b1, w2,
+                                   *, eps: float = 1e-5) -> tuple:
+    """Gradients of ``fused_ln_mlp_residual`` for the output gradient g:
+    (dx, dattn, dln_scale, dln_bias, dw1, db1, dw2, db2), weights in the
+    ``nn.Linear`` layout. CPU tensors take the plain version; CUDA tensors
+    launch K7 (float32 or bfloat16, C <= 1024, C and hidden multiples of 8;
+    parameter gradients accumulate in float32 and are returned in the
+    parameters' dtypes, db2 in w2's)."""
+    if x.device.type == "cpu":
+        return fused_ln_mlp_residual_backward_reference(
+            x, attn, ln_scale, ln_bias, w1, b1, w2, g, eps=eps)
+    what = "ffn backward kernel"
+    shape = x.shape
+    c = shape[-1]
+    hidden = w1.shape[0]
+    dt = x.dtype
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: unsupported dtype {dt}")
+    if attn.shape != shape or g.shape != shape:
+        raise ValueError(f"{what}: x, attn and g shapes differ")
+    if c > 1024 or c % 8 or hidden % 8:
+        raise ValueError(f"{what}: unsupported C={c}, hidden={hidden}")
+    xc = x.contiguous()
+    ac = attn.to(dev, dt).contiguous()
+    gc = g.to(dev, dt).contiguous()
+    lns, lnb = (p.detach().to(dev, torch.float32).contiguous()
+                for p in (ln_scale, ln_bias))
+    w1c, b1c, w2c = (p.detach().to(dev, dt).contiguous() for p in (w1, b1, w2))
+    if (w1c.shape != (hidden, c) or b1c.shape != (hidden,)
+            or w2c.shape != (c, hidden) or lns.shape != (c,) or lnb.shape != (c,)):
+        raise ValueError(f"{what}: parameter shapes do not match x")
+    n = x.numel() // c
+    k_chunk, rows = _bwd_plan(
+        n, c, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    def f32(*s):
+        return torch.empty(s, dtype=torch.float32, device=dev)
+
+    def cdt(*s):
+        return torch.empty(s, dtype=dt, device=dev)
+
+    ln, h0, h, dh0c = cdt(n, c), cdt(n, hidden), cdt(n, hidden), cdt(n, hidden)
+    db1_part = f32(_ceil(n, 128), hidden)
+    wpart = f32(_ceil(n, k_chunk) * c * hidden)
+    dln, row_part = f32(n, c), f32(_ceil(n, rows), 3 * c)
+    dx = torch.empty(shape, dtype=dt, device=dev)
+    dvec, dw1, db1, dw2 = f32(3, c), f32(hidden, c), f32(hidden), f32(c, hidden)
+    rc = _build.lib().ffn_bwd(
+        xc.data_ptr(), ac.data_ptr(), gc.data_ptr(), lns.data_ptr(),
+        lnb.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(),
+        ln.data_ptr(), h0.data_ptr(), h.data_ptr(), dh0c.data_ptr(),
+        db1_part.data_ptr(), wpart.data_ptr(), dln.data_ptr(),
+        row_part.data_ptr(), dx.data_ptr(), dvec.data_ptr(), dw1.data_ptr(),
+        db1.data_ptr(), dw2.data_ptr(), n, c, hidden, k_chunk, rows,
+        float(eps), _build.dtype_code(x), _build.stream_ptr(x))
+    _build.check(rc, "ffn_bwd")
+    fused_ln_mlp_residual_backward.launches += 1
+    dlns, dlnb, db2 = dvec
+    return (dx, dx.to(attn.dtype), dlns.to(ln_scale.dtype),
+            dlnb.to(ln_bias.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype), db2.to(w2.dtype))
+
+
+fused_ln_mlp_residual_backward.launches = 0

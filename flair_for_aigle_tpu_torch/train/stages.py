@@ -5,7 +5,7 @@ stages.py``).
 build the model with seeded random weights, optionally initialise it from a
 checkpoint, train, reload the best checkpoint. ``predict_stage``:
 metrics-only, or predict with the PredictionWriter. The data module is the
-JAX package's framework-free ``FlairDataModule``.
+port's copy of the JAX package's framework-free ``FlairDataModule``.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from flair_for_aigle_tpu.data.dataset import FlairDataModule
+from flair_for_aigle_tpu_torch.data.dataset import FlairDataModule
+from flair_for_aigle_tpu_torch.device import resolve_device
 from flair_for_aigle_tpu_torch.models.checkpoint import load_checkpoint
 from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
 from flair_for_aigle_tpu_torch.models.layers import init_weights
@@ -34,14 +35,10 @@ logger = logging.getLogger(__name__)
 
 def get_datasets(config: Dict[str, Any]):
     """(train, val, test) split dicts from the config's CSVs
-    (``flair_for_aigle_tpu/data/paths.py:53``, which needs pandas)."""
-    from flair_for_aigle_tpu.data.paths import get_datasets as from_csvs
+    (``data/paths.py get_datasets``, which needs pandas)."""
+    from flair_for_aigle_tpu_torch.data.paths import get_datasets as from_csvs
 
     return from_csvs(config)
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def build_data_module(config: Dict[str, Any], dict_train=None, dict_val=None,
@@ -72,11 +69,13 @@ def build_model(config: Dict[str, Any]) -> FlairHubModel:
     return init_weights(FlairHubModel(config), gen)
 
 
-def training_stage(config: Dict, data_module, out_dir: Path, device=None,
+def training_stage(config: Dict, data_module, out_dir: Path, device="cuda",
                    aux_loss_fix: bool = False, epoch_hook=None) -> FlairHubModel:
-    """Train; returns the model holding the best checkpoint's weights.
-    ``epoch_hook(epoch, metrics)`` is passed on to ``train``."""
-    device = device or default_device()
+    """Train on ``device`` (the CUDA card by default, raising when there is
+    none; ``"cpu"`` runs the plain versions); returns the model holding the
+    best checkpoint's weights. ``epoch_hook(epoch, metrics)`` is passed on
+    to ``train``."""
+    device = resolve_device(device)
     start = datetime.datetime.now()
     np.random.seed(config["hyperparams"]["seed"])
     logger.info("input sizes from one training batch: %s",
@@ -95,8 +94,9 @@ def training_stage(config: Dict, data_module, out_dir: Path, device=None,
 
 
 def predict_stage(config: Dict, data_module, out_dir_predict: Path,
-                  trained: Optional[FlairHubModel] = None, device=None) -> None:
-    device = device or default_device()
+                  trained: Optional[FlairHubModel] = None, device="cuda") -> None:
+    """Metrics-only, or predict on ``device`` (as ``training_stage``)."""
+    device = resolve_device(device)
     out_dir_predict = Path(out_dir_predict)
     if config["tasks"].get("metrics_only", False) and not config["tasks"].get("predict", False):
         logger.info("[ ] Metrics-only mode: loading predictions from disk ...")

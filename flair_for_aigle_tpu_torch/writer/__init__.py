@@ -1,1 +1,1 @@
-# Prediction writer of the PyTorch port (metrics come from flair_for_aigle_tpu.writer).
+# Prediction writer and evaluation metrics of the PyTorch port.

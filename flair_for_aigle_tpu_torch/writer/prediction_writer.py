@@ -5,7 +5,7 @@ Per predict batch: writes ``PRED_<name>.tif`` per task (georeferenced from
 the source label raster, or a plain TIFF via PIL) and accumulates a
 confusion matrix against the label raster named in the batch ID. At the end
 the confusion matrices are summed over processes and the metrics persisted
-on rank zero (``flair_for_aigle_tpu.writer.metrics_utils``, framework-free).
+on rank zero (``writer/metrics_utils.py``).
 Metrics-only mode recomputes everything from rasters on disk.
 
 Rasters are read and written through the ``geotiff`` module's attributes at
@@ -20,13 +20,13 @@ from typing import Dict
 
 import numpy as np
 
-from flair_for_aigle_tpu.geo import geotiff
-from flair_for_aigle_tpu.writer.metrics_utils import compute_and_save_metrics
+from flair_for_aigle_tpu_torch.geo import geotiff
 from flair_for_aigle_tpu_torch.parallel.dist import (
     all_sum_host,
     is_rank_zero,
     rank_zero_only,
 )
+from flair_for_aigle_tpu_torch.writer.metrics_utils import compute_and_save_metrics
 
 logger = logging.getLogger(__name__)
 

@@ -13,8 +13,8 @@ Tiles are processed bottom-up row-major (reference :732-742) and stitched
 one tile at a time in that order, which keeps the reference's
 last-write-wins seams.
 
-Host modules (geo, tiling, windowed dataset, config) come from the JAX
-package, whose host side imports no jax.
+Host modules (geo, tiling, windowed dataset, config) are the port's own
+copies of the JAX package's framework-free ones.
 """
 
 from __future__ import annotations
@@ -27,20 +27,21 @@ from typing import Dict
 import numpy as np
 import torch
 
-from flair_for_aigle_tpu.geo.geotiff import (
+from flair_for_aigle_tpu_torch.device import resolve_device
+from flair_for_aigle_tpu_torch.geo.geotiff import (
     WindowedWriter,
     convert_to_cog,
     open_raster,
 )
-from flair_for_aigle_tpu.geo.windows import Window, from_bounds, from_origin
-from flair_for_aigle_tpu.zonal.config import (
+from flair_for_aigle_tpu_torch.geo.windows import Window, from_bounds, from_origin
+from flair_for_aigle_tpu_torch.zonal.config import (
     config_recap_1,
     config_recap_2,
     load_config,
     validate_config,
 )
-from flair_for_aigle_tpu.zonal.dataset import BatchedLoader, MultiModalSlicedDataset
-from flair_for_aigle_tpu.zonal.slicing import generate_patches_from_reference
+from flair_for_aigle_tpu_torch.zonal.dataset import BatchedLoader, MultiModalSlicedDataset
+from flair_for_aigle_tpu_torch.zonal.slicing import generate_patches_from_reference
 from flair_for_aigle_tpu_torch.ops import epilogue
 from flair_for_aigle_tpu_torch.ops.resize import scipy_zoom0_index
 from flair_for_aigle_tpu_torch.zonal.model_utils import (
@@ -506,13 +507,14 @@ def postpro_outputs(temp_paths: Dict[str, str], config: Dict) -> None:
             logger.info("[ok] Converted to COG: %s", cog_path)
 
 
-def run_inference(config_path) -> Dict[str, str]:
+def run_inference(config_path, device="cuda") -> Dict[str, str]:
     """Standalone zonal entry point: config (YAML path or dict) -> written
-    rasters {task: path}. Runs on the CUDA card when there is one (the
-    kernels), else on the CPU (their plain versions)."""
+    rasters {task: path}. Runs on ``device``: the CUDA card (the kernels) by
+    default, raising when there is none; ``"cpu"`` runs their plain
+    versions."""
+    device = resolve_device(device)
     start_total = time.time()
     config = prep_config(config_path)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     tiles = generate_patches_from_reference(config)
     logger.info("[ok] Sliced into %d tiles", len(tiles))
     patch_sizes = compute_patch_sizes(config)

@@ -1,7 +1,7 @@
 """Host raster IO for machines that lack the native geo libraries.
 
 The zonal engine reads and writes GeoTIFFs through the framework-free
-``flair_for_aigle_tpu.geo`` modules, which need ``native/libflairgeo.so``
+``flair_for_aigle_tpu_torch.geo`` modules, which need ``native/libflairgeo.so``
 (built against libtiff) and ``libgeos_c.so.1`` for the tile boxes. Where
 those libraries are missing, :func:`host_io` swaps in a dict-backed raster
 store with the ``open_raster`` / ``WindowedWriter`` surface and a
@@ -18,7 +18,7 @@ import subprocess
 
 import numpy as np
 
-from flair_for_aigle_tpu.geo import geos, geotiff, native
+from flair_for_aigle_tpu_torch.geo import geos, geotiff, native
 
 
 def native_io_error() -> Exception | None:

@@ -20,7 +20,7 @@ from typing import Any, Dict
 
 import torch
 
-from flair_for_aigle_tpu.geo.geotiff import open_raster
+from flair_for_aigle_tpu_torch.geo.geotiff import open_raster
 from flair_for_aigle_tpu_torch.models.checkpoint import load_checkpoint
 from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
 from flair_for_aigle_tpu_torch.models.layers import init_weights

@@ -16,12 +16,15 @@ magnitude (1 for the prologue). The attention backward (K6) against
 autograd through the plain forward: float32 2e-3 relative to each
 gradient's largest magnitude, bfloat16 median relative error < 0.04 per
 gradient (tests/test_window_attn_kernel.py's bounds for the TPU backward).
+The fused finish (K8) has K3's bounds (after its gather it computes K3's
+function), the ffn backward (K7) K6's, at the four swin-base@512 stages at
+batch 2 and at an odd shape.
 """
 
 import pytest
 import torch
 
-from flair_for_aigle_tpu_torch.ops import epilogue, ffn, merge, prep, window_attn
+from flair_for_aigle_tpu_torch.ops import epilogue, ffn, finish, merge, prep, window_attn
 
 pytestmark = pytest.mark.cuda
 
@@ -279,3 +282,86 @@ def test_training_step_on_the_card_matches_cpu(dev):
     (l0, g0), (l1, g1) = out["cpu"], out[str(dev)]
     assert abs(l0 - l1) <= 1e-4 * abs(l0)
     assert torch.nn.functional.cosine_similarity(g0, g1, dim=0).item() >= 0.9999
+
+
+# swin-base@512 stages at batch 2 (H = W, C; window 12, shift 6) and an odd
+# padded geometry with a small window
+FINISH_GEOMS = [(128, 128, 128, 12, 6), (64, 64, 256, 12, 6), (32, 32, 512, 12, 6),
+                (16, 16, 1024, 12, 6), (20, 28, 96, 4, 2)]
+
+
+def _ffn_params(g, dev, c):
+    return (torch.randn(c, generator=g, device=dev) * 0.1 + 1,
+            torch.randn(c, generator=g, device=dev) * 0.1,
+            torch.randn((4 * c, c), generator=g, device=dev) * c ** -0.5,
+            torch.randn(4 * c, generator=g, device=dev) * 0.02,
+            torch.randn((c, 4 * c), generator=g, device=dev) * (4 * c) ** -0.5,
+            torch.randn(c, generator=g, device=dev) * 0.02)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,c,ws,ss", FINISH_GEOMS)
+def test_finish_kernel(dev, dtype, h, w, c, ws, ss):
+    g = torch.Generator(device=dev).manual_seed(7)
+    nw = -(-h // ws) * -(-w // ws)
+    win = torch.randn((2 * nw, ws * ws, c), generator=g, device=dev).to(dtype)
+    x = torch.randn((2, h, w, c), generator=g, device=dev).to(dtype)
+    p = _ffn_params(g, dev, c)
+    finish.fused_reverse_ln_mlp_residual.launches = 0
+    got = finish.fused_reverse_ln_mlp_residual(win, x, *p, ws=ws, ss=ss)
+    want = finish.fused_reverse_ln_mlp_residual_reference(win, x, *p, ws=ws, ss=ss)
+    torch.cuda.synchronize()
+    assert finish.fused_reverse_ln_mlp_residual.launches == 1
+    assert got.shape == x.shape and got.dtype == dtype
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,c", [(32768, 128), (8192, 256), (2048, 512), (512, 1024), (37, 96)])
+def test_ffn_backward_kernel(dev, dtype, n, c):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x, a, gy = (torch.randn((n, c), generator=g, device=dev).to(dtype) for _ in range(3))
+    s, b, w1, b1, w2, _ = _ffn_params(g, dev, c)
+    ffn.fused_ln_mlp_residual_backward.launches = 0
+    got = ffn.fused_ln_mlp_residual_backward(gy, x, a, s, b, w1, b1, w2)
+    want = ffn.fused_ln_mlp_residual_backward_reference(x, a, s, b, w1, b1, w2, gy)
+    torch.cuda.synchronize()
+    assert ffn.fused_ln_mlp_residual_backward.launches == 1
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert [t.dtype for t in got] == [t.dtype for t in want]
+    _assert_grads_close(got, want, dtype)
+    again = ffn.fused_ln_mlp_residual_backward(gy, x, a, s, b, w1, b1, w2)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("switch", ["FLAIR_SWIN_FINISH", "FLAIR_FFN_BWD"])
+def test_swin_block_switches_on_the_card_match_cpu(dev, switch, monkeypatch):
+    """A shifted, padded swin block under each of the reference's fused-block
+    switches: forward and every gradient on the card (K8, or K7 in the
+    backward) against the CPU's plain versions."""
+    from flair_for_aigle_tpu_torch.models.layers import init_weights
+    from flair_for_aigle_tpu_torch.models.swin import SwinBlock
+
+    monkeypatch.setenv(switch, "1" if switch == "FLAIR_SWIN_FINISH" else "kernel")
+    mod = init_weights(SwinBlock(128, 4, 12, shift=True), torch.Generator().manual_seed(1))
+    for p in mod.parameters():  # no zero-initialised parameter
+        p.data.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(2)) * 0.02)
+    x = torch.randn((2, 20, 28, 128), generator=torch.Generator().manual_seed(3))
+    r = torch.randn((2, 20, 28, 128), generator=torch.Generator().manual_seed(4))
+    out, grads = {}, {}
+    for d in ("cpu", dev):
+        mod.to(d).zero_grad()
+        xd = x.to(d).detach().requires_grad_()
+        finish.fused_reverse_ln_mlp_residual.launches = 0
+        ffn.fused_ln_mlp_residual_backward.launches = 0
+        y = mod(xd)
+        (y * r.to(d)).sum().backward()
+        out[str(d)] = y.detach().to("cpu", copy=True)
+        grads[str(d)] = {n: p.grad.to("cpu", copy=True) for n, p in mod.named_parameters()}
+        grads[str(d)]["x"] = xd.grad.to("cpu", copy=True)
+    launches = (finish.fused_reverse_ln_mlp_residual.launches
+                if switch == "FLAIR_SWIN_FINISH" else ffn.fused_ln_mlp_residual_backward.launches)
+    assert launches == 1
+    _assert_close(out[str(dev)], out["cpu"], torch.float32)
+    for n, want in grads["cpu"].items():
+        _assert_close(grads[str(dev)][n], want, torch.float32)

@@ -1,8 +1,8 @@
 """The port's training entry point on a toy FLAIR-HUB-style dataset, on the
-CPU: ``python -m flair_for_aigle_tpu_torch.train_main --config <yaml>``
+CPU: ``python -m flair_for_aigle_tpu_torch.train_main --config <yaml> --device cpu``
 (swin_micro-upernet, 64 px, batch 2, 2 epochs, initialised from a
 checkpoint that the JAX package exported, then predict) runs in a
-subprocess that must never import jax; its checkpoints must load into the
+subprocess that must never import jax or the JAX package; its checkpoints must load into the
 JAX package's ``load_checkpoint`` with every key matched, and it must write
 the predictions and ``metrics.json``.
 """
@@ -101,8 +101,9 @@ def run(tmp_path_factory):
         "import sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "from flair_for_aigle_tpu_torch.train_main import main\n"
-        f"main(['--config', {str(root / 'cfg.yaml')!r}])\n"
-        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax'))\n"
+        f"main(['--config', {str(root / 'cfg.yaml')!r}, '--device', 'cpu'])\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'flax', 'optax', 'flair_for_aigle_tpu'))\n"
         "print('IMPORTED:', leaked)\n")
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["OMP_NUM_THREADS"] = "2"  # as tests/_torch_threads.py

@@ -9,13 +9,15 @@ safetensors file that both packages' ``run_inference`` load.
   near-tie), on the device-resident tiling path, the host-loader path, and
   with ``fused_epilogue`` at its default (the full-resolution head route on
   the CPU in both packages).
-* A subprocess that runs the port's slice never imports jax.
+* A subprocess that runs the port's slice never imports jax or the JAX
+  package.
 * The in-memory raster IO that stands in for libtiff / GEOS on machines
   without them gives the native IO's output bytes.
 """
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -27,7 +29,6 @@ import pytest
 import torch
 from safetensors.numpy import save_file
 
-from flair_for_aigle_tpu.geo import geotiff
 from flair_for_aigle_tpu.geo.geotiff import open_raster, write_geotiff
 from flair_for_aigle_tpu.geo.windows import from_origin
 from flair_for_aigle_tpu.models.checkpoint import export_torch_state_dict
@@ -35,6 +36,7 @@ from flair_for_aigle_tpu.models.flair_model import FlairHubModel as JaxModel
 from flair_for_aigle_tpu.zonal.inference import run_inference as jax_run_inference
 from flair_for_aigle_tpu.zonal.model_utils import example_batch_for
 from flair_for_aigle_tpu.zonal.model_utils import prepare_model_config as jax_prepare
+from flair_for_aigle_tpu_torch.geo import geotiff as port_geotiff
 from flair_for_aigle_tpu_torch.models.checkpoint import load_checkpoint
 from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
 from flair_for_aigle_tpu_torch.ops.epilogue import _interp_matrix
@@ -144,7 +146,8 @@ def test_geotiff_matches_jax_run_inference(setup, tmp_path, case):
     if case == "default_epilogue":
         del cfg["fused_epilogue"]
     outs = {}
-    for name, run in (("jax", jax_run_inference), ("torch", zi.run_inference)):
+    for name, run in (("jax", jax_run_inference),
+                      ("torch", functools.partial(zi.run_inference, device="cpu"))):
         c = copy.deepcopy(cfg)
         c["output_path"] = str(tmp_path / name)
         os.makedirs(c["output_path"])
@@ -164,10 +167,11 @@ def test_port_slice_never_imports_jax(setup, tmp_path):
         "import sys, json\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "from flair_for_aigle_tpu_torch.zonal.inference import run_inference\n"
-        f"paths = run_inference(json.loads({json.dumps(cfg)!r}))\n"
+        f"paths = run_inference(json.loads({json.dumps(cfg)!r}), device='cpu')\n"
         "assert paths, paths\n"
-        "assert 'jax' not in sys.modules and 'flax' not in sys.modules, "
-        "sorted(m for m in sys.modules if m.startswith(('jax', 'flax')))\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('jax', 'flax', 'flair_for_aigle_tpu'))\n"
+        "assert not leaked, leaked\n"
         "print('NO_JAX_OK')\n")
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -179,7 +183,7 @@ def test_port_slice_never_imports_jax(setup, tmp_path):
 def test_memory_host_io_gives_the_native_output(setup, tmp_path):
     with host_io() as (_, desc):
         assert desc.startswith("native")
-    native_reader = geotiff.RasterReader
+    native_reader = port_geotiff.RasterReader
     outs = {}
     for name in ("native", "memory"):
         cfg = copy.deepcopy(setup["cfg"])
@@ -190,8 +194,8 @@ def test_memory_host_io_gives_the_native_output(setup, tmp_path):
             img = str(tmp_path / f"{name}.tif")
             write(img, setup["raster"], from_origin(10000.0, 20000.0, RES, RES), "EPSG:2154")
             cfg["modalities"]["AERIAL_RGBI"]["input_img_path"] = img
-            with open_raster(zi.run_inference(cfg)[TASK]) as src:
+            with port_geotiff.open_raster(zi.run_inference(cfg, device="cpu")[TASK]) as src:
                 outs[name] = src.read()
                 assert (src.height, src.width, src.crs) == (SIDE, SIDE, "EPSG:2154")
-    assert geotiff.RasterReader is native_reader  # leaving the context restores it
+    assert port_geotiff.RasterReader is native_reader  # leaving the context restores it
     np.testing.assert_array_equal(outs["memory"], outs["native"])
