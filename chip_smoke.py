@@ -89,7 +89,7 @@ KERNELS = {
 }
 # kernels that run only under the reference's opt-in fused-block switches
 SWITCHED = {"ffn_bwd": ("FLAIR_FFN_BWD", "kernel"), "finish": ("FLAIR_SWIN_FINISH", "1")}
-# the H100 SXM's published peaks (on-chip-measurement guide): memory bytes/s,
+# the H100 SXM's published peaks: memory bytes/s,
 # and dense operations/s for the dtype a kernel's products run in (bf16 on
 # the tensor cores; float32 on the SIMT units, the kernels take no TF32)
 HBM_BYTES_S = 3.35e12
