@@ -15,7 +15,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    in bf16 and float32, both softmax modes; max and median error against
    the stated bound, kernel and plain times (CUDA events, median of 20)
    and each kernel's bound (the larger of its bytes over 3.35 TB/s and its
-   operations over the peak for its dtype);
+   operations over the peak for its dtype); the A/B tool's two
+   attention-product kernels (per head, grouped) at the tool's defaults and
+   the four stage geometries at batch 16, beside the library call (two bf16
+   ``torch.bmm``) that computes the same function;
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -38,7 +41,11 @@ Phases, one printed line each (any failure raises and exits non-zero):
    versions, and again with ``FLAIR_FFN_BWD=kernel`` (K7 in every block's
    backward) and with ``FLAIR_SWIN_FINISH=1`` (K8 in every block); ms/step
    and peak device memory of the kernel, plain and K7 routes in float32
-   and with ``compute_dtype: bfloat16``.
+   and with ``compute_dtype: bfloat16``;
+6. tool: the port's A/B tool, ``python -m
+   flair_for_aigle_tpu_torch.tools.exp_attn_dots``, once as a subprocess at
+   its defaults: its three JSON lines, the two kernels' agreement and times,
+   and its kernel launches.
 
 The line before the last is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``. Needs one card, the CUDA toolkit (nvcc)
@@ -86,6 +93,10 @@ KERNELS = {
                 "flair_for_aigle_tpu/ops/pallas/ffn.py:297"),
     "finish": ("flair_for_aigle_tpu_torch/csrc/finish.cu",
                "flair_for_aigle_tpu/ops/pallas/finish.py:41"),
+    "attn_dots_per_head": ("flair_for_aigle_tpu_torch/csrc/attn_dots.cu",
+                           "tools/exp_attn_dots.py:44"),
+    "attn_dots_grouped": ("flair_for_aigle_tpu_torch/csrc/attn_dots.cu",
+                          "tools/exp_attn_dots.py:57"),
 }
 # kernels that run only under the reference's opt-in fused-block switches
 SWITCHED = {"ffn_bwd": ("FLAIR_FFN_BWD", "kernel"), "finish": ("FLAIR_SWIN_FINISH", "1")}
@@ -215,7 +226,8 @@ def phase_build() -> None:
 
 def _stat(stats, name) -> dict:
     return stats.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                                   "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0})
+                                   "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                                   "library_ms": None})
 
 
 def _bound(cost) -> tuple[float, float]:
@@ -300,15 +312,45 @@ def cost_attn_dots(bnw, c):
     return 4 * bnw * T * c * 2, 4 * bnw * T * T * c
 
 
-def _compare(name, case, got, want, bound, t_k, t_p, stats, cost):
+def attn_dots_bound(ref) -> float:
+    """The A/B kernels' bound: one bf16 unit in the last place at the
+    reference's largest magnitude, and at least 4e-3 of it. The kernels sum
+    exact bf16 products in another float32 order than the plain version, so
+    single roundings of the scores and of the outputs flip; an output flip
+    at the largest magnitude is one unit there, between 2^-8 and 2^-7 of
+    that magnitude (4e-3 alone is below one unit in the lower part of each
+    binade)."""
+    m = max(ref.float().abs().max().item(), 2.0 ** -20)
+    return max(4e-3 * m, 2.0 ** (math.floor(math.log2(m)) - 7))
+
+
+def library_attn_dots(q, k, v, nh):
+    """The attention products in library calls (the yardstick, used
+    nowhere in the port): the head transposes, then two bf16 ``torch.bmm``
+    with their float32 accumulation and the bf16 round between them."""
+    import torch
+
+    bnw, t, c = q.shape
+    hd = c // nh
+
+    def heads(x):
+        return x.view(bnw, t, nh, hd).transpose(1, 2).reshape(bnw * nh, t, hd)
+
+    p = torch.bmm(heads(q), heads(k).transpose(1, 2))
+    o = torch.bmm(p, heads(v))
+    return o.view(bnw, nh, t, hd).transpose(1, 2).reshape(bnw, t, c)
+
+
+def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None):
     import torch
 
     err = (got.float() - want.float()).abs()
     mx, med = err.max().item(), err.median().item()
     ok = mx <= bound
+    lib = "" if t_lib is None else f"library {t_lib:.4f} ms (x{t_lib / t_k:.2f} the kernel's), "
     say("kernel", f"{name} {case}: max_abs_err {mx:.3e} median {med:.3e} "
         f"bound {bound:.3e} {'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, {_bound_text(cost)}")
+        f"plain {t_p:.4f} ms, {lib}{_bound_text(cost)}")
     s = _stat(stats, name)
     s["max_abs_err"] = max(s["max_abs_err"], mx)
     if not ok:
@@ -351,10 +393,19 @@ def phase_kernels() -> dict:
     """Every kernel against its plain version; returns per-kernel stats
     (times and bounds summed over the stages, in the dtype of the path each
     kernel serves: bf16 for K1-K4 and K8, the zonal slice's; float32 for K5,
-    K6 and K7, the training configuration's)."""
+    K6 and K7, the training configuration's; the A/B kernels' at the tool's
+    default geometry, with the library call's time)."""
     import torch
 
-    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, finish, merge, prep, window_attn
+    from flair_for_aigle_tpu_torch.ops import (
+        attn_dots,
+        epilogue,
+        ffn,
+        finish,
+        merge,
+        prep,
+        window_attn,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -380,7 +431,7 @@ def phase_kernels() -> dict:
         geom = f"B2 {hw}x{hw}x{c}"
         hp = hw + (WS - hw % WS) % WS
         nwh = hp // WS
-        for dtype in ([bf, f32] if hw == 128 else [bf]):
+        for dtype in (bf, f32):
             dts = "bf16" if dtype == bf else "f32"
             tag = f"{geom} {dts}"
             isz = 2 if dtype == bf else 4
@@ -548,13 +599,37 @@ def phase_kernels() -> dict:
                 _compare("epilogue", tag, got.int(), want.int(), 1.0, t_k, t_p, stats, cost)
             if dtype == bf and output_type == "argmax":
                 _add_time(stats, "epilogue", t_k, t_p, cost)
-    # the one TPU kernel still to port (an A/B tool on no path of the
-    # system), at its default shapes: its bound only
-    say("kernel", "tools/exp_attn_dots.py (not ported) at B16 128x128x128, 4 heads, bf16: "
-        + _bound_text((*cost_attn_dots(16 * 11 * 11, 128), "bf16")))
+    # the A/B tool's kernels at the stage geometries, batch 16, bw 1 and 4
+    # (stage 1 at bw 4 is the tool's defaults, whose times go into stats)
+    # against their plain version, beside the library call
+    for (hw, c, nh) in STAGES:
+        bnw = BATCH * (-(-hw // WS)) ** 2
+        q, k, v = (randn(bnw, T, c) for _ in range(3))
+        want = attn_dots.attn_dots_reference(q, k, v, num_heads=nh)
+        lib = library_attn_dots(q, k, v, nh)
+        t_p = cuda_ms(lambda: attn_dots.attn_dots_reference(q, k, v, num_heads=nh))
+        t_l = cuda_ms(lambda: library_attn_dots(q, k, v, nh))
+        cost = (*cost_attn_dots(bnw, c), "bf16")
+        b = attn_dots_bound(want)
+        say("kernel", f"attn_dots library B{BATCH} {hw}x{hw}x{c} {nh} heads: two bf16 torch.bmm "
+            f"{t_l:.4f} ms, max_abs_err {(lib.float() - want.float()).abs().max().item():.3e} "
+            f"against the plain version (for information)")
+        for bw in (1, 4):
+            defaults = hw == 128 and bw == 4
+            for fn in (attn_dots.attn_dots_per_head, attn_dots.attn_dots_grouped):
+                got = fn(q, k, v, num_heads=nh, bw=bw)
+                t_k = cuda_ms(lambda: fn(q, k, v, num_heads=nh, bw=bw))
+                tag = (f"B{BATCH} {hw}x{hw}x{c} {nh} heads bw {bw}"
+                       + (" (the tool's default geometry)" if defaults else ""))
+                _compare(fn.__name__, tag, got, want, b, t_k, t_p, stats, cost, t_lib=t_l)
+                if defaults:
+                    _add_time(stats, fn.__name__, t_k, t_p, cost)
+                    stats[fn.__name__]["library_ms"] = t_l
+        del q, k, v, want, lib
     for name, st in stats.items():
+        lib = "" if st["library_ms"] is None else f"library {st['library_ms']:.4f} ms, "
         say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
-            f"bound {st['bound_ms']:.4f} ms (bytes {st['bytes_ms']:.4f}, operations "
+            f"{lib}bound {st['bound_ms']:.4f} ms (bytes {st['bytes_ms']:.4f}, operations "
             f"{st['ops_ms']:.4f}); share of bound {st['bound_ms'] / st['ms']:.3f}")
     return stats
 
@@ -1006,6 +1081,40 @@ def _cli_run(cfg: dict, root: str, pandas_ok: bool) -> dict:
     return launches
 
 
+def phase_tool() -> dict:
+    """The A/B tool's command, ``python -m
+    flair_for_aigle_tpu_torch.tools.exp_attn_dots``, once in a process of
+    its own at its defaults (its launch counts start at 0 there); returns
+    the kernel launches it reports."""
+    from flair_for_aigle_tpu_torch.ops.attn_dots import attn_dots_reference
+    from flair_for_aigle_tpu_torch.tools import exp_attn_dots as tool
+
+    g = tool.geometry({})
+    bound = attn_dots_bound(attn_dots_reference(*tool.inputs(g["bnw"], g["c"], DEVICE),
+                                                num_heads=g["nh"]))
+    env = {k: v for k, v in os.environ.items() if k not in ("DB", "DHW", "DC", "DNH", "BW")}
+    cmd = [sys.executable, "-m", "flair_for_aigle_tpu_torch.tools.exp_attn_dots"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    rows = [json.loads(line) for line in lines[1:]]
+    launches = json.loads([line for line in proc.stderr.splitlines()
+                           if line.startswith('{"launches"')][-1])["launches"]
+    say("tool", f"{' '.join(cmd[1:])} (B{g['b']} {g['hw']}x{g['hw']}x{g['c']}, {g['nh']} heads, "
+        f"bw {g['bw']}) {wall:.2f} s: {' | '.join(lines)}; max_abs_diff bound {bound:.3e}; "
+        f"launches {launches}")
+    if not (len(rows) == 3 and [list(r) for r in rows] == [["max_abs_diff"], ["per_head_ms"],
+                                                             ["grouped_ms"]]
+            and rows[0]["max_abs_diff"] <= bound and rows[1]["per_head_ms"] > 0
+            and rows[2]["grouped_ms"] > 0 and all(launches.values())):
+        raise AssertionError("the A/B tool's output is incomplete, its kernels disagree "
+                             "or they did not run")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "flair_for_aigle_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1020,21 +1129,22 @@ def main() -> int:
     with host_io() as (write_geotiff, io_desc):
         zonal = phase_slice(env["card"], write_geotiff, io_desc)
         train, train_switched = phase_train(env["card"], write_geotiff)
-    # launches: the main path's runs (zonal, training stages and CLI) and,
-    # for K7 and K8, the runs under their switches (the zonal finish pass,
-    # one training step each); library_ms: no single PyTorch call computes
-    # any of these fused functions
+    tool = phase_tool()
+    # launches: the main path's runs (zonal, training stages and CLI), for
+    # K7 and K8 the runs under their switches (the zonal finish pass, one
+    # training step each), and the A/B tool's run; library_ms: the A/B
+    # kernels' two bf16 torch.bmm at the tool's defaults, else null (no
+    # single PyTorch call computes the other, fused functions)
+    runs = {"zonal": zonal, "train": train, "train_switched": train_switched, "tool": tool}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (zonal.get(name, 0) + train.get(name, 0)
-                      + train_switched.get(name, 0)),
-         "launches_zonal": zonal.get(name, 0), "launches_train": train.get(name, 0),
-         "launches_train_switched": train_switched.get(name, 0),
+         "launches": sum(r.get(name, 0) for r in runs.values()),
+         **{f"launches_{k}": r.get(name, 0) for k, r in runs.items()},
          "max_abs_err": stats[name]["max_abs_err"],
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["bytes_ms"] >= stats[name]["ops_ms"] else "operations",
-         "library_ms": None}
+         "library_ms": stats[name]["library_ms"]}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["kind"],
                                               "count": env["count"]}}), flush=True)

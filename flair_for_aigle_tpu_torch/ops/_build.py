@@ -61,6 +61,9 @@ _SIGNATURES = {
     # wpart, dln, row_part, dx, dvec, dw1, db1, dw2,
     # n, c, hidden, k_chunk, rows, eps, dtype, stream
     "ffn_bwd": [_P] * 21 + [_I] * 5 + [_F, _I, _P],
+    # q, k, v, out, bnw, t, c, nh, bw, stream
+    "attn_dots_per_head": [_P] * 4 + [_I] * 5 + [_P],
+    "attn_dots_grouped": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

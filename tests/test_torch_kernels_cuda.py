@@ -18,13 +18,23 @@ gradient's largest magnitude, bfloat16 median relative error < 0.04 per
 gradient (tests/test_window_attn_kernel.py's bounds for the TPU backward).
 The fused finish (K8) has K3's bounds (after its gather it computes K3's
 function), the ffn backward (K7) K6's, at the four swin-base@512 stages at
-batch 2 and at an odd shape.
+batch 2 and at an odd shape. The A/B tool's two attention-product kernels:
+one bfloat16 unit in the last place at the largest magnitude against their
+plain version, bit-identical to each other and from call to call.
 """
 
 import pytest
 import torch
 
-from flair_for_aigle_tpu_torch.ops import epilogue, ffn, finish, merge, prep, window_attn
+from flair_for_aigle_tpu_torch.ops import (
+    attn_dots,
+    epilogue,
+    ffn,
+    finish,
+    merge,
+    prep,
+    window_attn,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -365,3 +375,38 @@ def test_swin_block_switches_on_the_card_match_cpu(dev, switch, monkeypatch):
     _assert_close(out[str(dev)], out["cpu"], torch.float32)
     for n, want in grads["cpu"].items():
         _assert_close(grads[str(dev)][n], want, torch.float32)
+
+
+@pytest.mark.parametrize("bw", [1, 2])
+@pytest.mark.parametrize("c,nh", [(128, 4), (256, 8)])
+def test_attn_dots_kernels(dev, c, nh, bw):
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn((4, 144, c), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    want = attn_dots.attn_dots_reference(q, k, v, num_heads=nh)
+    got = {}
+    for fn in (attn_dots.attn_dots_per_head, attn_dots.attn_dots_grouped):
+        fn.launches = 0
+        a = fn(q, k, v, num_heads=nh, bw=bw)
+        b = fn(q, k, v, num_heads=nh, bw=bw)
+        torch.cuda.synchronize()
+        assert fn.launches == 2
+        assert a.shape == q.shape and a.dtype == torch.bfloat16
+        assert torch.equal(a, b)
+        _assert_close(a, want, torch.bfloat16, bf16_ulps=1)
+        got[fn.__name__] = a
+    assert torch.equal(got["attn_dots_per_head"], got["attn_dots_grouped"])
+
+
+def test_attn_dots_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 144, 128), device=dev, dtype=torch.bfloat16)
+    for fn in (attn_dots.attn_dots_per_head, attn_dots.attn_dots_grouped):
+        with pytest.raises(ValueError):  # float32
+            fn(x.float(), x.float(), x.float(), num_heads=4)
+        with pytest.raises(ValueError):  # head dim 64
+            fn(x, x, x, num_heads=2)
+        y = x[:, :64].contiguous()
+        with pytest.raises(ValueError):  # T = 64
+            fn(y, y, y, num_heads=4)
+        with pytest.raises(ValueError):  # 4 windows, 3 per block
+            fn(x, x, x, num_heads=4, bw=3)
