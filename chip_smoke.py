@@ -341,6 +341,95 @@ def library_attn_dots(q, k, v, nh):
     return o.view(bnw, nh, t, hd).transpose(1, 2).reshape(bnw, t, c)
 
 
+def cost_window_attn_core(bnw, c, nh, bias_isz):
+    # bf16 q, k, v in, o out, the (nh, T, T) bias once; QK^T and P V
+    return 4 * bnw * T * c * 2 + nh * T * T * bias_isz, 4 * bnw * T * T * c
+
+
+def library_core(qkv, bias, nwh, nh):
+    """K2's attention core as one ``scaled_dot_product_attention`` call
+    (the yardstick, used nowhere in the port): contiguous (bnw, nh, T, 32)
+    bf16 q, k, v and the bias plus the shift mask prebuilt as one bf16
+    (bnw, nh, T, T) ``attn_mask``, the backend pinned to memory-efficient
+    attention, else cuDNN's. Returns (run, backend name, output (bnw*T, C))."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    m, c3 = qkv.shape
+    bnw, c = m // T, c3 // 3
+    q, k, v = (t.contiguous() for t in qkv.view(bnw, T, 3, nh, c // nh).permute(2, 0, 3, 1, 4))
+    grid = torch.as_tensor(window_attn._grid_mask(WS, SS, nwh, nwh), device=qkv.device)
+    mask = (bias.float()[None, None] + grid[None, :, None]).expand(
+        bnw // grid.shape[0], -1, -1, -1, -1).reshape(bnw, nh, T, T).to(torch.bfloat16)
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        def run(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      scale=(c // nh) ** -0.5)
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return run, backend.name, out.transpose(1, 2).reshape(m, c)
+    raise RuntimeError("neither memory-efficient nor cuDNN attention takes this attn_mask")
+
+
+def core_lines(stats, geom, bnw, c, nh, nwh, randn, bound) -> None:
+    """K2's bf16 attention core alone at one stage geometry, both softmax
+    modes, against its plain version and beside the library call; times of
+    the slice's mode (attn_f32 False) go into ``stats``."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    qkv = randn(bnw * T, 3 * c)
+    bias = randn(nh, T, T, dtype=torch.float32, std=0.5)
+    run, backend, lib = library_core(qkv, bias, nwh, nh)
+    t_l = cuda_ms(run)
+    for attn_f32 in (True, False):
+        akw = dict(num_heads=nh, window_size=WS, shift_size=SS, grid_hw=(nwh, nwh),
+                   attn_f32=attn_f32)
+        got = window_attn.window_attention_core(qkv, bias, **akw)
+        want = window_attn.window_attention_core_reference(qkv, bias, **akw)
+        if attn_f32:  # the library call computes the float32 softmax's function
+            lib_err = (lib.float() - want.float()).abs().max().item()
+            lib_bound = bound(want, torch.bfloat16, 4, None)
+            say("kernel", f"window_attn_core library {geom}: scaled_dot_product_attention "
+                f"({backend}) {t_l:.4f} ms, max_abs_err {lib_err:.3e} against the attn_f32=True "
+                f"plain core, bound {lib_bound:.3e} {'ok' if lib_err <= lib_bound else 'FAIL'}")
+            if lib_err > lib_bound:
+                raise AssertionError("the library call computes another function than the core")
+        t_k = cuda_ms(lambda: window_attn.window_attention_core(qkv, bias, **akw))
+        t_p = cuda_ms(lambda: window_attn.window_attention_core_reference(qkv, bias, **akw))
+        cost = (*cost_window_attn_core(bnw, c, nh, 4 if attn_f32 else 2), "bf16")
+        _compare("window_attn_core", f"{geom} bf16 attn_f32={attn_f32}", got, want,
+                 bound(want, torch.bfloat16, 4, None), t_k, t_p, stats, cost, t_lib=t_l)
+        if not attn_f32:
+            _add_time(stats, "window_attn_core", t_k, t_p, cost)
+            s = stats["window_attn_core"]
+            s["library_ms"] = (s["library_ms"] or 0.0) + t_l
+
+
+def core_info(stats) -> None:
+    """The bf16 core kernel's registers, spill bytes, shared bytes and
+    resident blocks per SM at T = 144 in both modes; raises on a spill."""
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    for attn_f32 in (True, False):
+        info = window_attn.window_attention_core_info(T, attn_f32)
+        say("kernel", f"window_attn_core T{T} bf16 attn_f32={attn_f32}: {info['regs']} registers, "
+            f"{info['spill_bytes']} spill bytes, {info['shared_bytes']} shared bytes per block, "
+            f"{info['blocks_per_sm']} blocks per SM (bound: 0 spill bytes)")
+        if info["spill_bytes"] > 0:
+            raise AssertionError(f"the core spills at attn_f32={attn_f32}: {info}")
+        if not attn_f32:
+            stats["window_attn_core"]["info"] = info
+
+
 def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None):
     import torch
 
@@ -466,6 +555,8 @@ def phase_kernels() -> dict:
                          bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost)
                 if dtype == bf and not attn_f32:  # the slice's configuration
                     _add_time(stats, "window_attn", t_k, t_p, cost)
+            if dtype == bf:
+                core_lines(stats, geom, win.shape[0], c, nh, nwh, randn, bound)
 
             # K3: residual + LN + MLP + residual
             a = randn(2, hw, hw, c, dtype=dtype, std=0.5)
@@ -626,6 +717,7 @@ def phase_kernels() -> dict:
                     _add_time(stats, fn.__name__, t_k, t_p, cost)
                     stats[fn.__name__]["library_ms"] = t_l
         del q, k, v, want, lib
+    core_info(stats)
     for name, st in stats.items():
         lib = "" if st["library_ms"] is None else f"library {st['library_ms']:.4f} ms, "
         say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -1136,6 +1228,14 @@ def main() -> int:
     # kernels' two bf16 torch.bmm at the tool's defaults, else null (no
     # single PyTorch call computes the other, fused functions)
     runs = {"zonal": zonal, "train": train, "train_switched": train_switched, "tool": tool}
+    # K2's bf16 attention core alone, summed over the stages at attn_f32
+    # False (the slice's), with its resources at T = 144
+    core, info = stats["window_attn_core"], stats["window_attn_core"]["info"]
+    extra = {"window_attn": {
+        "core_ms": core["ms"], "core_plain_ms": core["plain_ms"],
+        "core_bound_ms": core["bound_ms"], "core_library_ms": core["library_ms"],
+        "core_regs": info["regs"], "core_spill_bytes": info["spill_bytes"],
+        "core_blocks_per_sm": info["blocks_per_sm"]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs.values()),
@@ -1144,7 +1244,7 @@ def main() -> int:
          "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
          "bound_ms": stats[name]["bound_ms"],
          "bound_by": "bytes" if stats[name]["bytes_ms"] >= stats[name]["ops_ms"] else "operations",
-         "library_ms": stats[name]["library_ms"]}
+         "library_ms": stats[name]["library_ms"], **extra.get(name, {})}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["kind"],
                                               "count": env["count"]}}), flush=True)

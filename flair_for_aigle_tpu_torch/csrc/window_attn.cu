@@ -224,6 +224,36 @@ void launch_attn_core(const T* qkv, const void* bias, T* o, int bnw, int t, int 
 }
 
 template <typename T>
+void attn_core(const T* qkv, const void* bias, T* o, int bnw, int t, int c, int nh, int ws,
+               int ss, int nwh, int nww, int attn_f32, cudaStream_t s) {
+  if (attn_f32) {
+    launch_attn_core<T, true>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s);
+  } else {
+    launch_attn_core<T, false>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s);
+  }
+}
+
+template <typename T, bool F32>
+int attn_core_info(int t, int* out) {
+  const int tp = (t + 15) / 16 * 16;
+  const size_t smem = attn_smem_bytes<T>(tp);
+  cudaError_t e = cudaFuncSetAttribute(
+      attn_core_kernel<T, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, attn_core_kernel<T, F32>);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_core_kernel<T, F32>,
+                                                      tp / 16 * 32, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)(a.sharedSizeBytes + smem);
+  out[3] = blocks;
+  return 0;
+}
+
+template <typename T>
 int window_attn_impl(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
                      const void* bproj, const void* bias, void* qkv, void* o, void* out,
                      int bnw, int t, int c, int nh, int ws, int ss, int nwh, int nww,
@@ -231,11 +261,7 @@ int window_attn_impl(const void* x, const void* wqkv, const void* bqkv, const vo
   const int m = bnw * t;
   launch_gemm<T, EPI_BIAS>((const T*)x, (const T*)wqkv, (T*)qkv, m, 3 * c, c,
                            (const T*)bqkv, nullptr, nullptr, s);
-  if (attn_f32) {
-    launch_attn_core<T, true>((const T*)qkv, bias, (T*)o, bnw, t, c, nh, ws, ss, nwh, nww, s);
-  } else {
-    launch_attn_core<T, false>((const T*)qkv, bias, (T*)o, bnw, t, c, nh, ws, ss, nwh, nww, s);
-  }
+  attn_core<T>((const T*)qkv, bias, (T*)o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, s);
   launch_gemm<T, EPI_BIAS>((const T*)o, (const T*)wproj, (T*)out, m, c, c, (const T*)bproj,
                            nullptr, nullptr, s);
   return (int)cudaGetLastError();
@@ -244,6 +270,28 @@ int window_attn_impl(const void* x, const void* wqkv, const void* bqkv, const vo
 }  // namespace flair
 
 using namespace flair;
+
+// the attention core alone: qkv (bnw*t, 3c) -> o (bnw*t, c)
+extern "C" int window_attn_core(const void* qkv, const void* bias, void* o, int bnw, int t,
+                                int c, int nh, int ws, int ss, int nwh, int nww, int attn_f32,
+                                int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    attn_core<float>((const float*)qkv, bias, (float*)o, bnw, t, c, nh, ws, ss, nwh, nww,
+                     attn_f32, s);
+  else
+    attn_core<bf16>((const bf16*)qkv, bias, (bf16*)o, bnw, t, c, nh, ws, ss, nwh, nww,
+                    attn_f32, s);
+  return (int)cudaGetLastError();
+}
+
+// the core kernel's registers, local (spill) bytes per thread, shared bytes
+// per block and resident blocks per SM at t tokens
+extern "C" int window_attn_core_info(int t, int attn_f32, int dtype, int* out) {
+  if (dtype == 0) return attn_f32 ? attn_core_info<float, true>(t, out)
+                                  : attn_core_info<float, false>(t, out);
+  return attn_f32 ? attn_core_info<bf16, true>(t, out) : attn_core_info<bf16, false>(t, out);
+}
 
 extern "C" int window_attn_fwd(const void* x, const void* wqkv, const void* bqkv,
                                const void* wproj, const void* bproj, const void* bias,

@@ -40,6 +40,11 @@ _SIGNATURES = {
     # x, wqkv, bqkv, wproj, bproj, bias, qkv, o, out,
     # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, dtype, stream
     "window_attn_fwd": [_P] * 9 + [_I] * 10 + [_P],
+    # qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, dtype, stream
+    "window_attn_core": [_P] * 3 + [_I] * 10 + [_P],
+    # t, attn_f32, dtype, out (int[4]: registers, local bytes, shared
+    # bytes, blocks per SM)
+    "window_attn_core_info": [_I] * 3 + [_P],
     # x, attn, ln_scale, ln_bias, w1, b1, w2, b2, ln, h, out,
     # n, c, hidden, eps, dtype, stream
     "ffn_fwd": [_P] * 11 + [_I, _I, _I, _F, _I, _P],

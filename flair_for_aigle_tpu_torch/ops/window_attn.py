@@ -25,6 +25,7 @@ grid only fitted the TPU's VMEM at C = 512 / 1024.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -101,18 +102,20 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(dt).t()) + b.to(dt)
 
 
-def fused_window_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, *,
-                                     num_heads: int, window_size: int,
-                                     shift_size: int, grid_hw,
-                                     attn_f32: bool = True) -> torch.Tensor:
-    """Plain version of the kernel, in the Pallas body's order of
-    operations. x: (B*nW, T, C); bias: (nh, T, T). Returns (B*nW, T, C)."""
-    bnw, t, c = x.shape
+def window_attention_core_reference(qkv, bias, *, num_heads: int,
+                                    window_size: int, shift_size: int,
+                                    grid_hw, attn_f32: bool = True) -> torch.Tensor:
+    """Plain version of the attention core, in the Pallas body's order of
+    operations: per head QK^T * scale + bias (+ shift mask), the softmax of
+    the ``attn_f32`` mode and P V. qkv: (B*nW*T, 3C), the qkv projection's
+    output; bias: (nh, T, T). Returns the heads merged, (B*nW*T, C)."""
+    t = window_size * window_size
+    c = qkv.shape[1] // 3
+    bnw = qkv.shape[0] // t
     nh = num_heads
     hd = c // nh
-    dt = x.dtype
+    dt = qkv.dtype
     scale = hd ** -0.5
-    qkv = _linear(x.reshape(bnw * t, c), wqkv, bqkv)
     qkv = qkv.reshape(bnw, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
     q, k, v = qkv[0], qkv[1], qkv[2]                      # (bnw, nh, t, hd)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -120,7 +123,7 @@ def fused_window_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, *,
     if shift_size > 0:
         nwh, nww = grid_hw
         mask = torch.as_tensor(_grid_mask(window_size, shift_size, nwh, nww),
-                               device=x.device)[:, None]  # (nW, 1, t, t)
+                               device=qkv.device)[:, None]  # (nW, 1, t, t)
     if attn_f32:
         s = s * scale + bias.float()
         if mask is not None:
@@ -129,7 +132,7 @@ def fused_window_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, *,
         e = torch.exp(torch.clamp(s, max=CLAMP) - SHIFT)
         denom = e.sum(-1, keepdim=True) + 1e-37
     else:
-        s = s.to(dt) * torch.tensor(scale, dtype=dt, device=x.device)
+        s = s.to(dt) * torch.tensor(scale, dtype=dt, device=qkv.device)
         s = s + bias.to(dt)
         if mask is not None:
             s = (s.reshape(-1, mask.shape[0], nh, t, t) + mask.to(dt)).reshape(
@@ -137,12 +140,28 @@ def fused_window_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, *,
         e = torch.exp(s - s.amax(-1, keepdim=True))
         denom = (e.sum(-1, keepdim=True) + 1e-37).float()
     o = torch.matmul(e.to(dt).float(), v.float()) / denom
-    o = o.to(dt).transpose(1, 2).reshape(bnw * t, c)
+    return o.to(dt).transpose(1, 2).reshape(bnw * t, c)
+
+
+def fused_window_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, *,
+                                     num_heads: int, window_size: int,
+                                     shift_size: int, grid_hw,
+                                     attn_f32: bool = True) -> torch.Tensor:
+    """Plain version of the kernel, in the Pallas body's order of
+    operations. x: (B*nW, T, C); bias: (nh, T, T). Returns (B*nW, T, C)."""
+    bnw, t, c = x.shape
+    qkv = _linear(x.reshape(bnw * t, c), wqkv, bqkv)
+    o = window_attention_core_reference(
+        qkv, bias, num_heads=num_heads, window_size=window_size,
+        shift_size=shift_size, grid_hw=grid_hw, attn_f32=attn_f32)
     return _linear(o, wproj, bproj).reshape(bnw, t, c)
 
 
-def _check(x, num_heads: int, window_size: int, grid_hw, what: str) -> None:
-    bnw, t, c = x.shape
+def _check(x, num_heads: int, window_size: int, grid_hw, what: str,
+           shape=None) -> None:
+    """Raise on what the kernels do not take; ``shape`` (B*nW, T, C) stands
+    for x's own shape where x holds the windows in another layout."""
+    bnw, t, c = x.shape if shape is None else shape
     nh = num_heads
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
@@ -235,6 +254,57 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, *,
 
 
 fused_window_attention.launches = 0
+
+
+def window_attention_core(qkv, bias, *, num_heads: int, window_size: int,
+                          shift_size: int, grid_hw,
+                          attn_f32: bool = True) -> torch.Tensor:
+    """The attention core of ``fused_window_attention`` alone, on the qkv
+    projection's output qkv (B*nW*T, 3C): returns the heads merged, (B*nW*T,
+    C). CPU tensors take the plain version; CUDA tensors launch the core
+    kernel that K2 launches between its two projections. Not
+    differentiable."""
+    cfg = dict(num_heads=num_heads, window_size=window_size,
+               shift_size=shift_size, grid_hw=tuple(grid_hw),
+               attn_f32=bool(attn_f32))
+    if qkv.device.type == "cpu":
+        return window_attention_core_reference(qkv, bias, **cfg)
+    what = "window attention core kernel"
+    t = window_size * window_size
+    if qkv.dim() != 2 or qkv.shape[0] % t or qkv.shape[1] % 3:
+        raise ValueError(f"{what}: qkv must be (B*nW*T, 3C), got {tuple(qkv.shape)}")
+    m, c = qkv.shape[0], qkv.shape[1] // 3
+    bnw = m // t
+    _check(qkv, num_heads, window_size, grid_hw, what, shape=(bnw, t, c))
+    bias = bias.detach().to(qkv.device, torch.float32 if attn_f32 else qkv.dtype)
+    bias = bias.contiguous()
+    if bias.shape != (num_heads, t, t):
+        raise ValueError(f"{what}: bias must be ({num_heads}, {t}, {t})")
+    o = torch.empty((m, c), dtype=qkv.dtype, device=qkv.device)
+    nwh, nww = cfg["grid_hw"]
+    rc = _build.lib().window_attn_core(
+        qkv.data_ptr(), bias.data_ptr(), o.data_ptr(), bnw, t, c, num_heads,
+        window_size, shift_size, nwh, nww, int(cfg["attn_f32"]),
+        _build.dtype_code(qkv), _build.stream_ptr(qkv))
+    _build.check(rc, "window_attn_core")
+    window_attention_core.launches += 1
+    return o
+
+
+window_attention_core.launches = 0
+
+
+def window_attention_core_info(t: int, attn_f32: bool,
+                               dtype=torch.bfloat16) -> dict:
+    """The core kernel's resources on the current card at T = t tokens, as
+    the CUDA runtime reports them: registers per thread, local (spill)
+    bytes per thread, shared bytes per block and resident blocks per SM."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.lib().window_attn_core_info(
+        t, int(bool(attn_f32)), 0 if dtype == torch.float32 else 1,
+        ctypes.addressof(out))
+    _build.check(rc, "window_attn_core_info")
+    return dict(zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
 def fused_window_attention_backward_reference(g, x, wqkv, bqkv, wproj, bproj,

@@ -75,10 +75,14 @@ def test_prep_kernel(dev, dtype, h, w, c, ws, ss):
     _assert_close(got, want, dtype, bf16_ulps=1)
 
 
+# (window, shift, window grid, C, heads): T = 144, 64, 16 and 4
+ATTN_GEOMS = [(12, 6, (2, 3), 128, 4), (8, 0, (1, 1), 256, 8), (4, 2, (3, 2), 96, 3),
+              (2, 0, (1, 1), 1024, 32)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("attn_f32", [True, False])
-@pytest.mark.parametrize("ws,ss,grid,c,nh", [(12, 6, (2, 3), 128, 4), (8, 0, (1, 1), 256, 8),
-                                            (4, 2, (3, 2), 96, 3), (2, 0, (1, 1), 1024, 32)])
+@pytest.mark.parametrize("ws,ss,grid,c,nh", ATTN_GEOMS)
 def test_window_attn_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
     g = torch.Generator(device=dev).manual_seed(1)
     t = ws * ws
@@ -94,6 +98,35 @@ def test_window_attn_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
     want = window_attn.fused_window_attention_reference(x, *p, **kw)
     torch.cuda.synchronize()
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("attn_f32", [True, False])
+@pytest.mark.parametrize("ws,ss,grid,c,nh", ATTN_GEOMS)
+def test_window_attn_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
+    """The bf16 attention core alone against its plain version; two calls
+    bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    t = ws * ws
+    bnw = 2 * grid[0] * grid[1]
+    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((nh, t, t), generator=g, device=dev) * 0.5
+    kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=attn_f32)
+    window_attn.window_attention_core.launches = 0
+    got = window_attn.window_attention_core(qkv, bias, **kw)
+    again = window_attn.window_attention_core(qkv, bias, **kw)
+    want = window_attn.window_attention_core_reference(qkv, bias, **kw)
+    torch.cuda.synchronize()
+    assert window_attn.window_attention_core.launches == 2
+    assert got.shape == (bnw * t, c) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    _assert_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("attn_f32", [True, False])
+def test_window_attn_core_resources(dev, attn_f32):
+    """At T = 144 the bf16 core spills nothing and keeps two blocks per SM."""
+    info = window_attn.window_attention_core_info(144, attn_f32)
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 2, info
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -199,8 +232,7 @@ def _assert_grads_close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("attn_f32", [True, False])
-@pytest.mark.parametrize("ws,ss,grid,c,nh", [(12, 6, (2, 3), 128, 4), (8, 0, (1, 1), 256, 8),
-                                            (4, 2, (3, 2), 96, 3), (2, 0, (1, 1), 1024, 32)])
+@pytest.mark.parametrize("ws,ss,grid,c,nh", ATTN_GEOMS)
 def test_window_attn_backward_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
     g = torch.Generator(device=dev).manual_seed(5)
     t = ws * ws
