@@ -18,7 +18,12 @@ Phases, one printed line each (any failure raises and exits non-zero):
    operations over the peak for its dtype); the A/B tool's two
    attention-product kernels (per head, grouped) at the tool's defaults and
    the four stage geometries at batch 16, beside the library call (two bf16
-   ``torch.bmm``) that computes the same function;
+   ``torch.bmm``) that computes the same function; K2's bf16 attention core
+   alone (``window_attention_core``) at the four stages in both softmax
+   modes, beside one ``scaled_dot_product_attention`` call with the bias and
+   the shift mask as its ``attn_mask``, and its registers, spill bytes,
+   shared bytes and resident blocks per SM at T = 144 (no spill, at least
+   2 blocks, at most 48 KB);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -416,16 +421,20 @@ def core_lines(stats, geom, bnw, c, nh, nwh, randn, bound) -> None:
 
 def core_info(stats) -> None:
     """The bf16 core kernel's registers, spill bytes, shared bytes and
-    resident blocks per SM at T = 144 in both modes; raises on a spill."""
+    resident blocks per SM at T = 144 in both modes; raises on a spill, on
+    fewer than 2 blocks per SM or on more than 48 KB of shared memory."""
     from flair_for_aigle_tpu_torch.ops import window_attn
 
     for attn_f32 in (True, False):
         info = window_attn.window_attention_core_info(T, attn_f32)
         say("kernel", f"window_attn_core T{T} bf16 attn_f32={attn_f32}: {info['regs']} registers, "
             f"{info['spill_bytes']} spill bytes, {info['shared_bytes']} shared bytes per block, "
-            f"{info['blocks_per_sm']} blocks per SM (bound: 0 spill bytes)")
-        if info["spill_bytes"] > 0:
-            raise AssertionError(f"the core spills at attn_f32={attn_f32}: {info}")
+            f"{info['blocks_per_sm']} blocks per SM (bound: 0 spill bytes, >= 2 blocks per SM, "
+            f"<= 49152 shared bytes)")
+        if (info["spill_bytes"] > 0 or info["blocks_per_sm"] < 2
+                or info["shared_bytes"] > 48 * 1024):
+            raise AssertionError(f"the core spills or misses its occupancy at "
+                                 f"attn_f32={attn_f32}: {info}")
         if not attn_f32:
             stats["window_attn_core"]["info"] = info
 

@@ -14,19 +14,39 @@
 //     per-row max, e = exp(s - max) in the compute dtype, denominator the
 //     float32 sum rounded to the compute dtype, deferred normalisation.
 //
-// Bound on the card: at swin-base@512 batch 16 the two projections are
-// ~2/3 of the flops (tensor-core GEMMs, gemm.cuh) and the attention core is
-// T=144, head dim 32: 2.7 MFLOP per (window, head) over 27 KB of q/k/v —
-// compute-bound on the tensor cores if the scores stay on chip. Design: one
-// block per (window, head), one warp per 16 query rows; the warp's 16 x T
-// score strip, its probabilities and its 16 x 32 output live in shared
-// memory, so the (T, T) scores never reach device memory. bf16 runs the two
-// products on wmma (m16n16k16, float32 accumulate); float32 runs SIMT FMAs.
-// The (B*nW, T, 3C) qkv tensor and the pre-projection output round-trip
-// device memory between the three launches (kept in VMEM by the TPU kernel;
-// re-fusing them is later work).
-#include <mma.h>
-
+// Three launches: the qkv GEMM and the proj GEMM (tensor-core GEMMs with a
+// fused bias epilogue, gemm.cuh) around the attention core. The (B*nW, T, 3C)
+// qkv tensor and the pre-projection output round-trip device memory between
+// them (kept in VMEM by the TPU kernel; re-fusing them is later work).
+//
+// The bf16 core (attn_core_bf16_kernel). At T = 144, head dim 32, one
+// (window, head) reads 27 KB of q, k, v, writes 9 KB of o and does 2.7 MFLOP
+// of products: 74 operations per byte against the card's 295 in bf16, so the
+// core is bound by its bytes as long as the (T, T) scores never leave the SM.
+// Design: one block per (window, head), one warp per 16 query rows (TP / 16
+// warps, T padded to TP = 16 * ceil(T / 16)).
+//   - q, k, v arrive by 16-byte cp.async into shared memory rows of 80 bytes
+//     (64 + 16 of padding: the eight rows of an ldmatrix hit disjoint banks);
+//     34.6 KB per block at T = 144.
+//   - S = Q K^T on mma.sync.m16n8k16 (bf16 in, float32 accumulate): Q's A
+//     fragments by ldmatrix.x4 once per warp, K's B fragments by ldmatrix.x4
+//     (K's rows are B's columns). The warp's 16 x TP strip stays in the
+//     accumulators: TP / 8 n-tiles x 4 floats a thread (72 at T = 144).
+//   - The softmax runs on the accumulators in place. A thread holds rows g,
+//     g + 8 and columns 2t, 2t + 1 of each n-tile (g = lane / 4, t = lane %
+//     4), so the row max and sum reduce over the 4 threads of a quad. The
+//     bias is read from device memory (a head's (T, T) tile stays in L2);
+//     the shift mask is computed from the band ids.
+//   - P V with P straight from the accumulators: two neighbouring n-8 tiles
+//     of S packed to bf16 pairs are one k-16 A fragment of m16n8k16. V's B
+//     fragments by ldmatrix.x4.trans. O is 16 x 32 a warp, 16 floats a
+//     thread; divided by the denominator, rounded, staged through the warp's
+//     own q rows and stored in 16-byte rows.
+//   - __launch_bounds__(32 * TP / 16, 2): at T = 144 two blocks (18 warps)
+//     per SM at <= 112 registers a thread.
+// No (T, T) tile touches shared memory. The float32 core
+// (attn_core_f32_kernel) stays on the SIMT units: one block per (window,
+// head) with each warp's float32 score strip in shared memory.
 #include <type_traits>
 
 #include "common.cuh"
@@ -34,53 +54,44 @@
 
 namespace flair {
 
-constexpr int ATTN_HD = 32;  // swin v1 head dim (embed_dim / heads) at every size
+constexpr int ATTN_HD = 32;        // swin v1 head dim (embed_dim / heads) at every size
+constexpr int CORE_LD = ATTN_HD + 8;  // bf16 core: shared row stride in elements (80 bytes)
+constexpr int F32_HDP = ATTN_HD + 1;  // float32 core: padded shared row
 
-template <typename T>
-__host__ __device__ constexpr int attn_hdp() { return sizeof(T) == 2 ? ATTN_HD : ATTN_HD + 1; }
-
-template <typename T>
-__host__ __device__ inline size_t attn_smem_bytes(int tp) {
-  const size_t qkv = 3ull * tp * attn_hdp<T>() * sizeof(T);
-  const size_t s = (size_t)tp * tp * sizeof(float);
-  const size_t p = sizeof(T) == 2 ? (size_t)tp * tp * sizeof(T) : 0;   // f32: in place
-  const size_t o = sizeof(T) == 2 ? (size_t)tp * ATTN_HD * sizeof(float) : 0;
-  return qkv + s + p + o + (size_t)tp * sizeof(float);
+inline size_t attn_f32_smem_bytes(int tp) {
+  return (3ull * tp * F32_HDP + (size_t)tp * tp + tp) * sizeof(float);
 }
 
 __device__ __forceinline__ int band(int x, int ws, int ss) { return x < ws - ss ? 1 : 2; }
 
-template <typename T, bool F32>
-__global__ void attn_core_kernel(const T* __restrict__ qkv, const void* __restrict__ bias_v,
-                                 T* __restrict__ o, int Tn, int C, int ws, int ss, int nwh,
-                                 int nww, float scale) {
-  using BiasT = typename std::conditional<F32, float, T>::type;
+// float32 core: SIMT FMAs, scores in shared memory, probabilities in place
+template <bool F32>
+__global__ void attn_core_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+                                     float* __restrict__ o, int Tn, int C, int ws, int ss,
+                                     int nwh, int nww, float scale) {
   constexpr int HD = ATTN_HD;
-  constexpr int HDP = attn_hdp<T>();
-  constexpr bool TC = sizeof(T) == 2;
-  const BiasT* bias = reinterpret_cast<const BiasT*>(bias_v);
+  constexpr int HDP = F32_HDP;
   const int TP = (Tn + 15) / 16 * 16;
   const int w = blockIdx.x, h = blockIdx.y;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int r0 = wid * 16;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + TP * HDP;
-  T* Vs = Ks + TP * HDP;
-  float* Ss = reinterpret_cast<float*>(Vs + TP * HDP);
-  T* Ps = TC ? reinterpret_cast<T*>(Ss + TP * TP) : reinterpret_cast<T*>(Ss);
-  float* Os = reinterpret_cast<float*>(Ps + TP * TP);  // bf16 only
-  float* dn = TC ? Os + TP * HD : Ss + TP * TP;
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + TP * HDP;
+  float* Vs = Ks + TP * HDP;
+  float* Ss = Vs + TP * HDP;
+  float* Ps = Ss;
+  float* dn = Ss + TP * TP;
 
   // q, k, v of this (window, head); rows past Tn are zero
   const long long row0 = (long long)w * Tn;
   const int C3 = 3 * C;
   for (int e = threadIdx.x; e < TP * HD; e += blockDim.x) {
     const int t = e / HD, d = e % HD;
-    T q = from_f<T>(0.f), k = q, v = q;
+    float q = 0.f, k = q, v = q;
     if (t < Tn) {
-      const T* src = qkv + (row0 + t) * C3 + h * HD + d;
+      const float* src = qkv + (row0 + t) * C3 + h * HD + d;
       q = src[0];
       k = src[C];
       v = src[2 * C];
@@ -92,30 +103,13 @@ __global__ void attn_core_kernel(const T* __restrict__ qkv, const void* __restri
   __syncthreads();
 
   float* Sw = Ss + r0 * TP;  // this warp's 16 x TP score strip
-  T* Pw = Ps + r0 * TP;
-  if constexpr (TC) {
-    using namespace nvcuda;
-    for (int jt = 0; jt < TP / 16; ++jt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + r0 * HDP + kk, HDP);
-        wmma::load_matrix_sync(fb, Ks + jt * 16 * HDP + kk, HDP);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Sw + jt * 16, acc, TP, wmma::mem_row_major);
-    }
-  } else {
-    for (int e = lane; e < 16 * TP; e += 32) {
-      const int r = e / TP, j = e % TP;
-      float s = 0.f;
+  float* Pw = Ps + r0 * TP;
+  for (int e = lane; e < 16 * TP; e += 32) {
+    const int r = e / TP, j = e % TP;
+    float s = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < HD; ++d) s = fmaf(to_f<T>(Qs[(r0 + r) * HDP + d]), to_f<T>(Ks[j * HDP + d]), s);
-      Sw[r * TP + j] = s;
-    }
+    for (int d = 0; d < HD; ++d) s = fmaf(Qs[(r0 + r) * HDP + d], Ks[j * HDP + d], s);
+    Sw[r * TP + j] = s;
   }
   __syncwarp();
 
@@ -123,17 +117,17 @@ __global__ void attn_core_kernel(const T* __restrict__ qkv, const void* __restri
   const int widx = w % (nwh * nww);
   const bool li = ss > 0 && widx / nww == nwh - 1;
   const bool lj = ss > 0 && widx % nww == nww - 1;
-  const float scale_t = rnd<T>(scale);  // the reference multiplies by a compute-dtype scalar
-  constexpr int MAXQ = 5;               // ceil(144 / 32)
+  const float scale_t = scale;  // the compute dtype is float32
+  constexpr int MAXQ = 5;       // ceil(144 / 32)
   for (int r = 0; r < 16; ++r) {
     const int i = r0 + r;
     if (i >= Tn) {
-      for (int j = lane; j < TP; j += 32) Pw[r * TP + j] = from_f<T>(0.f);
+      for (int j = lane; j < TP; j += 32) Pw[r * TP + j] = 0.f;
       if (lane == 0) dn[i] = 1.f;
       continue;
     }
     const int bri = band(i / ws, ws, ss), bci = band(i % ws, ws, ss);
-    const BiasT* brow = bias + ((long long)h * Tn + i) * Tn;
+    const float* brow = bias + ((long long)h * Tn + i) * Tn;
     float sv[MAXQ];
     float mx = -INFINITY;
 #pragma unroll
@@ -144,12 +138,12 @@ __global__ void attn_core_kernel(const T* __restrict__ qkv, const void* __restri
         float s = Sw[r * TP + j];
         const bool differ = (li && bri != band(j / ws, ws, ss)) || (lj && bci != band(j % ws, ws, ss));
         if constexpr (F32) {
-          s = s * scale + to_f<BiasT>(brow[j]);
+          s = s * scale + brow[j];
           if (differ) s += -100.f;
         } else {
-          s = rnd<T>(rnd<T>(s) * scale_t);
-          s = rnd<T>(s + to_f<BiasT>(brow[j]));
-          if (differ) s = rnd<T>(s + -100.f);
+          s = s * scale_t;
+          s = s + brow[j];
+          if (differ) s = s + -100.f;
         }
         sv[q] = s;
         mx = fmaxf(mx, s);
@@ -165,92 +159,317 @@ __global__ void attn_core_kernel(const T* __restrict__ qkv, const void* __restri
         if constexpr (F32) {
           e = expf(fminf(sv[q], 80.f) - 30.f);
         } else {
-          e = rnd<T>(expf(rnd<T>(sv[q] - mx)));
+          e = expf(sv[q] - mx);
         }
         sum += e;
-        Pw[r * TP + j] = from_f<T>(e);
+        Pw[r * TP + j] = e;
       } else if (j < TP) {
-        Pw[r * TP + j] = from_f<T>(0.f);
+        Pw[r * TP + j] = 0.f;
       }
     }
     sum = warp_sum(sum);
-    if (lane == 0) dn[i] = F32 ? sum + 1e-37f : rnd<T>(rnd<T>(sum) + 1e-37f);
+    if (lane == 0) dn[i] = sum + 1e-37f;
   }
   __syncwarp();
 
   // o = P V / denominator, written at this head's channel offset
-  if constexpr (TC) {
-    using namespace nvcuda;
-    float* Ow = Os + r0 * HD;
+  for (int e = lane; e < 16 * HD; e += 32) {
+    const int r = e / HD, d = e % HD, i = r0 + r;
+    if (i >= Tn) continue;
+    float acc = 0.f;
+    for (int j = 0; j < Tn; ++j) acc = fmaf(Pw[r * TP + j], Vs[j * HDP + d], acc);
+    o[(row0 + i) * C + h * HD + d] = acc / dn[i];
+  }
+}
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a b on one m16n8k16 tile: bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two float32 values rounded to one bf16 pair, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// bias[j], bias[j + 1] as float32; one load of the pair where it is aligned
+__device__ __forceinline__ float2 bias_pair(const float* p, int j, int tn, bool even) {
+  if (even) return *reinterpret_cast<const float2*>(p + j);
+  return make_float2(j < tn ? p[j] : 0.f, j + 1 < tn ? p[j + 1] : 0.f);
+}
+
+__device__ __forceinline__ float2 bias_pair(const bf16* p, int j, int tn, bool even) {
+  if (even) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + j));
+  return make_float2(j < tn ? __bfloat162float(p[j]) : 0.f,
+                     j + 1 < tn ? __bfloat162float(p[j + 1]) : 0.f);
+}
+
+}  // namespace
+
+// bf16 core: S and P in mma.sync registers (see the note at the top)
+template <int NQ, bool F32>
+__global__ void __launch_bounds__(32 * NQ, 2)
+    attn_core_bf16_kernel(const bf16* __restrict__ qkv, const void* __restrict__ bias_v,
+                          bf16* __restrict__ o, int Tn, int C, int ws, int ss, int nwh, int nww,
+                          float scale) {
+  using BiasT = typename std::conditional<F32, float, bf16>::type;
+  constexpr int TP = 16 * NQ;  // padded tokens
+  constexpr int NT = 2 * NQ;   // 8-key n-tiles of the score strip
+  constexpr int HD = ATTN_HD, LD = CORE_LD;
+  __shared__ __align__(128) bf16 sm[3][TP * LD];  // q, k, v
+  const BiasT* bias = reinterpret_cast<const BiasT*>(bias_v);
+  const int w = blockIdx.x, h = blockIdx.y;
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, tq = lane & 3;
+  const long long row0 = (long long)w * Tn;
+
+  // q, k, v rows of this (window, head): four 16-byte chunks each, rows
+  // past Tn zero (their P entries are 0, and 0 * garbage may not be)
+  for (int e = threadIdx.x; e < 3 * TP * 4; e += blockDim.x) {
+    const int part = e / (TP * 4), t = (e >> 2) % TP, ch = e & 3;
+    bf16* dst = &sm[part][t * LD + ch * 8];
+    if (t < Tn)
+      cp_async16(dst, qkv + (row0 + t) * (3 * C) + part * C + h * HD + ch * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // S = Q K^T: the warp's 16 x TP strip in NT accumulator tiles
+  uint32_t qa[2][4];
 #pragma unroll
-    for (int nt = 0; nt < HD / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kt = 0; kt < TP / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Pw + kt * 16, TP);
-        wmma::load_matrix_sync(fb, Vs + kt * 16 * HDP + nt * 16, HDP);
-        wmma::mma_sync(acc, fa, fb, acc);
+  for (int ks = 0; ks < 2; ++ks)
+    ldsm_x4(qa[ks], &sm[0][(r0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8]);
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t kb[4];  // keys 8j..8j+7 by head dims 0-7, 8-15, 16-23, 24-31
+    ldsm_x4(kb, &sm[1][(8 * j + (lane & 7)) * LD + (lane >> 3) * 8]);
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_16816(s[j], qa[0], kb[0], kb[1]);
+    mma_16816(s[j], qa[1], kb[2], kb[3]);
+  }
+
+  // scores in place: s[j][2 * hf + u] is row r0 + g + 8 hf, key 8 j + 2 tq + u
+  const int widx = w % (nwh * nww);
+  const bool li = ss > 0 && widx / nww == nwh - 1;
+  const bool lj = ss > 0 && widx % nww == nww - 1;
+  const int lim = ws - ss;  // band 1 below it, band 2 from it
+  const float inv_ws = 1.f / (float)ws;
+  const bool even = (Tn & 1) == 0;
+  const float scale_t = rnd<bf16>(scale);  // the reference multiplies by a bf16 scalar
+  float mx[2], dn[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = r0 + g + 8 * hf;
+    const bool row_ok = i < Tn;  // rows past Tn: bias 0, finite, never written
+    const BiasT* brow = bias + ((long long)h * Tn + (row_ok ? i : 0)) * Tn;
+    const bool rbi = i < lim * ws, cbi = i % ws < lim;
+    mx[hf] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int jj = 8 * j + 2 * tq;
+      const float2 b = row_ok && jj < Tn ? bias_pair(brow, jj, Tn, even) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int col = jj + u;
+        float v = s[j][2 * hf + u];
+        const float bv = u ? b.y : b.x;
+        bool differ = false;
+        if (li || lj) {
+          const int cq = __float2int_rz(((float)col + 0.5f) * inv_ws);  // col / ws
+          differ = (li && rbi != (col < lim * ws)) || (lj && cbi != (col - cq * ws < lim));
+        }
+        if constexpr (F32) {
+          v = v * scale + bv;
+          if (differ) v += -100.f;
+        } else {
+          v = rnd<bf16>(rnd<bf16>(rnd<bf16>(v) * scale_t) + bv);
+          if (differ) v = rnd<bf16>(v + -100.f);
+        }
+        v = col < Tn ? v : -INFINITY;
+        s[j][2 * hf + u] = v;
+        mx[hf] = fmaxf(mx[hf], v);
       }
-      wmma::store_matrix_sync(Ow + nt * 16, acc, HD, wmma::mem_row_major);
     }
-    __syncwarp();
-    for (int e = lane; e < 16 * HD; e += 32) {
-      const int r = e / HD, d = e % HD, i = r0 + r;
-      if (i < Tn) o[(row0 + i) * C + h * HD + d] = from_f<T>(Ow[r * HD + d] / dn[i]);
+  }
+  if constexpr (!F32) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
     }
-  } else {
-    for (int e = lane; e < 16 * HD; e += 32) {
-      const int r = e / HD, d = e % HD, i = r0 + r;
-      if (i >= Tn) continue;
-      float acc = 0.f;
-      for (int j = 0; j < Tn; ++j) acc = fmaf(to_f<T>(Pw[r * TP + j]), to_f<T>(Vs[j * HDP + d]), acc);
-      o[(row0 + i) * C + h * HD + d] = from_f<T>(acc / dn[i]);
-    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float v = s[j][2 * hf + u];  // -inf past Tn: e = 0
+        const float e = F32 ? expf(fminf(v, 80.f) - 30.f) : rnd<bf16>(expf(rnd<bf16>(v - mx[hf])));
+        sum += e;
+        s[j][2 * hf + u] = e;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dn[hf] = F32 ? sum + 1e-37f : rnd<bf16>(rnd<bf16>(sum) + 1e-37f);
+  }
+
+  // O = P V, P from the accumulators: n-tiles 2kk, 2kk + 1 are the A
+  // fragment of keys 16kk..16kk+15
+  float oacc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NQ; ++kk) {
+    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    const bf16* vp = &sm[2][(16 * kk + (lane & 15)) * LD + (lane >> 4) * 8];
+    uint32_t vb[4];
+    ldsm_x4_trans(vb, vp);  // head dims 0-7, 8-15
+    mma_16816(oacc[0], pa, vb[0], vb[1]);
+    mma_16816(oacc[1], pa, vb[2], vb[3]);
+    ldsm_x4_trans(vb, vp + 16);  // head dims 16-23, 24-31
+    mma_16816(oacc[2], pa, vb[0], vb[1]);
+    mma_16816(oacc[3], pa, vb[2], vb[3]);
+  }
+
+  // o = O / denominator: staged through the warp's own q rows (read only
+  // by this warp, and done with), then 16-byte rows at the head's offset
+  __syncwarp();
+  bf16* stage = &sm[0][r0 * LD];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    *reinterpret_cast<uint32_t*>(&stage[g * LD + 8 * n + 2 * tq]) =
+        pack_bf16(oacc[n][0] / dn[0], oacc[n][1] / dn[0]);
+    *reinterpret_cast<uint32_t*>(&stage[(g + 8) * LD + 8 * n + 2 * tq]) =
+        pack_bf16(oacc[n][2] / dn[1], oacc[n][3] / dn[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = lane; e < 64; e += 32) {
+    const int r = e >> 2, ch = e & 3, i = r0 + r;
+    if (i < Tn)
+      *reinterpret_cast<uint4*>(o + (row0 + i) * C + h * HD + ch * 8) =
+          *reinterpret_cast<const uint4*>(&stage[r * LD + ch * 8]);
   }
 }
 
-template <typename T, bool F32>
-void launch_attn_core(const T* qkv, const void* bias, T* o, int bnw, int t, int c, int nh,
-                      int ws, int ss, int nwh, int nww, cudaStream_t stream) {
-  const int tp = (t + 15) / 16 * 16;
-  const size_t smem = attn_smem_bytes<T>(tp);
-  cudaFuncSetAttribute(attn_core_kernel<T, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  const float scale = 1.f / sqrtf((float)ATTN_HD);
-  attn_core_kernel<T, F32><<<dim3(bnw, nh), tp / 16 * 32, smem, stream>>>(
-      qkv, bias, o, t, c, ws, ss, nwh, nww, scale);
-}
-
-template <typename T>
-void attn_core(const T* qkv, const void* bias, T* o, int bnw, int t, int c, int nh, int ws,
-               int ss, int nwh, int nww, int attn_f32, cudaStream_t s) {
-  if (attn_f32) {
-    launch_attn_core<T, true>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s);
-  } else {
-    launch_attn_core<T, false>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s);
-  }
-}
-
-template <typename T, bool F32>
-int attn_core_info(int t, int* out) {
-  const int tp = (t + 15) / 16 * 16;
-  const size_t smem = attn_smem_bytes<T>(tp);
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_core_kernel<T, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// the kernel's registers, local bytes a thread, shared bytes and resident
+// blocks per SM at `threads` threads and `dyn` bytes of dynamic shared memory
+template <typename K>
+int kernel_info(K kernel, int threads, size_t dyn, int* out) {
   cudaFuncAttributes a;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, attn_core_kernel<T, F32>);
   int blocks = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, attn_core_kernel<T, F32>,
-                                                      tp / 16 * 32, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dyn);
   if (e != cudaSuccess) return (int)e;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)(a.sharedSizeBytes + smem);
+  out[2] = (int)(a.sharedSizeBytes + dyn);
   out[3] = blocks;
   return 0;
+}
+
+template <bool F32>
+int f32_core(const float* qkv, const void* bias, float* o, int bnw, int t, int c, int nh, int ws,
+             int ss, int nwh, int nww, cudaStream_t stream, int* info) {
+  const int tp = (t + 15) / 16 * 16;
+  const size_t smem = attn_f32_smem_bytes(tp);
+  cudaError_t e = cudaFuncSetAttribute(attn_core_f32_kernel<F32>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (info) return kernel_info(attn_core_f32_kernel<F32>, tp / 16 * 32, smem, info);
+  const float scale = 1.f / sqrtf((float)ATTN_HD);
+  attn_core_f32_kernel<F32><<<dim3(bnw, nh), tp / 16 * 32, smem, stream>>>(
+      qkv, (const float*)bias, o, t, c, ws, ss, nwh, nww, scale);
+  return 0;
+}
+
+template <int NQ, bool F32>
+int bf16_core_nq(const bf16* qkv, const void* bias, bf16* o, int bnw, int t, int c, int nh,
+                 int ws, int ss, int nwh, int nww, cudaStream_t stream, int* info) {
+  if (info) return kernel_info(attn_core_bf16_kernel<NQ, F32>, 32 * NQ, 0, info);
+  const float scale = 1.f / sqrtf((float)ATTN_HD);
+  attn_core_bf16_kernel<NQ, F32><<<dim3(bnw, nh), 32 * NQ, 0, stream>>>(
+      qkv, bias, o, t, c, ws, ss, nwh, nww, scale);
+  return 0;
+}
+
+template <bool F32>
+int bf16_core(const bf16* qkv, const void* bias, bf16* o, int bnw, int t, int c, int nh, int ws,
+              int ss, int nwh, int nww, cudaStream_t stream, int* info) {
+#define FLAIR_CORE_NQ(NQ) \
+  case NQ:                \
+    return bf16_core_nq<NQ, F32>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, stream, info);
+  switch ((t + 15) / 16) {
+    FLAIR_CORE_NQ(1)
+    FLAIR_CORE_NQ(2)
+    FLAIR_CORE_NQ(3)
+    FLAIR_CORE_NQ(4)
+    FLAIR_CORE_NQ(5)
+    FLAIR_CORE_NQ(6)
+    FLAIR_CORE_NQ(7)
+    FLAIR_CORE_NQ(8)
+    FLAIR_CORE_NQ(9)
+  }
+#undef FLAIR_CORE_NQ
+  return (int)cudaErrorInvalidValue;  // T > 144
+}
+
+// the core on qkv (bnw * t, 3c) -> o (bnw * t, c); with `info`, nothing
+// launches and info[0..3] receive the core kernel's resources
+template <typename T>
+int attn_core(const T* qkv, const void* bias, T* o, int bnw, int t, int c, int nh, int ws,
+              int ss, int nwh, int nww, int attn_f32, cudaStream_t s, int* info = nullptr) {
+  if constexpr (std::is_same<T, float>::value) {
+    return attn_f32 ? f32_core<true>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s, info)
+                    : f32_core<false>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s, info);
+  } else {
+    return attn_f32 ? bf16_core<true>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s, info)
+                    : bf16_core<false>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s, info);
+  }
 }
 
 template <typename T>
@@ -261,7 +480,9 @@ int window_attn_impl(const void* x, const void* wqkv, const void* bqkv, const vo
   const int m = bnw * t;
   launch_gemm<T, EPI_BIAS>((const T*)x, (const T*)wqkv, (T*)qkv, m, 3 * c, c,
                            (const T*)bqkv, nullptr, nullptr, s);
-  attn_core<T>((const T*)qkv, bias, (T*)o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, s);
+  const int rc =
+      attn_core<T>((const T*)qkv, bias, (T*)o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, s);
+  if (rc) return rc;
   launch_gemm<T, EPI_BIAS>((const T*)o, (const T*)wproj, (T*)out, m, c, c, (const T*)bproj,
                            nullptr, nullptr, s);
   return (int)cudaGetLastError();
@@ -270,28 +491,6 @@ int window_attn_impl(const void* x, const void* wqkv, const void* bqkv, const vo
 }  // namespace flair
 
 using namespace flair;
-
-// the attention core alone: qkv (bnw*t, 3c) -> o (bnw*t, c)
-extern "C" int window_attn_core(const void* qkv, const void* bias, void* o, int bnw, int t,
-                                int c, int nh, int ws, int ss, int nwh, int nww, int attn_f32,
-                                int dtype, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    attn_core<float>((const float*)qkv, bias, (float*)o, bnw, t, c, nh, ws, ss, nwh, nww,
-                     attn_f32, s);
-  else
-    attn_core<bf16>((const bf16*)qkv, bias, (bf16*)o, bnw, t, c, nh, ws, ss, nwh, nww,
-                    attn_f32, s);
-  return (int)cudaGetLastError();
-}
-
-// the core kernel's registers, local (spill) bytes per thread, shared bytes
-// per block and resident blocks per SM at t tokens
-extern "C" int window_attn_core_info(int t, int attn_f32, int dtype, int* out) {
-  if (dtype == 0) return attn_f32 ? attn_core_info<float, true>(t, out)
-                                  : attn_core_info<float, false>(t, out);
-  return attn_f32 ? attn_core_info<bf16, true>(t, out) : attn_core_info<bf16, false>(t, out);
-}
 
 extern "C" int window_attn_fwd(const void* x, const void* wqkv, const void* bqkv,
                                const void* wproj, const void* bproj, const void* bias,
@@ -304,4 +503,24 @@ extern "C" int window_attn_fwd(const void* x, const void* wqkv, const void* bqkv
                                    nh, ws, ss, nwh, nww, attn_f32, s);
   return window_attn_impl<bf16>(x, wqkv, bqkv, wproj, bproj, bias, qkv, o, out, bnw, t, c, nh,
                                 ws, ss, nwh, nww, attn_f32, s);
+}
+
+// the attention core alone: qkv (bnw * t, 3c) -> o (bnw * t, c)
+extern "C" int window_attn_core(const void* qkv, const void* bias, void* o, int bnw, int t,
+                                int c, int nh, int ws, int ss, int nwh, int nww, int attn_f32,
+                                int dtype, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rc = dtype == 0 ? attn_core<float>((const float*)qkv, bias, (float*)o, bnw, t, c, nh,
+                                               ws, ss, nwh, nww, attn_f32, s)
+                            : attn_core<bf16>((const bf16*)qkv, bias, (bf16*)o, bnw, t, c, nh,
+                                              ws, ss, nwh, nww, attn_f32, s);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+// the core kernel's registers, local (spill) bytes a thread, shared bytes a
+// block and resident blocks per SM at t tokens
+extern "C" int window_attn_core_info(int t, int attn_f32, int dtype, int* out) {
+  if (dtype == 0)
+    return attn_core<float>(nullptr, nullptr, nullptr, 0, t, 0, 0, 0, 0, 0, 0, attn_f32, 0, out);
+  return attn_core<bf16>(nullptr, nullptr, nullptr, 0, t, 0, 0, 0, 0, 0, 0, attn_f32, 0, out);
 }
