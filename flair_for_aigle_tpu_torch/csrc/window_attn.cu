@@ -27,23 +27,29 @@
 // warps, T padded to TP = 16 * ceil(T / 16)).
 //   - q, k, v arrive by 16-byte cp.async into shared memory rows of 80 bytes
 //     (64 + 16 of padding: the eight rows of an ldmatrix hit disjoint banks);
-//     34.6 KB per block at T = 144.
-//   - S = Q K^T on mma.sync.m16n8k16 (bf16 in, float32 accumulate): Q's A
-//     fragments by ldmatrix.x4 once per warp, K's B fragments by ldmatrix.x4
-//     (K's rows are B's columns). The warp's 16 x TP strip stays in the
-//     accumulators: TP / 8 n-tiles x 4 floats a thread (72 at T = 144).
-//   - The softmax runs on the accumulators in place. A thread holds rows g,
-//     g + 8 and columns 2t, 2t + 1 of each n-tile (g = lane / 4, t = lane %
-//     4), so the row max and sum reduce over the 4 threads of a quad. The
-//     bias is read from device memory (a head's (T, T) tile stays in L2);
-//     the shift mask is computed from the band ids.
-//   - P V with P straight from the accumulators: two neighbouring n-8 tiles
-//     of S packed to bf16 pairs are one k-16 A fragment of m16n8k16. V's B
+//     34.6 KB per block at T = 144, with a byte per key of its shift bands.
+//   - S = Q K^T on mma.sync.m16n8k16 (bf16 in, float32 accumulate), one
+//     16 x 8 n-tile of the warp's 16 x TP strip at a time, A and B fragments
+//     by ldmatrix.x4 (K's rows are B's columns). A thread holds rows g, g + 8
+//     and keys 2t, 2t + 1 of each n-tile (g = lane / 4, t = lane % 4).
+//   - Scale, bias and shift mask apply to each tile as it leaves the tensor
+//     cores. The bias is read from device memory (a head's (T, T) tile stays
+//     in L2), two tiles ahead; the mask comes from the key's band byte.
+//     attn_f32 = 0 runs on bf16 pairs (mul/add/sub/max.bf16x2 with explicit
+//     round-to-nearest: one rounding per op, as the reference rounds each
+//     float32 op to bf16, and no fusing of a mul and an add). Each tile then
+//     stays as two bf16 pairs a thread: with attn_f32 = 0 the scores, exact
+//     in bf16, until the row max is known; with attn_f32 = 1 the
+//     probabilities, whose float32 row sum runs meanwhile. The strip is
+//     TP / 8 x 2 registers a thread (36 at T = 144), not TP / 2 floats: two
+//     blocks of 18 warps leave 96 registers a thread (5 warps share one
+//     scheduler's 16K). Row max and sum reduce over the 4 threads of a quad.
+//   - P V with P straight from those registers: the pairs of two
+//     neighbouring n-tiles are one k-16 A fragment of m16n8k16. V's B
 //     fragments by ldmatrix.x4.trans. O is 16 x 32 a warp, 16 floats a
 //     thread; divided by the denominator, rounded, staged through the warp's
 //     own q rows and stored in 16-byte rows.
-//   - __launch_bounds__(32 * TP / 16, 2): at T = 144 two blocks (18 warps)
-//     per SM at <= 112 registers a thread.
+//   - __launch_bounds__(32 * TP / 16, 2): two blocks per SM, no spill.
 // No (T, T) tile touches shared memory. The float32 core
 // (attn_core_f32_kernel) stays on the SIMT units: one block per (window,
 // head) with each warp's float32 score strip in shared memory.
@@ -192,8 +198,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread's copies are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
@@ -227,16 +239,73 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// bias[j], bias[j + 1] as float32; one load of the pair where it is aligned
-__device__ __forceinline__ float2 bias_pair(const float* p, int j, int tn, bool even) {
-  if (even) return *reinterpret_cast<const float2*>(p + j);
-  return make_float2(j < tn ? p[j] : 0.f, j + 1 < tn ? p[j + 1] : 0.f);
+// the two bf16 values of a pair as float32
+__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// loads through the read-only path, volatile so that the compiler keeps each
+// where it is written: the score loop prefetches the bias a fixed number of
+// tiles ahead instead of hoisting every tile's load into registers
+__device__ __forceinline__ uint32_t ldg_b16(const void* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.b16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return v;
 }
 
-__device__ __forceinline__ float2 bias_pair(const bf16* p, int j, int tn, bool even) {
-  if (even) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + j));
-  return make_float2(j < tn ? __bfloat162float(p[j]) : 0.f,
-                     j + 1 < tn ? __bfloat162float(p[j + 1]) : 0.f);
+__device__ __forceinline__ uint32_t ldg_b32(const void* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint2 ldg_b64(const void* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.v2.b32 {%0,%1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+
+// the bits of bias[j], bias[j + 1] (0 past tn), one load where the pair is
+// aligned: a float pair, or one bf16 pair with bias[j] in the low half
+__device__ __forceinline__ uint2 bias_bits(const float* p, int j, int tn, bool even) {
+  if (j >= tn) return make_uint2(0u, 0u);
+  if (even) return ldg_b64(p + j);
+  return make_uint2(ldg_b32(p + j), j + 1 < tn ? ldg_b32(p + j + 1) : 0u);
+}
+
+__device__ __forceinline__ uint32_t bias_bits(const bf16* p, int j, int tn, bool even) {
+  if (j >= tn) return 0u;
+  if (even) return ldg_b32(p + j);
+  const uint32_t lo = ldg_b16(p + j);
+  return j + 1 < tn ? lo | ldg_b16(p + j + 1) << 16 : lo;
+}
+
+constexpr uint32_t BF16X2_NEG_INF = 0xff80ff80u;  // -inf in both halves
+constexpr uint32_t BF16_MINUS_100 = 0xc2c8u;      // -100, exact in bf16
+
+// bf16 pair arithmetic with the rounding written out: an op without it may
+// be fused with its neighbour (a mul and an add into one fma, one rounding)
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 }  // namespace
@@ -252,6 +321,7 @@ __global__ void __launch_bounds__(32 * NQ, 2)
   constexpr int NT = 2 * NQ;   // 8-key n-tiles of the score strip
   constexpr int HD = ATTN_HD, LD = CORE_LD;
   __shared__ __align__(128) bf16 sm[3][TP * LD];  // q, k, v
+  __shared__ uint8_t bands[TP];  // per key: bit 0 its row band is 2, bit 1 its column band is 2
   const BiasT* bias = reinterpret_cast<const BiasT*>(bias_v);
   const int w = blockIdx.x, h = blockIdx.y;
   const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
@@ -259,111 +329,142 @@ __global__ void __launch_bounds__(32 * NQ, 2)
   const long long row0 = (long long)w * Tn;
 
   // q, k, v rows of this (window, head): four 16-byte chunks each, rows
-  // past Tn zero (their P entries are 0, and 0 * garbage may not be)
-  for (int e = threadIdx.x; e < 3 * TP * 4; e += blockDim.x) {
-    const int part = e / (TP * 4), t = (e >> 2) % TP, ch = e & 3;
-    bf16* dst = &sm[part][t * LD + ch * 8];
-    if (t < Tn)
-      cp_async16(dst, qkv + (row0 + t) * (3 * C) + part * C + h * HD + ch * 8);
-    else
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  // past Tn zero (their P entries are 0, and 0 * garbage may not be); q and
+  // k in a first group, v in a second that lands while S is computed
+  for (int part = 0; part < 3; ++part) {
+    for (int e = threadIdx.x; e < TP * 4; e += blockDim.x) {
+      const int t = e >> 2, ch = e & 3;
+      bf16* dst = &sm[part][t * LD + ch * 8];
+      if (t < Tn)
+        cp_async16(dst, qkv + (row0 + t) * (3 * C) + part * C + h * HD + ch * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (part) cp_async_commit();
   }
-  cp_async_wait_all();
+  const int lim = ws - ss;  // band 1 below it, band 2 from it
+  for (int t = threadIdx.x; t < TP; t += blockDim.x)
+    bands[t] = (uint8_t)((t >= lim * ws) | (t % ws >= lim) << 1);
+  cp_async_wait<1>();  // q, k
   __syncthreads();
 
-  // S = Q K^T: the warp's 16 x TP strip in NT accumulator tiles
-  uint32_t qa[2][4];
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-    ldsm_x4(qa[ks], &sm[0][(r0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8]);
-  float s[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    uint32_t kb[4];  // keys 8j..8j+7 by head dims 0-7, 8-15, 16-23, 24-31
-    ldsm_x4(kb, &sm[1][(8 * j + (lane & 7)) * LD + (lane >> 3) * 8]);
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    mma_16816(s[j], qa[0], kb[0], kb[1]);
-    mma_16816(s[j], qa[1], kb[2], kb[3]);
-  }
-
-  // scores in place: s[j][2 * hf + u] is row r0 + g + 8 hf, key 8 j + 2 tq + u
+  // S = Q K^T one 16 x 8 n-tile at a time; each tile's scores leave the
+  // accumulators as bf16 pairs: p[j][hf] holds row r0 + g + 8 hf, keys
+  // 8 j + 2 tq and 8 j + 2 tq + 1 (the lower in the low half)
+  // Q's A fragment of head dims 0-15 stays in registers; that of dims 16-31
+  // is loaded again for each tile (4 registers fewer, no spill at T = 144)
+  uint32_t qa0[4];
+  ldsm_x4(qa0, &sm[0][(r0 + (lane & 15)) * LD + (lane >> 4) * 8]);
   const int widx = w % (nwh * nww);
   const bool li = ss > 0 && widx / nww == nwh - 1;
   const bool lj = ss > 0 && widx % nww == nww - 1;
-  const int lim = ws - ss;  // band 1 below it, band 2 from it
-  const float inv_ws = 1.f / (float)ws;
   const bool even = (Tn & 1) == 0;
-  const float scale_t = rnd<bf16>(scale);  // the reference multiplies by a bf16 scalar
-  float mx[2], dn[2];
+  const uint32_t scale2 = pack_bf16(scale, scale);  // the reference's bf16 scalar
+  const BiasT* bhead = bias + (long long)h * Tn * Tn;
+  int brow[2];  // bias row offsets; rows past Tn read row 0 (finite, never written)
+  // shift mask: a key's bands differ from row i's where (its band bits ^
+  // row i's) & sel is not 0, sel = the bands compared in this window (bit 0
+  // last row of the grid, bit 1 last column); both bytes of a key pair at once
+  const uint32_t sel = (li ? 0x0101u : 0u) | (lj ? 0x0202u : 0u);
+  uint32_t rowb[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int i = r0 + g + 8 * hf;
-    const bool row_ok = i < Tn;  // rows past Tn: bias 0, finite, never written
-    const BiasT* brow = bias + ((long long)h * Tn + (row_ok ? i : 0)) * Tn;
-    const bool rbi = i < lim * ws, cbi = i % ws < lim;
-    mx[hf] = -INFINITY;
+    brow[hf] = i < Tn ? i * Tn : 0;
+    rowb[hf] = bands[i] * 0x0101u;
+  }
+  uint32_t p[NT][2];
+  float sum[2] = {0.f, 0.f}, dn[2];
+  uint32_t mx2[2] = {BF16X2_NEG_INF, BF16X2_NEG_INF};
+  constexpr int PF = 2;  // tiles of bias in flight ahead of the one in use
+  typename std::conditional<F32, uint2, uint32_t>::type bb[NT][2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int jj = 8 * j + 2 * tq;
-      const float2 b = row_ok && jj < Tn ? bias_pair(brow, jj, Tn, even) : make_float2(0.f, 0.f);
+  for (int j = 0; j < PF && j < NT; ++j)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int col = jj + u;
-        float v = s[j][2 * hf + u];
-        const float bv = u ? b.y : b.x;
-        bool differ = false;
-        if (li || lj) {
-          const int cq = __float2int_rz(((float)col + 0.5f) * inv_ws);  // col / ws
-          differ = (li && rbi != (col < lim * ws)) || (lj && cbi != (col - cq * ws < lim));
+    for (int hf = 0; hf < 2; ++hf) bb[j][hf] = bias_bits(bhead + brow[hf], 8 * j + 2 * tq, Tn, even);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j + PF < NT) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        bb[j + PF][hf] = bias_bits(bhead + brow[hf], 8 * (j + PF) + 2 * tq, Tn, even);
+    }
+    uint32_t kb[4];  // keys 8j..8j+7 by head dims 0-7, 8-15, 16-23, 24-31
+    ldsm_x4(kb, &sm[1][(8 * j + (lane & 7)) * LD + (lane >> 3) * 8]);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    uint32_t qa1[4];
+    ldsm_x4(qa1, &sm[0][(r0 + (lane & 15)) * LD + 16 + (lane >> 4) * 8]);
+    mma_16816(acc, qa0, kb[0], kb[1]);
+    mma_16816(acc, qa1, kb[2], kb[3]);
+    const int jj = 8 * j + 2 * tq;
+    const uint32_t keyb = sel ? *reinterpret_cast<const uint16_t*>(&bands[jj]) : 0u;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      uint32_t mask = 0;  // -100 in each bf16 half whose key's bands differ from the row's
+      if (sel) {
+        const uint32_t d = (keyb ^ rowb[hf]) & sel;
+        mask = (d & 0xffu ? BF16_MINUS_100 : 0u) | (d >> 8 ? BF16_MINUS_100 << 16 : 0u);
+      }
+      if constexpr (F32) {
+        // float32 scores, static shift: e and the row sum right away
+        float e[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float x = acc[2 * hf + u] * scale + __uint_as_float(u ? bb[j][hf].y : bb[j][hf].x);
+          if (mask >> (16 * u) & 0xffffu) x += -100.f;
+          e[u] = jj + u < Tn ? expf(fminf(x, 80.f) - 30.f) : 0.f;
+          sum[hf] += e[u];
         }
-        if constexpr (F32) {
-          v = v * scale + bv;
-          if (differ) v += -100.f;
-        } else {
-          v = rnd<bf16>(rnd<bf16>(rnd<bf16>(v) * scale_t) + bv);
-          if (differ) v = rnd<bf16>(v + -100.f);
-        }
-        v = col < Tn ? v : -INFINITY;
-        s[j][2 * hf + u] = v;
-        mx[hf] = fmaxf(mx[hf], v);
+        p[j][hf] = pack_bf16(e[0], e[1]);
+      } else {
+        // bf16 scores on bf16 pairs: each op rounds once, as the float32 op
+        // rounded to bf16 does (the exact result of a bf16 product fits a
+        // float, and so does a bf16 sum unless the smaller term sits below
+        // the larger's rounding); kept exact until the row max is known
+        uint32_t xb = mul_bf16x2(pack_bf16(acc[2 * hf], acc[2 * hf + 1]), scale2);
+        xb = add_bf16x2(xb, bb[j][hf]);
+        if (sel) xb = add_bf16x2(xb, mask);
+        if (jj + 1 >= Tn)  // keys past Tn: -inf
+          xb = jj >= Tn ? BF16X2_NEG_INF : (xb & 0xffffu) | (BF16X2_NEG_INF & 0xffff0000u);
+        mx2[hf] = max_bf16x2(mx2[hf], xb);
+        p[j][hf] = xb;
       }
     }
   }
   if constexpr (!F32) {
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      float mx = fmaxf(bf16_lo(mx2[hf]), bf16_hi(mx2[hf]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const uint32_t m2 = pack_bf16(mx, mx);  // exact: mx is a bf16 value
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {  // e = rnd(exp(rnd(s - max))); -inf past Tn: e = 0
+        const uint32_t d = sub_bf16x2(p[j][hf], m2);
+        const uint32_t e = pack_bf16(expf(bf16_lo(d)), expf(bf16_hi(d)));
+        sum[hf] += bf16_lo(e);
+        sum[hf] += bf16_hi(e);
+        p[j][hf] = e;
+      }
     }
   }
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float v = s[j][2 * hf + u];  // -inf past Tn: e = 0
-        const float e = F32 ? expf(fminf(v, 80.f) - 30.f) : rnd<bf16>(expf(rnd<bf16>(v - mx[hf])));
-        sum += e;
-        s[j][2 * hf + u] = e;
-      }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    dn[hf] = F32 ? sum + 1e-37f : rnd<bf16>(rnd<bf16>(sum) + 1e-37f);
+    sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 1);
+    sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 2);
+    dn[hf] = F32 ? sum[hf] + 1e-37f : rnd<bf16>(rnd<bf16>(sum[hf]) + 1e-37f);
   }
 
-  // O = P V, P from the accumulators: n-tiles 2kk, 2kk + 1 are the A
-  // fragment of keys 16kk..16kk+15
+  // O = P V: the pairs of n-tiles 2kk, 2kk + 1 are the A fragment of keys
+  // 16kk..16kk+15
+  cp_async_wait<0>();  // v
+  __syncthreads();
   float oacc[4][4];
 #pragma unroll
   for (int n = 0; n < 4; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < NQ; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    const uint32_t pa[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1]};
     const bf16* vp = &sm[2][(16 * kk + (lane & 15)) * LD + (lane >> 4) * 8];
     uint32_t vb[4];
     ldsm_x4_trans(vb, vp);  // head dims 0-7, 8-15
