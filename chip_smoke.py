@@ -482,6 +482,159 @@ def core_info(stats) -> None:
             stats["window_attn_core"]["info"] = info
 
 
+def cost_window_attn_bwd_core(bnw, c, nh):
+    # bf16 qkv and do in, o and dqkv out; the float32 (nh, T, T) bias in and
+    # dbias out, dbqkv out; six T x T x 32 products per (window, head)
+    return 16 * bnw * T * c + 8 * nh * T * T + 12 * c, 12 * bnw * T * T * c
+
+
+def library_core_backward(qkv, do, bias, nwh, nh):
+    """K6's attention core as the backward of one ``scaled_dot_product_
+    attention`` (the yardstick, used nowhere in the port): contiguous
+    (bnw, nh, T, 32) bf16 q, k, v and the bias plus the shift mask prebuilt
+    as one bf16 (bnw, nh, T, T) ``attn_mask``, all requiring their
+    gradients, the backend pinned to memory-efficient attention, else
+    cuDNN's. The timed call is the backward alone (dq, dk, dv and the mask's
+    gradient) of a forward run once. Returns (run, backend name, (dq, dk,
+    dv) merged as (bnw*T, 3C))."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    m, c3 = qkv.shape
+    bnw, c = m // T, c3 // 3
+    q, k, v = (t.contiguous().requires_grad_()
+               for t in qkv.view(bnw, T, 3, nh, c // nh).permute(2, 0, 3, 1, 4))
+    g = do.view(bnw, T, nh, c // nh).transpose(1, 2).contiguous()
+    grid = torch.as_tensor(window_attn._grid_mask(WS, SS, nwh, nwh), device=qkv.device)
+    mask = (bias.float()[None, None] + grid[None, :, None]).expand(
+        bnw // grid.shape[0], -1, -1, -1, -1).reshape(bnw, nh, T, T).to(torch.bfloat16)
+    mask.requires_grad_()
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     scale=(c // nh) ** -0.5)
+
+            def run(out=out):
+                return torch.autograd.grad(out, (q, k, v, mask), g, retain_graph=True)
+
+            dq, dk, dv, _ = run()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(m, c3)
+        return run, backend.name, dqkv
+    raise RuntimeError("neither memory-efficient nor cuDNN attention takes this attn_mask's "
+                       "gradient")
+
+
+def ulps(ref, n) -> float:
+    """n bf16 units in the last place at the largest magnitude of ref, taken
+    as n * 2^-7 of that magnitude (a unit is 2^-8 to 2^-7 of it)."""
+    return n * 2.0 ** -7 * ref.float().abs().max().item()
+
+
+def bwd_core_errors(got, want) -> tuple[dict, bool]:
+    """K6's bf16 core (o, dqkv, dbias, dbqkv) against its plain version:
+    per output its max error, its bound, and the share of outputs that
+    differ at all. Bounds: o at most 1 % differing and 4 bf16 units at its
+    largest magnitude (K2's core: both round in the same places, only
+    float32 sums run in another order); dq, dk, dv 4 units at each one's
+    largest magnitude; dbias and dbqkv (float32) 1e-4 of their largest
+    magnitude."""
+    o, dqkv, dbias, dbqkv = got
+    c = o.shape[1]
+    parts = {"o": (o, want[0], ulps(want[0], 4)),
+             "dq": (dqkv[:, :c], want[1][:, :c], ulps(want[1][:, :c], 4)),
+             "dk": (dqkv[:, c:2 * c], want[1][:, c:2 * c], ulps(want[1][:, c:2 * c], 4)),
+             "dv": (dqkv[:, 2 * c:], want[1][:, 2 * c:], ulps(want[1][:, 2 * c:], 4)),
+             "dbias": (dbias, want[2], 1e-4 * want[2].abs().max().item()),
+             "dbqkv": (dbqkv, want[3], 1e-4 * want[3].abs().max().item())}
+    out, ok = {}, True
+    for name, (a, b, bound) in parts.items():
+        err = (a.float() - b.float()).abs().max().item()
+        frac = (a != b).float().mean().item()
+        out[name] = (err, bound, frac)
+        ok &= err <= bound and bool(a.float().isfinite().all())
+    ok &= out["o"][2] <= 0.01
+    return out, ok
+
+
+def bwd_core_lines(stats, geom, bnw, c, nh, nwh, randn) -> None:
+    """K6's bf16 attention core alone at one stage geometry, both softmax
+    modes, against its plain version (``bwd_core_errors``), two calls
+    bit-identical, beside the library call's backward; device times
+    (``device_ms``); times of the training configuration's mode (attn_f32
+    True) go into ``stats``."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    qkv, do = randn(bnw * T, 3 * c), randn(bnw * T, c)
+    bias = randn(nh, T, T, dtype=torch.float32, std=0.5)
+    run, backend, lib = library_core_backward(qkv, do, bias, nwh, nh)
+    t_l = device_ms(run)
+    cost = (*cost_window_attn_bwd_core(bnw, c, nh), "bf16")
+    failed = []
+    for attn_f32 in (True, False):
+        akw = dict(num_heads=nh, window_size=WS, shift_size=SS, grid_hw=(nwh, nwh),
+                   attn_f32=attn_f32)
+        got = window_attn.window_attention_core_backward(qkv, do, bias, **akw)
+        again = window_attn.window_attention_core_backward(qkv, do, bias, **akw)
+        want = window_attn.window_attention_core_backward_reference(qkv, do, bias, **akw)
+        if attn_f32:  # the library call computes the float32 softmax's gradients
+            rel = ((lib.float() - want[1].float()).abs()
+                   / want[1].float().abs().clamp(min=1e-2)).median().item()
+            say("kernel", f"window_attn_bwd_core library {geom}: scaled_dot_product_attention "
+                f"backward ({backend}) {t_l:.4f} ms, dqkv median relative error {rel:.2e} "
+                f"against the attn_f32=True plain core (bound 0.04) "
+                f"{'ok' if rel < 0.04 else 'FAIL'}")
+            if not rel < 0.04:
+                raise AssertionError("the library call computes another function than the core")
+        errs, ok = bwd_core_errors(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        t_k = device_ms(lambda: window_attn.window_attention_core_backward(qkv, do, bias, **akw))
+        t_p = device_ms(lambda: window_attn.window_attention_core_backward_reference(
+            qkv, do, bias, **akw))
+        say("kernel", f"window_attn_bwd_core {geom} bf16 attn_f32={attn_f32}: " + "; ".join(
+            f"{n} max {e:.2e} (bound {b:.2e}) differing {f:.2e}" for n, (e, b, f) in errs.items())
+            + f" (o bound 1.0e-02 differing); repeat {'bit-identical' if same else 'DIFFERS'} "
+            f"{'ok' if ok and same else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"library {t_l:.4f} ms (x{t_l / t_k:.2f} the kernel's), {_bound_text(cost)}")
+        if not (ok and same):
+            failed.append(attn_f32)
+        s = _stat(stats, "window_attn_bwd_core")
+        s["max_abs_err"] = max(s["max_abs_err"], max(e for e, _, _ in errs.values()))
+        if attn_f32:
+            _add_time(stats, "window_attn_bwd_core", t_k, t_p, cost)
+            s["library_ms"] = (s["library_ms"] or 0.0) + t_l
+    if failed:
+        raise AssertionError(f"window_attn_bwd_core {geom} attn_f32={failed}: outside its "
+                             f"bounds or not repeatable")
+
+
+def bwd_core_info(stats) -> None:
+    """K6's bf16 core kernel's registers, spill bytes, shared bytes,
+    resident blocks and warps per SM at T = 144 in both modes; raises on a
+    spill or on fewer than 16 resident warps per SM."""
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    for attn_f32 in (True, False):
+        info = window_attn.window_attention_core_backward_info(T, attn_f32)
+        say("kernel", f"window_attn_bwd_core T{T} bf16 attn_f32={attn_f32}: {info['regs']} "
+            f"registers, {info['spill_bytes']} spill bytes, {info['shared_bytes']} shared bytes "
+            f"per block, {info['blocks_per_sm']} blocks and {info['warps_per_sm']} warps per SM "
+            f"(bound: 0 spill bytes, >= 16 warps per SM)")
+        if info["spill_bytes"] > 0 or info["warps_per_sm"] < 16:
+            raise AssertionError(f"K6's core spills or misses its occupancy at "
+                                 f"attn_f32={attn_f32}: {info}")
+        if attn_f32:
+            stats["window_attn_bwd_core"]["info"] = info
+
+
 def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None):
     import torch
 
@@ -714,6 +867,8 @@ def phase_kernels() -> dict:
                                t_k, t_p, stats, cost)
                 if dtype == f32 and attn_f32:
                     _add_time(stats, "window_attn_bwd", t_k, t_p, cost)
+            if dtype == bf:
+                bwd_core_lines(stats, f"B2 {hw}x{hw}x{c}", x.shape[0], c, nh, nwh, randn)
 
     # K4: epilogue at (2, 19, 128, 128), margin 40, both output types
     for dtype in (bf, f32):
@@ -770,6 +925,7 @@ def phase_kernels() -> dict:
                     stats[fn.__name__]["library_ms"] = t_l
         del q, k, v, want, lib
     core_info(stats)
+    bwd_core_info(stats)
     for name, st in stats.items():
         lib = "" if st["library_ms"] is None else f"library {st['library_ms']:.4f} ms, "
         say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -1288,6 +1444,14 @@ def main() -> int:
         "core_bound_ms": core["bound_ms"], "core_library_ms": core["library_ms"],
         "core_regs": info["regs"], "core_spill_bytes": info["spill_bytes"],
         "core_blocks_per_sm": info["blocks_per_sm"]}}
+    # K6's bf16 core alone, summed over the stages at attn_f32 True (the
+    # training configuration's), with its resources at T = 144
+    core, info = stats["window_attn_bwd_core"], stats["window_attn_bwd_core"]["info"]
+    extra["window_attn_bwd"] = {
+        "core_ms": core["ms"], "core_plain_ms": core["plain_ms"],
+        "core_bound_ms": core["bound_ms"], "core_library_ms": core["library_ms"],
+        "core_regs": info["regs"], "core_spill_bytes": info["spill_bytes"],
+        "core_blocks_per_sm": info["blocks_per_sm"], "core_warps_per_sm": info["warps_per_sm"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs.values()),

@@ -56,6 +56,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "core_util.cuh"
 #include "gemm.cuh"
 
 namespace flair {
@@ -187,128 +188,6 @@ __global__ void attn_core_f32_kernel(const float* __restrict__ qkv, const float*
     o[(row0 + i) * C + h * HD + d] = acc / dn[i];
   }
 }
-
-namespace {
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread's copies are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a b on one m16n8k16 tile: bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two float32 values rounded to one bf16 pair, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// the two bf16 values of a pair as float32
-__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
-
-// loads through the read-only path, volatile so that the compiler keeps each
-// where it is written: the score loop prefetches the bias a fixed number of
-// tiles ahead instead of hoisting every tile's load into registers
-__device__ __forceinline__ uint32_t ldg_b16(const void* p) {
-  unsigned short v;
-  asm volatile("ld.global.nc.b16 %0, [%1];\n" : "=h"(v) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ uint32_t ldg_b32(const void* p) {
-  uint32_t v;
-  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ uint2 ldg_b64(const void* p) {
-  uint2 v;
-  asm volatile("ld.global.nc.v2.b32 {%0,%1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "l"(p));
-  return v;
-}
-
-// the bits of bias[j], bias[j + 1] (0 past tn), one load where the pair is
-// aligned: a float pair, or one bf16 pair with bias[j] in the low half
-__device__ __forceinline__ uint2 bias_bits(const float* p, int j, int tn, bool even) {
-  if (j >= tn) return make_uint2(0u, 0u);
-  if (even) return ldg_b64(p + j);
-  return make_uint2(ldg_b32(p + j), j + 1 < tn ? ldg_b32(p + j + 1) : 0u);
-}
-
-__device__ __forceinline__ uint32_t bias_bits(const bf16* p, int j, int tn, bool even) {
-  if (j >= tn) return 0u;
-  if (even) return ldg_b32(p + j);
-  const uint32_t lo = ldg_b16(p + j);
-  return j + 1 < tn ? lo | ldg_b16(p + j + 1) << 16 : lo;
-}
-
-constexpr uint32_t BF16X2_NEG_INF = 0xff80ff80u;  // -inf in both halves
-constexpr uint32_t BF16_MINUS_100 = 0xc2c8u;      // -100, exact in bf16
-
-// bf16 pair arithmetic with the rounding written out: an op without it may
-// be fused with its neighbour (a mul and an add into one fma, one rounding)
-__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-}  // namespace
 
 // bf16 core: S and P in mma.sync registers (see the note at the top)
 template <int NQ, bool F32>
@@ -496,22 +375,6 @@ __global__ void __launch_bounds__(32 * NQ, 2)
   }
 }
 
-// the kernel's registers, local bytes a thread, shared bytes and resident
-// blocks per SM at `threads` threads and `dyn` bytes of dynamic shared memory
-template <typename K>
-int kernel_info(K kernel, int threads, size_t dyn, int* out) {
-  cudaFuncAttributes a;
-  int blocks = 0;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, dyn);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)(a.sharedSizeBytes + dyn);
-  out[3] = blocks;
-  return 0;
-}
 
 template <bool F32>
 int f32_core(const float* qkv, const void* bias, float* o, int bnw, int t, int c, int nh, int ws,

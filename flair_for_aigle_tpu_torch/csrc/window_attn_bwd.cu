@@ -43,6 +43,7 @@
 // round-trip device memory between the launches, and the weight-gradient
 // GEMMs are SIMT in float32 (perf_opt work: ROADMAP).
 #include "common.cuh"
+#include "core_util.cuh"
 #include "gemm.cuh"
 
 namespace flair {
@@ -280,15 +281,31 @@ __global__ void colsum_partial_kernel(const T* __restrict__ X, float* __restrict
 }
 
 template <typename T, bool F32>
-void launch_bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqkv,
-                     float* dbias_part, float* dbqkv_part, int bnw, int t, int c, int nh, int ws,
-                     int ss, int nwh, int nww, int n_groups, cudaStream_t stream) {
+int launch_bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqkv,
+                    float* dbias_part, float* dbqkv_part, int bnw, int t, int c, int nh, int ws,
+                    int ss, int nwh, int nww, int n_groups, cudaStream_t stream, int* info) {
   const size_t smem = bwd_smem_bytes(t);
-  cudaFuncSetAttribute(attn_bwd_core_kernel<T, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_core_kernel<T, F32>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (info) return kernel_info(attn_bwd_core_kernel<T, F32>, BWD_THREADS, smem, info);
   const float scale = 1.f / sqrtf((float)BWD_HD);
   attn_bwd_core_kernel<T, F32><<<dim3(n_groups, nh), BWD_THREADS, smem, stream>>>(
       qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw, t, c, nh, ws, ss, nwh, nww, scale);
+  return 0;
+}
+
+// the core on qkv (bnw * t, 3c) and do (bnw * t, c) -> o, dqkv and the
+// per-group dbias and dbqkv partials; with `info`, nothing launches and
+// info[0..3] receive the core kernel's resources at t tokens
+template <typename T>
+int bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqkv, float* dbias_part,
+             float* dbqkv_part, int bnw, int t, int c, int nh, int ws, int ss, int nwh, int nww,
+             int attn_f32, int n_groups, cudaStream_t s, int* info = nullptr) {
+  return attn_f32 ? launch_bwd_core<T, true>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
+                                             bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info)
+                  : launch_bwd_core<T, false>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
+                                              bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info);
 }
 
 template <typename T>
@@ -305,15 +322,10 @@ int window_attn_bwd_impl(const void* x, const void* g, const void* wqkv, const v
                            nullptr, nullptr, s);
   launch_gemm<T, EPI_NONE, false, true>((const T*)g, (const T*)wproj, dout, m, c, c, nullptr,
                                         nullptr, nullptr, s);
-  if (attn_f32) {
-    launch_bwd_core<T, true>((const T*)qkv, (const T*)dout, (const float*)bias, (T*)o, (T*)dqkv,
-                             (float*)dbias_part, (float*)dbqkv_part, bnw, t, c, nh, ws, ss, nwh,
-                             nww, n_groups, s);
-  } else {
-    launch_bwd_core<T, false>((const T*)qkv, (const T*)dout, (const float*)bias, (T*)o, (T*)dqkv,
-                              (float*)dbias_part, (float*)dbqkv_part, bnw, t, c, nh, ws, ss, nwh,
-                              nww, n_groups, s);
-  }
+  const int rc = bwd_core<T>((const T*)qkv, (const T*)dout, (const float*)bias, (T*)o, (T*)dqkv,
+                            (float*)dbias_part, (float*)dbqkv_part, bnw, t, c, nh, ws, ss, nwh,
+                            nww, attn_f32, n_groups, s);
+  if (rc) return rc;
   // weight gradients in the nn.Linear layout: dWproj = g^T o, dWqkv = dqkv^T x
   launch_gemm<T, EPI_F32, true, true>((const T*)g, (const T*)o, part, c, c, m, nullptr, nullptr,
                                       nullptr, s, k_chunk);
@@ -353,4 +365,39 @@ extern "C" int window_attn_bwd(const void* x, const void* g, const void* wqkv, c
                                     dbias_part, dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj,
                                     dbproj, dbias, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32,
                                     n_groups, k_chunk, s);
+}
+
+// the core alone: qkv (bnw * t, 3c), do (bnw * t, c) -> o, dqkv, and dbias
+// (nh, t, t), dbqkv (3c) summed in a fixed order from the per-group partials
+extern "C" int window_attn_bwd_core(const void* qkv, const void* dout, const void* bias, void* o,
+                                    void* dqkv, void* dbias_part, void* dbqkv_part, void* dbias,
+                                    void* dbqkv, int bnw, int t, int c, int nh, int ws, int ss,
+                                    int nwh, int nww, int attn_f32, int n_groups, int dtype,
+                                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rc =
+      dtype == 0
+          ? bwd_core<float>((const float*)qkv, (const float*)dout, (const float*)bias, (float*)o,
+                            (float*)dqkv, (float*)dbias_part, (float*)dbqkv_part, bnw, t, c, nh,
+                            ws, ss, nwh, nww, attn_f32, n_groups, s)
+          : bwd_core<bf16>((const bf16*)qkv, (const bf16*)dout, (const float*)bias, (bf16*)o,
+                           (bf16*)dqkv, (float*)dbias_part, (float*)dbqkv_part, bnw, t, c, nh, ws,
+                           ss, nwh, nww, attn_f32, n_groups, s);
+  if (rc) return rc;
+  launch_sum_partials((const float*)dbqkv_part, (float*)dbqkv, 3ll * c, n_groups, s);
+  launch_sum_partials((const float*)dbias_part, (float*)dbias, (long long)nh * t * t, n_groups,
+                      s);
+  return (int)cudaGetLastError();
+}
+
+// the core kernel's registers, local (spill) bytes a thread, shared bytes a
+// block, resident blocks and resident warps per SM at t tokens
+extern "C" int window_attn_bwd_core_info(int t, int attn_f32, int dtype, int* out) {
+  const int rc = dtype == 0 ? bwd_core<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                              nullptr, 0, t, 0, 0, 0, 0, 0, 0, attn_f32, 0, 0, out)
+                            : bwd_core<bf16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                             nullptr, 0, t, 0, 0, 0, 0, 0, 0, attn_f32, 0, 0, out);
+  if (rc) return rc;
+  out[4] = out[3] * BWD_THREADS / 32;
+  return 0;
 }

@@ -59,6 +59,12 @@ _SIGNATURES = {
     # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, k_chunk, dtype,
     # stream
     "window_attn_bwd": [_P] * 19 + [_I] * 12 + [_P],
+    # qkv, do, bias, o, dqkv, dbias_part, dbqkv_part, dbias, dbqkv,
+    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, dtype, stream
+    "window_attn_bwd_core": [_P] * 9 + [_I] * 11 + [_P],
+    # t, attn_f32, dtype, out (int[5]: registers, local bytes, shared
+    # bytes, blocks per SM, warps per SM)
+    "window_attn_bwd_core_info": [_I] * 3 + [_P],
     # win, x, ln_scale, ln_bias, w1, b1, w2, b2, ln, x2, h, out,
     # b, h, w, c, hidden, ws, ss, eps, dtype, stream
     "finish_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _P],

@@ -102,6 +102,37 @@ def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(dt).t()) + b.to(dt)
 
 
+def _scores(q, k, bias, *, window_size: int, shift_size: int, grid_hw,
+            attn_f32: bool) -> torch.Tensor:
+    """Per head s = QK^T * scale + bias (+ shift mask), (bnw, nh, T, T), in
+    the Pallas body's order of operations: float32 with ``attn_f32``, else
+    rounded to the compute dtype after each op. q, k: (bnw, nh, T, hd)."""
+    bnw, nh, t, hd = q.shape
+    dt = q.dtype
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    mask = None
+    if shift_size > 0:
+        nwh, nww = grid_hw
+        mask = torch.as_tensor(_grid_mask(window_size, shift_size, nwh, nww),
+                               device=q.device)[:, None]  # (nW, 1, t, t)
+    if attn_f32:
+        s = s * hd ** -0.5 + bias.float()
+    else:
+        s = s.to(dt) * torch.tensor(hd ** -0.5, dtype=dt, device=q.device)
+        s = s + bias.to(dt)
+        mask = None if mask is None else mask.to(dt)
+    if mask is not None:
+        s = (s.reshape(-1, mask.shape[0], nh, t, t) + mask).reshape(bnw, nh, t, t)
+    return s
+
+
+def _split_heads(qkv, num_heads: int, t: int):
+    """q, k, v (bnw, nh, T, hd) of qkv (B*nW*T, 3C)."""
+    c = qkv.shape[1] // 3
+    bnw = qkv.shape[0] // t
+    return qkv.reshape(bnw, t, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
+
+
 def window_attention_core_reference(qkv, bias, *, num_heads: int,
                                     window_size: int, shift_size: int,
                                     grid_hw, attn_f32: bool = True) -> torch.Tensor:
@@ -110,37 +141,18 @@ def window_attention_core_reference(qkv, bias, *, num_heads: int,
     the ``attn_f32`` mode and P V. qkv: (B*nW*T, 3C), the qkv projection's
     output; bias: (nh, T, T). Returns the heads merged, (B*nW*T, C)."""
     t = window_size * window_size
-    c = qkv.shape[1] // 3
-    bnw = qkv.shape[0] // t
-    nh = num_heads
-    hd = c // nh
     dt = qkv.dtype
-    scale = hd ** -0.5
-    qkv = qkv.reshape(bnw, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]                      # (bnw, nh, t, hd)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    mask = None
-    if shift_size > 0:
-        nwh, nww = grid_hw
-        mask = torch.as_tensor(_grid_mask(window_size, shift_size, nwh, nww),
-                               device=qkv.device)[:, None]  # (nW, 1, t, t)
+    q, k, v = _split_heads(qkv, num_heads, t)             # (bnw, nh, t, hd)
+    s = _scores(q, k, bias, window_size=window_size, shift_size=shift_size,
+                grid_hw=grid_hw, attn_f32=attn_f32)
     if attn_f32:
-        s = s * scale + bias.float()
-        if mask is not None:
-            s = (s.reshape(-1, mask.shape[0], nh, t, t) + mask).reshape(
-                bnw, nh, t, t)
         e = torch.exp(torch.clamp(s, max=CLAMP) - SHIFT)
         denom = e.sum(-1, keepdim=True) + 1e-37
     else:
-        s = s.to(dt) * torch.tensor(scale, dtype=dt, device=qkv.device)
-        s = s + bias.to(dt)
-        if mask is not None:
-            s = (s.reshape(-1, mask.shape[0], nh, t, t) + mask.to(dt)).reshape(
-                bnw, nh, t, t)
         e = torch.exp(s - s.amax(-1, keepdim=True))
         denom = (e.sum(-1, keepdim=True) + 1e-37).float()
     o = torch.matmul(e.to(dt).float(), v.float()) / denom
-    return o.to(dt).transpose(1, 2).reshape(bnw * t, c)
+    return o.to(dt).transpose(1, 2).reshape(qkv.shape[0], qkv.shape[1] // 3)
 
 
 def fused_window_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, *,
@@ -315,6 +327,44 @@ def fused_window_attention_backward_reference(g, x, wqkv, bqkv, wproj, bproj,
                      (x, wqkv, bqkv, wproj, bproj, bias), g)
 
 
+def window_attention_core_backward_reference(qkv, do, bias, *, num_heads: int,
+                                             window_size: int, shift_size: int,
+                                             grid_hw, attn_f32: bool = True) -> tuple:
+    """Plain version of K6's attention core, in the Pallas backward body's
+    order of operations (``_bwd_kernel_body`` :466-515): per head the
+    scores and probabilities p of the ``attn_f32`` mode recomputed from qkv
+    (B*nW*T, 3C), pc = p in the compute dtype, then o = pc V, dv = pc^T do,
+    dp = do V^T, ds = p (dp - sum_j dp p), dq = scale ds K and dk = scale
+    ds^T Q, all products float32. do: (B*nW*T, C), the gradient at the
+    output projection's input, in the compute dtype; bias: (nh, T, T).
+    Returns o (B*nW*T, C) and dqkv (B*nW*T, 3C) in the compute dtype, dbias
+    (nh, T, T) = ds summed over the windows and dbqkv (3C) = the float32
+    dqkv summed over the rows."""
+    t = window_size * window_size
+    m, c3 = qkv.shape
+    bnw, nh = m // t, num_heads
+    dt = qkv.dtype
+    q, k, v = _split_heads(qkv, nh, t)
+    scale = (c3 // 3 // nh) ** -0.5
+    g = do.reshape(bnw, t, nh, -1).transpose(1, 2).float()
+    s = _scores(q, k, bias, window_size=window_size, shift_size=shift_size,
+                grid_hw=grid_hw, attn_f32=attn_f32)
+    e = (torch.exp(torch.clamp(s, max=CLAMP) - SHIFT) if attn_f32
+         else torch.exp(s - s.amax(-1, keepdim=True)))
+    p = e / (e.sum(-1, keepdim=True) + 1e-37)
+    pc = p.to(dt).float()
+    p = p.float()
+    o = torch.matmul(pc, v.float()).to(dt)
+    dv = torch.matmul(pc.transpose(-1, -2), g)
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(m, c3)
+    return (o.transpose(1, 2).reshape(m, c3 // 3), dqkv.to(dt), ds.sum(0),
+            dqkv.sum(0))
+
+
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -323,11 +373,81 @@ def _bwd_plan(bnw: int, nh: int, m: int, c: int, n_sm: int) -> tuple[int, int]:
     """(window groups of the core launch, k_chunk of the weight-gradient
     GEMMs): about two blocks per SM in each launch."""
     want = 2 * n_sm
-    groups = min(bnw, max(1, _ceil(want, nh)))
-    groups = _ceil(bnw, _ceil(bnw, groups))
+    groups = _core_groups(bnw, nh, n_sm)
     tiles = _ceil(c, 128) * _ceil(c, 64)
     n_split = max(1, min(_ceil(want, tiles), _ceil(m, 256)))
     return groups, _ceil(_ceil(m, n_split), 32) * 32
+
+
+def _core_groups(bnw: int, nh: int, n_sm: int) -> int:
+    """Window groups of K6's core launch (one block per group and head,
+    walking the group's windows): about two blocks per SM, every group
+    holding at least one window."""
+    groups = min(bnw, max(1, _ceil(2 * n_sm, nh)))
+    return _ceil(bnw, _ceil(bnw, groups))
+
+
+def window_attention_core_backward(qkv, do, bias, *, num_heads: int,
+                                   window_size: int, shift_size: int, grid_hw,
+                                   attn_f32: bool = True) -> tuple:
+    """K6's attention core alone: on the recomputed qkv (B*nW*T, 3C) and do
+    (B*nW*T, C), returns (o, dqkv, dbias, dbqkv) as
+    ``window_attention_core_backward_reference`` does. CPU tensors take the
+    plain version; CUDA tensors launch the core kernel that K6 launches
+    between its GEMMs, then the fixed-order sums of its per-group dbias and
+    dbqkv partials (one count in ``launches`` per call)."""
+    cfg = dict(num_heads=num_heads, window_size=window_size,
+               shift_size=shift_size, grid_hw=tuple(grid_hw),
+               attn_f32=bool(attn_f32))
+    if qkv.device.type == "cpu":
+        return window_attention_core_backward_reference(qkv, do, bias, **cfg)
+    what = "window attention backward core kernel"
+    t = window_size * window_size
+    if qkv.dim() != 2 or qkv.shape[0] % t or qkv.shape[1] % 3:
+        raise ValueError(f"{what}: qkv must be (B*nW*T, 3C), got {tuple(qkv.shape)}")
+    m, c = qkv.shape[0], qkv.shape[1] // 3
+    bnw, nh = m // t, num_heads
+    _check(qkv, nh, window_size, grid_hw, what, shape=(bnw, t, c))
+    if do.shape != (m, c):
+        raise ValueError(f"{what}: do must be ({m}, {c}), got {tuple(do.shape)}")
+    do = do.to(qkv.device, qkv.dtype).contiguous()
+    bias = bias.detach().to(qkv.device, torch.float32).contiguous()
+    if bias.shape != (nh, t, t):
+        raise ValueError(f"{what}: bias must be ({nh}, {t}, {t})")
+    dev = qkv.device
+    groups = _core_groups(bnw, nh, torch.cuda.get_device_properties(dev).multi_processor_count)
+    o = torch.empty((m, c), dtype=qkv.dtype, device=dev)
+    dqkv = torch.empty((m, 3 * c), dtype=qkv.dtype, device=dev)
+    dbias_part, dbqkv_part, dbias, dbqkv = (
+        torch.empty(shape, dtype=torch.float32, device=dev)
+        for shape in ((groups, nh, t, t), (groups, 3 * c), (nh, t, t), (3 * c,)))
+    nwh, nww = cfg["grid_hw"]
+    rc = _build.lib().window_attn_bwd_core(
+        qkv.data_ptr(), do.data_ptr(), bias.data_ptr(), o.data_ptr(), dqkv.data_ptr(),
+        dbias_part.data_ptr(), dbqkv_part.data_ptr(), dbias.data_ptr(), dbqkv.data_ptr(),
+        bnw, t, c, nh, window_size, shift_size, nwh, nww, int(cfg["attn_f32"]), groups,
+        _build.dtype_code(qkv), _build.stream_ptr(qkv))
+    _build.check(rc, "window_attn_bwd_core")
+    window_attention_core_backward.launches += 1
+    return o, dqkv, dbias, dbqkv
+
+
+window_attention_core_backward.launches = 0
+
+
+def window_attention_core_backward_info(t: int, attn_f32: bool,
+                                        dtype=torch.bfloat16) -> dict:
+    """K6's core kernel's resources on the current card at T = t tokens, as
+    the CUDA runtime reports them: registers per thread, local (spill)
+    bytes per thread, shared bytes per block, resident blocks and resident
+    warps per SM."""
+    out = (ctypes.c_int * 5)()
+    rc = _build.lib().window_attn_bwd_core_info(
+        t, int(bool(attn_f32)), 0 if dtype == torch.float32 else 1,
+        ctypes.addressof(out))
+    _build.check(rc, "window_attn_bwd_core_info")
+    return dict(zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm",
+                     "warps_per_sm"), out))
 
 
 def fused_window_attention_backward(g, x, wqkv, bqkv, wproj, bproj, bias, *,

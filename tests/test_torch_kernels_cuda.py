@@ -257,10 +257,11 @@ def test_window_attn_backward_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
     _assert_grads_close(got, want, dtype)
 
 
-def test_backward_kernel_repeats_exactly(dev):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_backward_kernel_repeats_exactly(dev, dtype):
     g = torch.Generator(device=dev).manual_seed(6)
     c, nh = 256, 8
-    x, gy = (torch.randn((8, 144, c), generator=g, device=dev) for _ in range(2))
+    x, gy = (torch.randn((8, 144, c), generator=g, device=dev).to(dtype) for _ in range(2))
     p = (torch.randn((3 * c, c), generator=g, device=dev) * c ** -0.5,
          torch.randn(3 * c, generator=g, device=dev), torch.randn((c, c), generator=g, device=dev),
          torch.randn(c, generator=g, device=dev), torch.randn((nh, 144, 144), generator=g, device=dev))
@@ -268,6 +269,55 @@ def test_backward_kernel_repeats_exactly(dev):
     a = window_attn.fused_window_attention_backward(gy, x, *p, **kw)
     b = window_attn.fused_window_attention_backward(gy, x, *p, **kw)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _ulps(ref, n):
+    return n * 2.0 ** -7 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("attn_f32", [True, False])
+@pytest.mark.parametrize("ws,ss,grid,c,nh", ATTN_GEOMS)
+def test_window_attn_bwd_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
+    """K6's bf16 attention core alone against its plain version; two calls
+    bit-identical (no atomics, fixed-order sums), one launch each. Both
+    round where the Pallas body rounds; the kernel sums in another float32
+    order and takes dq, dk as three exact bf16 products of ds's split: o
+    at most 1 % differing and 4 bf16 units at its largest magnitude (K2's
+    core), dq, dk, dv 4 units at each one's largest magnitude, dbias and
+    dbqkv (float32) 1e-4 of their largest magnitude."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    t = ws * ws
+    bnw = 2 * grid[0] * grid[1]
+    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(torch.bfloat16)
+    do = torch.randn((bnw * t, c), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((nh, t, t), generator=g, device=dev) * 0.5
+    kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=attn_f32)
+    window_attn.window_attention_core_backward.launches = 0
+    got = window_attn.window_attention_core_backward(qkv, do, bias, **kw)
+    again = window_attn.window_attention_core_backward(qkv, do, bias, **kw)
+    want = window_attn.window_attention_core_backward_reference(qkv, do, bias, **kw)
+    torch.cuda.synchronize()
+    assert window_attn.window_attention_core_backward.launches == 2
+    assert [a.shape for a in got] == [a.shape for a in want]
+    assert [a.dtype for a in got] == [a.dtype for a in want]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    o, dqkv, dbias, dbqkv = got
+    assert (o != want[0]).float().mean().item() <= 0.01
+    pairs = [(o, want[0], _ulps(want[0], 4))]
+    pairs += [(dqkv[:, i * c:(i + 1) * c], want[1][:, i * c:(i + 1) * c],
+               _ulps(want[1][:, i * c:(i + 1) * c], 4)) for i in range(3)]
+    pairs += [(a, b, 1e-4 * b.abs().max().item()) for a, b in ((dbias, want[2]), (dbqkv, want[3]))]
+    for a, b, tol in pairs:
+        assert torch.isfinite(a.float()).all()
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("attn_f32", [True, False])
+def test_window_attn_bwd_core_resources(dev, attn_f32):
+    """At T = 144 K6's bf16 core spills nothing and keeps at least 16 warps
+    resident per SM."""
+    info = window_attn.window_attention_core_backward_info(144, attn_f32)
+    assert info["spill_bytes"] == 0 and info["warps_per_sm"] >= 16, info
 
 
 def test_swin_ops_pass_gradients_on_the_card(dev):
