@@ -11,14 +11,12 @@
 // output gradient g, flash-style (nothing but the inputs was saved):
 //   1. qkv = rnd(rnd(x Wqkv^T) + bqkv)          (gemm.cuh, A @ W^T)
 //   2. do  = rnd(g Wproj)                       (gemm.cuh, A @ B)
-//   3. core, one block per (window group, head): recompute s and p per
-//      16-row strip, then o = pc v, dp = do v^T, ds = p (dp - sum(dp p)),
-//      dq = scale ds k; dk = scale ds^T q and dv = pc^T do accumulate in
-//      registers over the strips; ds accumulates into a (T, T) float32
-//      dbias tile in shared memory over the group's windows, and the f32
-//      column sums of dq, dk, dv into the group's dbqkv partial. Writes o
-//      and dqkv (compute dtype), one dbias partial per (group, head) and
-//      one dbqkv partial per group.
+//   3. core, one block per (window group, head), walking the group's
+//      windows: recompute s and p, then o = pc v, dp = do v^T, ds = p (dp -
+//      sum(dp p)), dq = scale ds k, dk = scale ds^T q, dv = pc^T do; ds
+//      accumulates over the group's windows into the (group, head)'s dbias
+//      partial, and the float32 column sums of dq, dk, dv into the group's
+//      dbqkv partial. Writes o and dqkv (compute dtype).
 //   4. dWproj = g^T o and dWqkv = dqkv^T x      (gemm.cuh, A^T @ B, split-K
 //      over the B*nW*T rows into float32 partials)
 //   5. dx = rnd(dqkv Wqkv)                      (gemm.cuh, A @ B)
@@ -34,14 +32,42 @@
 //
 // Bound on the card: at swin-base@512 the five GEMMs (2 x 3C C + 2 x C C +
 // 3C C multiply-adds per token) carry most of the flops; the core is 6
-// T x T x 32 products per (window, head), kept on chip: the (B*nW, nh, T, T)
-// scores, probabilities and ds never reach device memory. The core runs
-// SIMT float32 FMAs (ds must stay float32 for dq and dk, as the reference's
-// float32 products); q, k, v and do of the (window, head) sit in shared
-// memory as float32, with the 16-row score and ds strips and the dbias tile:
-// 180 KB at T = 144, one block per SM. The qkv, do, o and dqkv tensors
-// round-trip device memory between the launches, and the weight-gradient
-// GEMMs are SIMT in float32 (perf_opt work: ROADMAP).
+// T x T x 32 products per (window, head) on 74 KB of bf16 q, k, v, do, o and
+// dqkv: bound by its bytes as long as the (B*nW, nh, T, T) scores,
+// probabilities and ds never reach device memory. The qkv, do, o and dqkv
+// tensors round-trip device memory between the launches, and the weight-
+// gradient GEMMs are SIMT in float32 (perf_opt work: ROADMAP).
+//
+// The bf16 core (attn_bwd_core_bf16_kernel): TP / 16 warps (T padded to
+// TP = 16 ceil(T / 16)), each owning 16 rows of the (window, head); q, k,
+// v and do arrive by cp.async in padded 80-byte bf16 rows (46 KB at
+// T = 144), and every (T, T) matrix lives only in mma.sync.m16n8k16
+// registers, one 16 x 16 tile at a time (ldmatrix fragments as in K2's
+// core). The products are needed in both orientations, so each window
+// takes two passes:
+//   - pass Q, a warp's 16 query rows against every key: S = Q K^T and the
+//     row statistics (attn_f32: den; else the max, then den), then P with
+//     O = pc V and D = sum_j p dp (dP = dO V^T) over the keys, then dS and
+//     dQ += dS K. Writes o and dq, and leaves each query row's max, den and
+//     D in shared memory;
+//   - pass K, a warp's 16 keys against every query: S^T = K Q^T, P^T from
+//     the stored statistics (the same float32 or bf16 ops on the same
+//     products, so the same p), dP^T = V dO^T, dS^T, dV += P^T dO and
+//     dK += dS^T Q. Writes dk and dv. The thread that holds ds(i, j) is the
+//     one thread that ever touches dbias(i, j) of its (group, head): it
+//     writes it at the group's first window and adds to it at the others
+//     (the 81 KB tile stays in L2), so no tile occupies shared memory.
+// S and dP are recomputed in each sweep rather than held (a 16 x 144
+// float32 strip is 72 registers a thread): products are nearly free here,
+// registers are not. ds is float32, as the reference's dq and dk products
+// are: it enters the bf16 tensor cores as three exact bf16 terms (hi + mid
+// + lo, 3 x 8 significant bits) summed in one float32 accumulator. Each
+// block takes about 51 KB of shared memory and at most 112 registers a
+// thread, so two blocks (18 warps at T = 144) share an SM. The float32 core
+// (attn_bwd_core_kernel) stays on the SIMT units: one 180 KB block per SM
+// with q, k, v, do, the score strips and the dbias tile in shared memory.
+#include <type_traits>
+
 #include "common.cuh"
 #include "core_util.cuh"
 #include "gemm.cuh"
@@ -268,6 +294,453 @@ attn_bwd_core_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
+// ---- the bf16 core: S, P, dP and dS in mma.sync registers (see the note
+// at the top) ----
+
+constexpr int BC_LD = BWD_HD + 8;  // bf16 row stride in shared memory (80 bytes)
+
+// shared bytes of the bf16 core at tp padded tokens: q, k, v, do rows; per
+// query row its max, denominator and D; per warp the dq, dk, dv column
+// sums; per token its band byte
+inline size_t bf16_bwd_smem_bytes(int tp) {
+  return 4ull * tp * BC_LD * sizeof(bf16) + 3ull * tp * sizeof(float) +
+         (size_t)(tp / 16) * 3 * BWD_HD * sizeof(float) + tp;
+}
+
+// acc[n] = the 16 rows at a_rows times rows 8n .. 8n + 7 at b_rows, over
+// the head dims (one 16 x 16 tile); the A fragments are loaded here, for
+// each tile, rather than held across the loops (8 registers fewer)
+__device__ __forceinline__ void tile16(float (&acc)[2][4], const bf16* a_rows,
+                                       const bf16* b_rows, int lane) {
+  uint32_t a[2][4];
+  const bf16* pa = a_rows + (lane & 15) * BC_LD + (lane >> 4) * 8;
+  ldsm_x4(a[0], pa);       // head dims 0-15
+  ldsm_x4(a[1], pa + 16);  // head dims 16-31
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    uint32_t b[4];
+    ldsm_x4(b, b_rows + (8 * n + (lane & 7)) * BC_LD + (lane >> 3) * 8);
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    mma_16816(acc[n], a[0], b[0], b[1]);
+    mma_16816(acc[n], a[1], b[2], b[3]);
+  }
+}
+
+// acc[n] += a (16 x 16 over the tokens of `rows`) times the head dims 8n ..
+// 8n + 7 of those 16 rows (B by ldmatrix.trans)
+__device__ __forceinline__ void mma_rows(float (&acc)[4][4], const uint32_t (&a)[4],
+                                         const bf16* rows, int lane) {
+  const bf16* p = rows + (lane & 15) * BC_LD + (lane >> 4) * 8;
+  uint32_t b[4];
+  ldsm_x4_trans(b, p);  // head dims 0-7, 8-15
+  mma_16816(acc[0], a, b[0], b[1]);
+  mma_16816(acc[1], a, b[2], b[3]);
+  ldsm_x4_trans(b, p + 16);  // head dims 16-23, 24-31
+  mma_16816(acc[2], a, b[0], b[1]);
+  mma_16816(acc[3], a, b[2], b[3]);
+}
+
+// x = hi + mid + lo exactly, as three bf16 pairs (x0 in the low halves):
+// three times 8 significant bits hold float32's 24
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  x0 = __fsub_rn(x0, bf16_lo(hi));
+  x1 = __fsub_rn(x1, bf16_hi(hi));
+  mid = pack_bf16(x0, x1);
+  x0 = __fsub_rn(x0, bf16_lo(mid));
+  x1 = __fsub_rn(x1, bf16_hi(mid));
+  lo = pack_bf16(x0, x1);
+}
+
+// acc += ds (16 x 16, C fragments of two n-tiles) times the 16 rows of
+// `rows`, ds split into three exact bf16 terms
+__device__ __forceinline__ void mma_split(float (&acc)[4][4], const float (&ds)[2][4],
+                                          const bf16* rows, int lane) {
+  uint32_t a[3][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      split3(ds[n][2 * hf], ds[n][2 * hf + 1], a[0][2 * n + hf], a[1][2 * n + hf],
+             a[2][2 * n + hf]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) mma_rows(acc, a[k], rows, lane);
+}
+
+// the bias of the element pair (row, col), (row, col + 1) in pass Q's
+// orientation (a row of the head's (T, T) bias, 0 past Tn)
+__device__ __forceinline__ float2 bias_row_pair(const float* row, int col, int tn, bool even) {
+  if (even) return col < tn ? __ldg(reinterpret_cast<const float2*>(row + col)) : make_float2(0.f, 0.f);
+  return make_float2(col < tn ? __ldg(row + col) : 0.f, col + 1 < tn ? __ldg(row + col + 1) : 0.f);
+}
+
+// bits 0 and 8: whether cols c and c + 1 lie in another compared band than
+// the row (rowb: the row's band byte in both bytes; sel: the bands compared
+// in this window, bit 0 the grid's last row, bit 1 its last column)
+__device__ __forceinline__ uint32_t band_diff(const uint8_t* bands, int c, uint32_t rowb,
+                                              uint32_t sel) {
+  return sel ? (*reinterpret_cast<const uint16_t*>(bands + c) ^ rowb) & sel : 0u;
+}
+
+// attn_f32: e = exp(min(s, 80) - 30) of s = acc * scale + bias (-100 where
+// the bands differ), 0 past Tn; the float32 ops one at a time, as the
+// reference rounds them (no fused multiply-add)
+__device__ __forceinline__ float e_f32(float acc, float b, bool differ, bool in, float scale) {
+  float s = __fadd_rn(__fmul_rn(acc, scale), b);
+  if (differ) s = __fadd_rn(s, -100.f);
+  return in ? expf(fminf(s, 80.f) - 30.f) : 0.f;
+}
+
+// attn_f32 = 0: the bf16 scores of an element pair, rnd(rnd(rnd(acc) *
+// rnd(scale)) + rnd(bias)), then rnd(s - 100) where the bands differ; -inf
+// past Tn (n_in: how many of the two lie before Tn)
+__device__ __forceinline__ uint32_t s_bf16(float a0, float a1, float2 b, uint32_t diff,
+                                           int n_in, uint32_t scale2) {
+  uint32_t x = mul_bf16x2(pack_bf16(a0, a1), scale2);
+  x = add_bf16x2(x, pack_bf16(b.x, b.y));
+  if (diff)
+    x = add_bf16x2(x, (diff & 0xffu ? BF16_MINUS_100 : 0u) | (diff >> 8 ? BF16_MINUS_100 << 16 : 0u));
+  if (n_in < 2) x = n_in ? (x & 0xffffu) | (BF16X2_NEG_INF & 0xffff0000u) : BF16X2_NEG_INF;
+  return x;
+}
+
+// attn_f32 = 0: e = rnd(exp(rnd(s - m))) of a pair (m2: the pair's row maxima)
+__device__ __forceinline__ uint32_t e_bf16(uint32_t s, uint32_t m2) {
+  const uint32_t d = sub_bf16x2(s, m2);
+  return pack_bf16(expf(bf16_lo(d)), expf(bf16_hi(d)));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the column sums of a 16 x 32 float32 tile (rows past Tn left out, as
+// invalid0 / 1 say for rows g, g + 8) added to this warp's slots `cs`
+__device__ __forceinline__ void add_colsums(float* cs, const float (&acc)[4][4], bool in0,
+                                            bool in1, int lane) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float v = (in0 ? acc[n][u] : 0.f) + (in1 ? acc[n][2 + u] : 0.f);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 4) cs[8 * n + 2 * lane + u] += v;
+    }
+}
+
+// a 16 x 32 float32 tile (rows r, r + 8 at dst_g, dst_g8) rounded to bf16
+// pairs and stored; rows past Tn not
+__device__ __forceinline__ void store_rows(bf16* dst_g, bf16* dst_g8, const float (&acc)[4][4],
+                                           bool in0, bool in1, int tq) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    if (in0)
+      *reinterpret_cast<uint32_t*>(dst_g + 8 * n + 2 * tq) = pack_bf16(acc[n][0], acc[n][1]);
+    if (in1)
+      *reinterpret_cast<uint32_t*>(dst_g8 + 8 * n + 2 * tq) = pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+template <int NQ, bool F32>
+__global__ void __launch_bounds__(32 * NQ, 2)
+    attn_bwd_core_bf16_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                              const float* __restrict__ bias, bf16* __restrict__ o,
+                              bf16* __restrict__ dqkv, float* __restrict__ dbias_part,
+                              float* __restrict__ dbqkv_part, int bnw, int Tn, int C, int nh,
+                              int ws, int ss, int nwh, int nww, float scale) {
+  constexpr int TP = 16 * NQ, LD = BC_LD, HD = BWD_HD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + TP * LD;
+  bf16* Vs = Ks + TP * LD;
+  bf16* Gs = Vs + TP * LD;  // do
+  float* st_m = reinterpret_cast<float*>(Gs + TP * LD);  // per query row: max (attn_f32 = 0)
+  float* st_den = st_m + TP;                             // denominator
+  float* st_D = st_den + TP;                             // D = sum_j p dp
+  float* csum = st_D + TP;                               // per warp: [dq | dk | dv] x 32
+  uint8_t* bands = reinterpret_cast<uint8_t*>(csum + NQ * 3 * HD);
+
+  const int grp = blockIdx.x, h = blockIdx.y, n_groups = gridDim.x;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int C3 = 3 * C;
+  const int wpb = (bnw + n_groups - 1) / n_groups;
+  const int w_lo = grp * wpb, w_hi = min(bnw, w_lo + wpb);
+  const float* bhead = bias + (long long)h * Tn * Tn;
+  float* dbh = dbias_part + ((long long)grp * nh + h) * Tn * Tn;
+  const bool even = (Tn & 1) == 0;
+  const uint32_t scale2 = pack_bf16(scale, scale);  // the reference's bf16 scalar
+  float* cs = csum + wid * 3 * HD;
+
+  for (int e = threadIdx.x; e < NQ * 3 * HD; e += blockDim.x) csum[e] = 0.f;
+  const int lim = ws - ss;  // band 1 below it, band 2 from it
+  for (int t = threadIdx.x; t < TP; t += blockDim.x)
+    bands[t] = (uint8_t)((t >= lim * ws) | (t % ws >= lim) << 1);
+  if (w_lo >= w_hi)
+    for (int e = threadIdx.x; e < Tn * Tn; e += blockDim.x) dbh[e] = 0.f;
+
+  // this warp's 16 rows: query rows in pass Q, key rows in pass K
+  const int r0 = wid * 16;
+  const int ra = r0 + g, rb = r0 + g + 8;
+  const bool in_a = ra < Tn, in_b = rb < Tn;
+  for (int w = w_lo; w < w_hi; ++w) {
+    const long long row0 = (long long)w * Tn;
+    __syncthreads();  // the previous window is done with the rows and statistics
+    // q, k, v and do rows of this (window, head): four 16-byte chunks each,
+    // rows past Tn zero
+    for (int e = threadIdx.x; e < 16 * TP; e += blockDim.x) {
+      const int part = e / (4 * TP), t = (e >> 2) % TP, ch = e & 3;
+      bf16* dst = Qs + part * TP * LD + t * LD + ch * 8;
+      if (t < Tn)
+        cp_async16(dst, part < 3 ? qkv + (row0 + t) * C3 + part * C + h * HD + ch * 8
+                                 : dout + (row0 + t) * C + h * HD + ch * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const int widx = w % (nwh * nww);
+    const bool li = ss > 0 && widx / nww == nwh - 1;
+    const bool lj = ss > 0 && widx % nww == nww - 1;
+    const uint32_t sel = (li ? 0x0101u : 0u) | (lj ? 0x0202u : 0u);
+    const uint32_t rowb[2] = {bands[ra] * 0x0101u, bands[rb] * 0x0101u};
+
+    // ---- pass Q: the warp's 16 query rows against every key ----
+    {
+      const float* brow[2] = {bhead + (in_a ? ra * Tn : 0), bhead + (in_b ? rb * Tn : 0)};
+      const bf16* qa = Qs + r0 * LD;  // this warp's q and do rows
+      const bf16* ga = Gs + r0 * LD;
+      // the row statistics: attn_f32 den = sum e + 1e-37; else the max m,
+      // then den = rnd(rnd(sum e) + 1e-37)
+      float m[2] = {0.f, 0.f}, den[2], sum[2] = {0.f, 0.f};
+      if constexpr (!F32) {
+        uint32_t mx2[2] = {BF16X2_NEG_INF, BF16X2_NEG_INF};
+        for (int kk = 0; kk < NQ; ++kk) {
+          float acc[2][4];
+          tile16(acc, qa, Ks + 16 * kk * LD, lane);
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int c = 16 * kk + 8 * n + 2 * tq;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              mx2[hf] = max_bf16x2(mx2[hf], s_bf16(acc[n][2 * hf], acc[n][2 * hf + 1],
+                                                   bias_row_pair(brow[hf], c, Tn, even),
+                                                   band_diff(bands, c, rowb[hf], sel),
+                                                   min(2, max(0, Tn - c)), scale2));
+          }
+        }
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float mx = fmaxf(bf16_lo(mx2[hf]), bf16_hi(mx2[hf]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          m[hf] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        }
+      }
+      for (int kk = 0; kk < NQ; ++kk) {
+        float acc[2][4];
+        tile16(acc, qa, Ks + 16 * kk * LD, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int c = 16 * kk + 8 * n + 2 * tq;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float2 b = bias_row_pair(brow[hf], c, Tn, even);
+            const uint32_t d = band_diff(bands, c, rowb[hf], sel);
+            if constexpr (F32) {
+              sum[hf] += e_f32(acc[n][2 * hf], b.x, d & 0xffu, c < Tn, scale);
+              sum[hf] += e_f32(acc[n][2 * hf + 1], b.y, d >> 8, c + 1 < Tn, scale);
+            } else {
+              const uint32_t e = e_bf16(s_bf16(acc[n][2 * hf], acc[n][2 * hf + 1], b, d,
+                                               min(2, max(0, Tn - c)), scale2),
+                                        pack_bf16(m[hf], m[hf]));
+              sum[hf] += bf16_lo(e);
+              sum[hf] += bf16_hi(e);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float s = quad_sum(sum[hf]);
+        den[hf] = F32 ? s + 1e-37f : rnd<bf16>(rnd<bf16>(s) + 1e-37f);
+      }
+
+      // p of the 16 x 16 tile of keys 16 kk .. 16 kk + 15 (float32 as the
+      // mode gives it) and pc, its bf16 pairs as one A fragment
+      auto probs = [&](int kk, float (&p)[2][4], uint32_t (&pa)[4]) {
+        float acc[2][4];
+        tile16(acc, qa, Ks + 16 * kk * LD, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int c = 16 * kk + 8 * n + 2 * tq;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const float2 b = bias_row_pair(brow[hf], c, Tn, even);
+            const uint32_t d = band_diff(bands, c, rowb[hf], sel);
+            float p0, p1;
+            uint32_t pc;
+            if constexpr (F32) {
+              p0 = __fdiv_rn(e_f32(acc[n][2 * hf], b.x, d & 0xffu, c < Tn, scale), den[hf]);
+              p1 = __fdiv_rn(e_f32(acc[n][2 * hf + 1], b.y, d >> 8, c + 1 < Tn, scale), den[hf]);
+              pc = pack_bf16(p0, p1);
+            } else {
+              const uint32_t e = e_bf16(s_bf16(acc[n][2 * hf], acc[n][2 * hf + 1], b, d,
+                                               min(2, max(0, Tn - c)), scale2),
+                                        pack_bf16(m[hf], m[hf]));
+              pc = pack_bf16(__fdiv_rn(bf16_lo(e), den[hf]), __fdiv_rn(bf16_hi(e), den[hf]));
+              p0 = bf16_lo(pc);
+              p1 = bf16_hi(pc);
+            }
+            p[n][2 * hf] = p0;
+            p[n][2 * hf + 1] = p1;
+            pa[2 * n + hf] = pc;
+          }
+        }
+      };
+
+      // o = rnd(pc V) and D = sum_j p dp, dp = do V^T
+      float oacc[4][4] = {}, D[2] = {0.f, 0.f};
+      for (int kk = 0; kk < NQ; ++kk) {
+        float p[2][4], dp[2][4];
+        uint32_t pa[4];
+        probs(kk, p, pa);
+        tile16(dp, ga, Vs + 16 * kk * LD, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) D[e >> 1] += p[n][e] * dp[n][e];
+        mma_rows(oacc, pa, Vs + 16 * kk * LD, lane);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) D[hf] = quad_sum(D[hf]);
+      if (tq == 0) {
+        st_m[ra] = in_a ? m[0] : 0.f;
+        st_m[rb] = in_b ? m[1] : 0.f;
+        st_den[ra] = in_a ? den[0] : 1.f;
+        st_den[rb] = in_b ? den[1] : 1.f;
+        st_D[ra] = in_a ? D[0] : 0.f;
+        st_D[rb] = in_b ? D[1] : 0.f;
+      }
+      store_rows(o + (row0 + ra) * C + h * HD, o + (row0 + rb) * C + h * HD, oacc, in_a, in_b,
+                 tq);
+
+      // dq = scale (ds K), ds = p (dp - D)
+      float dq[4][4] = {};
+      for (int kk = 0; kk < NQ; ++kk) {
+        float p[2][4], ds[2][4];
+        uint32_t pa[4];
+        probs(kk, p, pa);
+        tile16(ds, ga, Vs + 16 * kk * LD, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - D[e >> 1]);
+        mma_split(dq, ds, Ks + 16 * kk * LD, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] = __fmul_rn(dq[n][e], scale);
+      store_rows(dqkv + (row0 + ra) * C3 + h * HD, dqkv + (row0 + rb) * C3 + h * HD, dq, in_a,
+                 in_b, tq);
+      add_colsums(cs, dq, in_a, in_b, lane);
+    }
+    __syncthreads();  // the statistics of every query row
+
+    // ---- pass K: the warp's 16 keys against every query ----
+    {
+      const bool first = w == w_lo;
+      const bf16* ka = Ks + r0 * LD;  // this warp's k and v rows
+      const bf16* va = Vs + r0 * LD;
+      float dk[4][4] = {}, dv[4][4] = {};
+      for (int qq = 0; qq < NQ; ++qq) {
+        float p[2][4], ds[2][4];
+        uint32_t pa[4];
+        tile16(p, ka, Qs + 16 * qq * LD, lane);  // S^T: rows keys, cols queries
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int c = 16 * qq + 8 * n + 2 * tq;  // queries c, c + 1
+          const float2 dn = *reinterpret_cast<const float2*>(st_den + c);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int key = hf ? rb : ra;
+            const bool kin = hf ? in_b : in_a;
+            const float2 b = make_float2(kin && c < Tn ? __ldg(bhead + c * Tn + key) : 0.f,
+                                         kin && c + 1 < Tn ? __ldg(bhead + (c + 1) * Tn + key)
+                                                           : 0.f);
+            const uint32_t d = band_diff(bands, c, rowb[hf], sel);
+            float p0, p1;
+            uint32_t pc;
+            if constexpr (F32) {
+              p0 = __fdiv_rn(e_f32(p[n][2 * hf], b.x, d & 0xffu, c < Tn, scale), dn.x);
+              p1 = __fdiv_rn(e_f32(p[n][2 * hf + 1], b.y, d >> 8, c + 1 < Tn, scale), dn.y);
+              pc = pack_bf16(p0, p1);
+            } else {
+              const float2 mc = *reinterpret_cast<const float2*>(st_m + c);
+              const uint32_t e = e_bf16(s_bf16(p[n][2 * hf], p[n][2 * hf + 1], b, d,
+                                               min(2, max(0, Tn - c)), scale2),
+                                        pack_bf16(mc.x, mc.y));
+              pc = pack_bf16(__fdiv_rn(bf16_lo(e), dn.x), __fdiv_rn(bf16_hi(e), dn.y));
+              p0 = bf16_lo(pc);
+              p1 = bf16_hi(pc);
+            }
+            p[n][2 * hf] = p0;
+            p[n][2 * hf + 1] = p1;
+            pa[2 * n + hf] = pc;
+          }
+        }
+        tile16(ds, va, Gs + 16 * qq * LD, lane);  // dP^T = V do^T
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int c = 16 * qq + 8 * n + 2 * tq;
+          const float2 Dc = *reinterpret_cast<const float2*>(st_D + c);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int key = hf ? rb : ra;
+            const bool kin = hf ? in_b : in_a;
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float x = p[n][2 * hf + u] * (ds[n][2 * hf + u] - (u ? Dc.y : Dc.x));
+              ds[n][2 * hf + u] = x;
+              // dbias: this thread alone owns element (query c + u, key)
+              // of the group's tile; the group's windows add in order
+              if (kin && c + u < Tn) {
+                float* dst = dbh + (c + u) * Tn + key;
+                *dst = first ? x : *dst + x;
+              }
+            }
+          }
+        }
+        mma_rows(dv, pa, Gs + 16 * qq * LD, lane);
+        mma_split(dk, ds, Qs + 16 * qq * LD, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[n][e] = __fmul_rn(dk[n][e], scale);
+      store_rows(dqkv + (row0 + ra) * C3 + C + h * HD, dqkv + (row0 + rb) * C3 + C + h * HD, dk,
+                 in_a, in_b, tq);
+      store_rows(dqkv + (row0 + ra) * C3 + 2 * C + h * HD,
+                 dqkv + (row0 + rb) * C3 + 2 * C + h * HD, dv, in_a, in_b, tq);
+      add_colsums(cs + HD, dk, in_a, in_b, lane);
+      add_colsums(cs + 2 * HD, dv, in_a, in_b, lane);
+    }
+  }
+
+  // the group's dq, dk, dv column sums, the warps' partials in order
+  __syncthreads();
+  for (int e = threadIdx.x; e < 3 * HD; e += blockDim.x) {
+    float acc = 0.f;
+    for (int k = 0; k < NQ; ++k) acc += csum[k * 3 * HD + e];
+    dbqkv_part[(long long)grp * C3 + (e / HD) * C + h * HD + e % HD] = acc;
+  }
+}
+
 // part[z, n] = sum of rows [z * rows, (z + 1) * rows) of column n of X (R, N)
 template <typename T>
 __global__ void colsum_partial_kernel(const T* __restrict__ X, float* __restrict__ part, int R,
@@ -288,24 +761,78 @@ int launch_bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqk
   cudaError_t e = cudaFuncSetAttribute(attn_bwd_core_kernel<T, F32>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  if (info) return kernel_info(attn_bwd_core_kernel<T, F32>, BWD_THREADS, smem, info);
+  if (info) {
+    const int rc = kernel_info(attn_bwd_core_kernel<T, F32>, BWD_THREADS, smem, info);
+    info[4] = info[3] * BWD_THREADS / 32;
+    return rc;
+  }
   const float scale = 1.f / sqrtf((float)BWD_HD);
   attn_bwd_core_kernel<T, F32><<<dim3(n_groups, nh), BWD_THREADS, smem, stream>>>(
       qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw, t, c, nh, ws, ss, nwh, nww, scale);
   return 0;
 }
 
+template <int NQ, bool F32>
+int launch_bwd_core_bf16(const bf16* qkv, const bf16* dout, const float* bias, bf16* o,
+                         bf16* dqkv, float* dbias_part, float* dbqkv_part, int bnw, int t, int c,
+                         int nh, int ws, int ss, int nwh, int nww, int n_groups,
+                         cudaStream_t stream, int* info) {
+  const size_t smem = bf16_bwd_smem_bytes(16 * NQ);
+  cudaError_t e = cudaFuncSetAttribute(attn_bwd_core_bf16_kernel<NQ, F32>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (info) {
+    const int rc = kernel_info(attn_bwd_core_bf16_kernel<NQ, F32>, 32 * NQ, smem, info);
+    info[4] = info[3] * NQ;
+    return rc;
+  }
+  const float scale = 1.f / sqrtf((float)BWD_HD);
+  attn_bwd_core_bf16_kernel<NQ, F32><<<dim3(n_groups, nh), 32 * NQ, smem, stream>>>(
+      qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw, t, c, nh, ws, ss, nwh, nww, scale);
+  return 0;
+}
+
+template <bool F32>
+int bwd_core_bf16(const bf16* qkv, const bf16* dout, const float* bias, bf16* o, bf16* dqkv,
+                  float* dbias_part, float* dbqkv_part, int bnw, int t, int c, int nh, int ws,
+                  int ss, int nwh, int nww, int n_groups, cudaStream_t s, int* info) {
+#define FLAIR_BWD_NQ(NQ)                                                                    \
+  case NQ:                                                                                  \
+    return launch_bwd_core_bf16<NQ, F32>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, \
+                                         bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info);
+  switch ((t + 15) / 16) {
+    FLAIR_BWD_NQ(1)
+    FLAIR_BWD_NQ(2)
+    FLAIR_BWD_NQ(3)
+    FLAIR_BWD_NQ(4)
+    FLAIR_BWD_NQ(5)
+    FLAIR_BWD_NQ(6)
+    FLAIR_BWD_NQ(7)
+    FLAIR_BWD_NQ(8)
+    FLAIR_BWD_NQ(9)
+  }
+#undef FLAIR_BWD_NQ
+  return (int)cudaErrorInvalidValue;  // T > 144
+}
+
 // the core on qkv (bnw * t, 3c) and do (bnw * t, c) -> o, dqkv and the
 // per-group dbias and dbqkv partials; with `info`, nothing launches and
-// info[0..3] receive the core kernel's resources at t tokens
+// info[0..4] receive the core kernel's resources at t tokens
 template <typename T>
 int bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqkv, float* dbias_part,
              float* dbqkv_part, int bnw, int t, int c, int nh, int ws, int ss, int nwh, int nww,
              int attn_f32, int n_groups, cudaStream_t s, int* info = nullptr) {
-  return attn_f32 ? launch_bwd_core<T, true>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
-                                             bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info)
-                  : launch_bwd_core<T, false>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
-                                              bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info);
+  if constexpr (std::is_same<T, bf16>::value) {
+    return attn_f32 ? bwd_core_bf16<true>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw,
+                                          t, c, nh, ws, ss, nwh, nww, n_groups, s, info)
+                    : bwd_core_bf16<false>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw,
+                                           t, c, nh, ws, ss, nwh, nww, n_groups, s, info);
+  } else {
+    return attn_f32 ? launch_bwd_core<T, true>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
+                                               bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info)
+                    : launch_bwd_core<T, false>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
+                                                bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info);
+  }
 }
 
 template <typename T>
@@ -393,11 +920,8 @@ extern "C" int window_attn_bwd_core(const void* qkv, const void* dout, const voi
 // the core kernel's registers, local (spill) bytes a thread, shared bytes a
 // block, resident blocks and resident warps per SM at t tokens
 extern "C" int window_attn_bwd_core_info(int t, int attn_f32, int dtype, int* out) {
-  const int rc = dtype == 0 ? bwd_core<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                              nullptr, 0, t, 0, 0, 0, 0, 0, 0, attn_f32, 0, 0, out)
-                            : bwd_core<bf16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                             nullptr, 0, t, 0, 0, 0, 0, 0, 0, attn_f32, 0, 0, out);
-  if (rc) return rc;
-  out[4] = out[3] * BWD_THREADS / 32;
-  return 0;
+  return dtype == 0 ? bwd_core<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                      0, t, 0, 0, 0, 0, 0, 0, attn_f32, 0, 0, out)
+                    : bwd_core<bf16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                     0, t, 0, 0, 0, 0, 0, 0, attn_f32, 0, 0, out);
 }
