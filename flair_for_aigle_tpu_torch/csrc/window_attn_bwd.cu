@@ -46,26 +46,36 @@
 // core). The products are needed in both orientations, so each window
 // takes two passes:
 //   - pass Q, a warp's 16 query rows against every key: S = Q K^T and the
-//     row statistics (attn_f32: den; else the max, then den), then P with
-//     O = pc V and D = sum_j p dp (dP = dO V^T) over the keys, then dS and
-//     dQ += dS K. Writes o and dq, and leaves each query row's max, den and
-//     D in shared memory;
+//     row statistics, then P with O = pc V, dS = P (dP - D) (dP = dO V^T)
+//     and dQ += dS K. attn_f32: one statistics sweep gives den and D =
+//     (sum_j e dp) / den, the float32 sum of p dp with the division by den
+//     taken out of it; attn_f32 = 0 takes the max, den and D = sum_j p dp
+//     (p rounded to bf16 first) in three. Writes o and dq, and leaves each
+//     query row's max, den, 1 / den and D in shared memory;
 //   - pass K, a warp's 16 keys against every query: S^T = K Q^T, P^T from
-//     the stored statistics (the same float32 or bf16 ops on the same
-//     products, so the same p), dP^T = V dO^T, dS^T, dV += P^T dO and
-//     dK += dS^T Q. Writes dk and dv. The thread that holds ds(i, j) is the
-//     one thread that ever touches dbias(i, j) of its (group, head): it
-//     writes it at the group's first window and adds to it at the others
-//     (the 81 KB tile stays in L2), so no tile occupies shared memory.
+//     the stored statistics, dV += P^T dO, dP^T = V dO^T, dS^T and dK +=
+//     dS^T Q. Writes dk and dv. Every p of both passes goes through one
+//     function (probs_pair), and the tensor cores sum a score's products
+//     the same way in both orientations, so both passes see the same p.
+//     The thread that holds ds(i, j) is the one thread that ever touches
+//     dbias(i, j) of its (group, head): it writes it at the group's first
+//     window and adds to it at the others (the 81 KB partial stays in L2),
+//     so no (T, T) tile occupies shared memory.
 // S and dP are recomputed in each sweep rather than held (a 16 x 144
 // float32 strip is 72 registers a thread): products are nearly free here,
-// registers are not. ds is float32, as the reference's dq and dk products
-// are: it enters the bf16 tensor cores as three exact bf16 terms (hi + mid
-// + lo, 3 x 8 significant bits) summed in one float32 accumulator. Each
-// block takes about 51 KB of shared memory and at most 112 registers a
-// thread, so two blocks (18 warps at T = 144) share an SM. The float32 core
-// (attn_bwd_core_kernel) stays on the SIMT units: one 180 KB block per SM
-// with q, k, v, do, the score strips and the dbias tile in shared memory.
+// registers are not. The float32 bias (and in pass K the dbias partial)
+// reaches each warp as 16 x 16 tiles staged by cp.async one tile ahead in
+// a two-stage ring of its own, so the L2 latency of those reads overlaps
+// the previous tile's work. p = e / den is one product by the row's
+// correctly rounded 1 / den and one correction step (Markstein: the IEEE
+// quotient, for a normal quotient). ds is float32, as the reference's dq
+// and dk products are: it enters the bf16 tensor cores as three exact bf16
+// terms (hi + mid + lo, 3 x 8 significant bits) summed in one float32
+// accumulator. Each block takes 107 KB of shared memory at T = 144 and at
+// most 96 registers a thread, so two blocks (18 warps) share an SM. The
+// float32 core (attn_bwd_core_kernel) stays on the SIMT units: one 180 KB
+// block per SM with q, k, v, do, the score strips and the dbias tile in
+// shared memory.
 #include <type_traits>
 
 #include "common.cuh"
@@ -299,12 +309,21 @@ attn_bwd_core_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
 
 constexpr int BC_LD = BWD_HD + 8;  // bf16 row stride in shared memory (80 bytes)
 
-// shared bytes of the bf16 core at tp padded tokens: q, k, v, do rows; per
-// query row its max, denominator and D; per warp the dq, dk, dv column
-// sums; per token its band byte
+// staged float32 tiles of the bias (and dbias) in each warp's ring: rows
+// of RQ_LD floats in pass Q (query rows by keys), RK_LD in pass K (queries
+// by the warp's keys), the strides at which the fragments' reads hit
+// distinct banks; two stages of a bias and a dbias tile per warp
+constexpr int RQ_LD = 24;
+constexpr int RK_LD = 20;
+constexpr int RING_TILE = 16 * RQ_LD;
+constexpr int RING_WARP = 2 * 2 * RING_TILE;
+
+// shared bytes of the bf16 core at tp padded tokens: q, k, v, do rows; the
+// warps' rings; per query row its max, denominator, reciprocal and D; per
+// warp the dq, dk, dv column sums; per token its band byte
 inline size_t bf16_bwd_smem_bytes(int tp) {
-  return 4ull * tp * BC_LD * sizeof(bf16) + 3ull * tp * sizeof(float) +
-         (size_t)(tp / 16) * 3 * BWD_HD * sizeof(float) + tp;
+  return 4ull * tp * BC_LD * sizeof(bf16) + (size_t)(tp / 16) * RING_WARP * sizeof(float) +
+         4ull * tp * sizeof(float) + (size_t)(tp / 16) * 3 * BWD_HD * sizeof(float) + tp;
 }
 
 // acc[n] = the 16 rows at a_rows times rows 8n .. 8n + 7 at b_rows, over
@@ -340,39 +359,29 @@ __device__ __forceinline__ void mma_rows(float (&acc)[4][4], const uint32_t (&a)
   mma_16816(acc[3], a, b[2], b[3]);
 }
 
-// x = hi + mid + lo exactly, as three bf16 pairs (x0 in the low halves):
-// three times 8 significant bits hold float32's 24
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  hi = pack_bf16(x0, x1);
-  x0 = __fsub_rn(x0, bf16_lo(hi));
-  x1 = __fsub_rn(x1, bf16_hi(hi));
-  mid = pack_bf16(x0, x1);
-  x0 = __fsub_rn(x0, bf16_lo(mid));
-  x1 = __fsub_rn(x1, bf16_hi(mid));
-  lo = pack_bf16(x0, x1);
-}
-
 // acc += ds (16 x 16, C fragments of two n-tiles) times the 16 rows of
-// `rows`, ds split into three exact bf16 terms
-__device__ __forceinline__ void mma_split(float (&acc)[4][4], const float (&ds)[2][4],
+// `rows`, ds split into three exact bf16 terms hi + mid + lo (three times 8
+// significant bits hold float32's 24), one term at a time: each term's
+// pairs are the A fragment, ds keeps the remainder
+__device__ __forceinline__ void mma_split(float (&acc)[4][4], float (&ds)[2][4],
                                           const bf16* rows, int lane) {
-  uint32_t a[3][4];
 #pragma unroll
-  for (int n = 0; n < 2; ++n)
+  for (int k = 0; k < 3; ++k) {
+    uint32_t a[4];
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-      split3(ds[n][2 * hf], ds[n][2 * hf + 1], a[0][2 * n + hf], a[1][2 * n + hf],
-             a[2][2 * n + hf]);
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-  for (int k = 0; k < 3; ++k) mma_rows(acc, a[k], rows, lane);
-}
-
-// the bias of the element pair (row, col), (row, col + 1) in pass Q's
-// orientation (a row of the head's (T, T) bias, 0 past Tn)
-__device__ __forceinline__ float2 bias_row_pair(const float* row, int col, int tn, bool even) {
-  if (even) return col < tn ? __ldg(reinterpret_cast<const float2*>(row + col)) : make_float2(0.f, 0.f);
-  return make_float2(col < tn ? __ldg(row + col) : 0.f, col + 1 < tn ? __ldg(row + col + 1) : 0.f);
+      for (int hf = 0; hf < 2; ++hf) {
+        float& x0 = ds[n][2 * hf];
+        float& x1 = ds[n][2 * hf + 1];
+        a[2 * n + hf] = pack_bf16(x0, x1);
+        if (k < 2) {
+          x0 = __fsub_rn(x0, bf16_lo(a[2 * n + hf]));
+          x1 = __fsub_rn(x1, bf16_hi(a[2 * n + hf]));
+        }
+      }
+    mma_rows(acc, a, rows, lane);
+  }
 }
 
 // bits 0 and 8: whether cols c and c + 1 lie in another compared band than
@@ -400,7 +409,8 @@ __device__ __forceinline__ uint32_t s_bf16(float a0, float a1, float2 b, uint32_
   uint32_t x = mul_bf16x2(pack_bf16(a0, a1), scale2);
   x = add_bf16x2(x, pack_bf16(b.x, b.y));
   if (diff)
-    x = add_bf16x2(x, (diff & 0xffu ? BF16_MINUS_100 : 0u) | (diff >> 8 ? BF16_MINUS_100 << 16 : 0u));
+    x = add_bf16x2(x, (diff & 0xffu ? BF16_MINUS_100 : 0u) |
+                          (diff >> 8 ? BF16_MINUS_100 << 16 : 0u));
   if (n_in < 2) x = n_in ? (x & 0xffffu) | (BF16X2_NEG_INF & 0xffff0000u) : BF16X2_NEG_INF;
   return x;
 }
@@ -409,6 +419,73 @@ __device__ __forceinline__ uint32_t s_bf16(float a0, float a1, float2 b, uint32_
 __device__ __forceinline__ uint32_t e_bf16(uint32_t s, uint32_t m2) {
   const uint32_t d = sub_bf16x2(s, m2);
   return pack_bf16(expf(bf16_lo(d)), expf(bf16_hi(d)));
+}
+
+// p = RN(a / b) from r = RN(1 / b): q = RN(a r) and one correction step,
+// exact (Markstein) whenever r is correctly rounded and a / b is normal
+__device__ __forceinline__ float div_r(float a, float b, float r) {
+  const float q = __fmul_rn(a, r);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
+}
+
+// the probabilities p0, p1 of an element pair (acc0, acc1: its products;
+// b: its bias; diff: band_diff's bits; in0, in1: whether each column lies
+// before T, else p = 0) as the mode computes them, and pc, their bf16 pair: attn_f32 p = e /
+// den in float32; else rnd(e / den) of the bf16 e = rnd(exp(rnd(s - m))).
+// m, den, rden (1 / den): the statistics of each element's query row. Both
+// passes take every p through this function, so a product that leaves the
+// tensor cores the same in both orientations gives the same p.
+template <bool F32>
+__device__ __forceinline__ uint32_t probs_pair(float acc0, float acc1, float2 b, uint32_t diff,
+                                               bool in0, bool in1, float scale, uint32_t scale2,
+                                               float2 m, float2 den, float2 rden, float& p0,
+                                               float& p1) {
+  if constexpr (F32) {
+    p0 = div_r(e_f32(acc0, b.x, diff & 0xffu, in0, scale), den.x, rden.x);
+    p1 = div_r(e_f32(acc1, b.y, diff >> 8, in1, scale), den.y, rden.y);
+    return pack_bf16(p0, p1);
+  } else {
+    const uint32_t e =
+        e_bf16(s_bf16(acc0, acc1, b, diff, in0 + in1, scale2), pack_bf16(m.x, m.y));
+    const uint32_t pc =
+        pack_bf16(div_r(bf16_lo(e), den.x, rden.x), div_r(bf16_hi(e), den.y, rden.y));
+    p0 = bf16_lo(pc);
+    p1 = bf16_hi(pc);
+    return pc;
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)), "l"(gmem));
+}
+
+// put the 16 x 16 float32 tile src[r * stride + c] (rows below nr and
+// columns below nc; zero elsewhere) in flight into dst, rows of ld floats,
+// by cp.async from the warp's 32 lanes: 16-byte chunks where `vec` (stride
+// and nc multiples of 4, src 16-byte aligned), else 4-byte elements
+__device__ __forceinline__ void stage_tile(float* dst, int ld, const float* src, int stride,
+                                           int nr, int nc, bool vec, int lane) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int ch = lane + 32 * i, r = ch >> 2, c = (ch & 3) * 4;
+      float* d = dst + r * ld + c;
+      if (r < nr && c < nc)
+        cp_async16(d, src + r * stride + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int e = lane + 32 * i, r = e >> 4, c = e & 15;
+      float* d = dst + r * ld + c;
+      if (r < nr && c < nc)
+        cp_async4(d, src + r * stride + c);
+      else
+        *d = 0.f;
+    }
+  }
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -445,23 +522,30 @@ __device__ __forceinline__ void store_rows(bf16* dst_g, bf16* dst_g8, const floa
   }
 }
 
-template <int NQ, bool F32>
+// FULL: T = TP, no padded row or column (T = 144, 64, 16), every bound
+// check folded away at compile time
+template <int NQ, bool F32, bool FULL>
 __global__ void __launch_bounds__(32 * NQ, 2)
     attn_bwd_core_bf16_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                               const float* __restrict__ bias, bf16* __restrict__ o,
                               bf16* __restrict__ dqkv, float* __restrict__ dbias_part,
-                              float* __restrict__ dbqkv_part, int bnw, int Tn, int C, int nh,
+                              float* __restrict__ dbqkv_part, int bnw, int t, int C, int nh,
                               int ws, int ss, int nwh, int nww, float scale) {
   constexpr int TP = 16 * NQ, LD = BC_LD, HD = BWD_HD;
+  const int Tn = FULL ? TP : t;
+  auto in_t = [&](int x) { return FULL || x < Tn; };  // token x lies before T
+  auto n_in = [&](int c) { return FULL ? 2 : min(2, max(0, Tn - c)); };  // of c, c + 1
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + TP * LD;
   bf16* Vs = Ks + TP * LD;
-  bf16* Gs = Vs + TP * LD;  // do
-  float* st_m = reinterpret_cast<float*>(Gs + TP * LD);  // per query row: max (attn_f32 = 0)
-  float* st_den = st_m + TP;                             // denominator
-  float* st_D = st_den + TP;                             // D = sum_j p dp
-  float* csum = st_D + TP;                               // per warp: [dq | dk | dv] x 32
+  bf16* Gs = Vs + TP * LD;                                   // do
+  float* rings = reinterpret_cast<float*>(Gs + TP * LD);    // per warp: RING_WARP floats
+  float* st_m = rings + NQ * RING_WARP;  // per query row: max (attn_f32 = 0)
+  float* st_den = st_m + TP;             // denominator
+  float* st_r = st_den + TP;             // its reciprocal
+  float* st_D = st_r + TP;               // D = sum_j p dp
+  float* csum = st_D + TP;               // per warp: [dq | dk | dv] x 32
   uint8_t* bands = reinterpret_cast<uint8_t*>(csum + NQ * 3 * HD);
 
   const int grp = blockIdx.x, h = blockIdx.y, n_groups = gridDim.x;
@@ -472,9 +556,10 @@ __global__ void __launch_bounds__(32 * NQ, 2)
   const int w_lo = grp * wpb, w_hi = min(bnw, w_lo + wpb);
   const float* bhead = bias + (long long)h * Tn * Tn;
   float* dbh = dbias_part + ((long long)grp * nh + h) * Tn * Tn;
-  const bool even = (Tn & 1) == 0;
+  const bool vec = FULL || (Tn & 3) == 0;  // bias rows in 16-byte chunks
   const uint32_t scale2 = pack_bf16(scale, scale);  // the reference's bf16 scalar
   float* cs = csum + wid * 3 * HD;
+  float* ring = rings + wid * RING_WARP;
 
   for (int e = threadIdx.x; e < NQ * 3 * HD; e += blockDim.x) csum[e] = 0.f;
   const int lim = ws - ss;  // band 1 below it, band 2 from it
@@ -486,7 +571,30 @@ __global__ void __launch_bounds__(32 * NQ, 2)
   // this warp's 16 rows: query rows in pass Q, key rows in pass K
   const int r0 = wid * 16;
   const int ra = r0 + g, rb = r0 + g + 8;
-  const bool in_a = ra < Tn, in_b = rb < Tn;
+  const bool in_a = in_t(ra), in_b = in_t(rb);
+  const int nr = FULL ? 16 : Tn - r0;  // this warp's rows before T
+
+  // sweep(stage, body): body(j, tiles) for j = 0 .. NQ - 1, tiles the
+  // float32 tiles that stage(j, tiles) put in flight one step ahead (two
+  // stages of this warp's ring)
+  auto sweep = [&](auto stage, auto body) {
+    stage(0, ring);
+    cp_async_commit();
+#pragma unroll 1
+    for (int j = 0; j < NQ; ++j) {
+      if (j + 1 < NQ) stage(j + 1, ring + ((j + 1) & 1) * 2 * RING_TILE);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncwarp();
+      body(j, ring + (j & 1) * 2 * RING_TILE);
+      __syncwarp();  // every lane is done with the stage before it is refilled
+    }
+  };
+  // pass Q's tile j: bias rows r0 .. r0 + 15, keys 16 j .. 16 j + 15
+  auto stage_q = [&](int j, float* t) {
+    stage_tile(t, RQ_LD, bhead + r0 * Tn + 16 * j, Tn, nr, FULL ? 16 : Tn - 16 * j, vec, lane);
+  };
+
   for (int w = w_lo; w < w_hi; ++w) {
     const long long row0 = (long long)w * Tn;
     __syncthreads();  // the previous window is done with the rows and statistics
@@ -495,7 +603,7 @@ __global__ void __launch_bounds__(32 * NQ, 2)
     for (int e = threadIdx.x; e < 16 * TP; e += blockDim.x) {
       const int part = e / (4 * TP), t = (e >> 2) % TP, ch = e & 3;
       bf16* dst = Qs + part * TP * LD + t * LD + ch * 8;
-      if (t < Tn)
+      if (in_t(t))
         cp_async16(dst, part < 3 ? qkv + (row0 + t) * C3 + part * C + h * HD + ch * 8
                                  : dout + (row0 + t) * C + h * HD + ch * 8);
       else
@@ -512,136 +620,149 @@ __global__ void __launch_bounds__(32 * NQ, 2)
 
     // ---- pass Q: the warp's 16 query rows against every key ----
     {
-      const float* brow[2] = {bhead + (in_a ? ra * Tn : 0), bhead + (in_b ? rb * Tn : 0)};
       const bf16* qa = Qs + r0 * LD;  // this warp's q and do rows
       const bf16* ga = Gs + r0 * LD;
-      // the row statistics: attn_f32 den = sum e + 1e-37; else the max m,
-      // then den = rnd(rnd(sum e) + 1e-37)
-      float m[2] = {0.f, 0.f}, den[2], sum[2] = {0.f, 0.f};
-      if constexpr (!F32) {
-        uint32_t mx2[2] = {BF16X2_NEG_INF, BF16X2_NEG_INF};
-        for (int kk = 0; kk < NQ; ++kk) {
-          float acc[2][4];
-          tile16(acc, qa, Ks + 16 * kk * LD, lane);
+      // pair (n, hf) of tile j (keys 16 j + 8 n + 2 tq, + 1 of row g + 8 hf):
+      // its bias pair and its band bits, read where they are used
+      auto bias_q = [&](const float* bt, int n, int hf) {
+        return *reinterpret_cast<const float2*>(bt + (g + 8 * hf) * RQ_LD + 8 * n + 2 * tq);
+      };
+      auto diff_q = [&](int j, int n, int hf) {
+        return band_diff(bands, 16 * j + 8 * n + 2 * tq, rowb[hf], sel);
+      };
+      // the row statistics m (attn_f32 = 0), den, 1 / den and D
+      float m[2] = {0.f, 0.f}, den[2], rden[2], D[2] = {0.f, 0.f}, sum[2] = {0.f, 0.f};
+      auto set_den = [&]() {
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const int c = 16 * kk + 8 * n + 2 * tq;
+        for (int hf = 0; hf < 2; ++hf) {
+          const float s = quad_sum(sum[hf]);
+          den[hf] = F32 ? s + 1e-37f : rnd<bf16>(rnd<bf16>(s) + 1e-37f);
+          rden[hf] = __frcp_rn(den[hf]);
+        }
+      };
+      if constexpr (F32) {
+        // one sweep: den = sum e + 1e-37 and D = (sum e dp) / den, the
+        // float32 sum of p dp with the division by den taken out
+        sweep(stage_q, [&](int j, const float* bt) {
+          float acc[2][4], dp[2][4];
+          tile16(acc, qa, Ks + 16 * j * LD, lane);
+          tile16(dp, ga, Vs + 16 * j * LD, lane);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int c = 16 * j + 8 * n + 2 * tq;
+              const float2 b = bias_q(bt, n, hf);
+              const uint32_t d = diff_q(j, n, hf);
+              const float e0 = e_f32(acc[n][2 * hf], b.x, d & 0xffu, in_t(c), scale);
+              const float e1 = e_f32(acc[n][2 * hf + 1], b.y, d >> 8, in_t(c + 1), scale);
+              sum[hf] += e0 + e1;
+              D[hf] += e0 * dp[n][2 * hf] + e1 * dp[n][2 * hf + 1];
+            }
+        });
+        set_den();
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) D[hf] = div_r(quad_sum(D[hf]), den[hf], rden[hf]);
+      } else {
+        // the row max, then den = rnd(rnd(sum e) + 1e-37), then D = sum p dp
+        uint32_t mx2[2] = {BF16X2_NEG_INF, BF16X2_NEG_INF};
+        sweep(stage_q, [&](int j, const float* bt) {
+          float acc[2][4];
+          tile16(acc, qa, Ks + 16 * j * LD, lane);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
 #pragma unroll
             for (int hf = 0; hf < 2; ++hf)
-              mx2[hf] = max_bf16x2(mx2[hf], s_bf16(acc[n][2 * hf], acc[n][2 * hf + 1],
-                                                   bias_row_pair(brow[hf], c, Tn, even),
-                                                   band_diff(bands, c, rowb[hf], sel),
-                                                   min(2, max(0, Tn - c)), scale2));
-          }
-        }
+              mx2[hf] = max_bf16x2(
+                  mx2[hf], s_bf16(acc[n][2 * hf], acc[n][2 * hf + 1], bias_q(bt, n, hf),
+                                  diff_q(j, n, hf), n_in(16 * j + 8 * n + 2 * tq), scale2));
+        });
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           float mx = fmaxf(bf16_lo(mx2[hf]), bf16_hi(mx2[hf]));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
           m[hf] = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         }
-      }
-      for (int kk = 0; kk < NQ; ++kk) {
-        float acc[2][4];
-        tile16(acc, qa, Ks + 16 * kk * LD, lane);
+        sweep(stage_q, [&](int j, const float* bt) {
+          float acc[2][4];
+          tile16(acc, qa, Ks + 16 * j * LD, lane);
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int c = 16 * kk + 8 * n + 2 * tq;
+          for (int n = 0; n < 2; ++n)
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const float2 b = bias_row_pair(brow[hf], c, Tn, even);
-            const uint32_t d = band_diff(bands, c, rowb[hf], sel);
-            if constexpr (F32) {
-              sum[hf] += e_f32(acc[n][2 * hf], b.x, d & 0xffu, c < Tn, scale);
-              sum[hf] += e_f32(acc[n][2 * hf + 1], b.y, d >> 8, c + 1 < Tn, scale);
-            } else {
-              const uint32_t e = e_bf16(s_bf16(acc[n][2 * hf], acc[n][2 * hf + 1], b, d,
-                                               min(2, max(0, Tn - c)), scale2),
-                                        pack_bf16(m[hf], m[hf]));
+            for (int hf = 0; hf < 2; ++hf) {
+              const uint32_t e =
+                  e_bf16(s_bf16(acc[n][2 * hf], acc[n][2 * hf + 1], bias_q(bt, n, hf),
+                                diff_q(j, n, hf), n_in(16 * j + 8 * n + 2 * tq), scale2),
+                         pack_bf16(m[hf], m[hf]));
               sum[hf] += bf16_lo(e);
               sum[hf] += bf16_hi(e);
             }
-          }
+        });
+        set_den();
+        sweep(stage_q, [&](int j, const float* bt) {
+          float acc[2][4], dp[2][4], p[2];
+          tile16(acc, qa, Ks + 16 * j * LD, lane);
+          tile16(dp, ga, Vs + 16 * j * LD, lane);
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              probs_pair<F32>(acc[n][2 * hf], acc[n][2 * hf + 1], bias_q(bt, n, hf),
+                              diff_q(j, n, hf), in_t(16 * j + 8 * n + 2 * tq),
+                              in_t(16 * j + 8 * n + 2 * tq + 1), scale, scale2,
+                              make_float2(m[hf], m[hf]), make_float2(den[hf], den[hf]),
+                              make_float2(rden[hf], rden[hf]), p[0], p[1]);
+              D[hf] += p[0] * dp[n][2 * hf] + p[1] * dp[n][2 * hf + 1];
+            }
+        });
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) D[hf] = quad_sum(D[hf]);
+      }
+      if (tq == 0) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = hf ? rb : ra;
+          const bool in = hf ? in_b : in_a;
+          st_m[r] = in ? m[hf] : 0.f;
+          st_den[r] = in ? den[hf] : 1.f;
+          st_r[r] = in ? rden[hf] : 1.f;
+          st_D[r] = in ? D[hf] : 0.f;
         }
       }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float s = quad_sum(sum[hf]);
-        den[hf] = F32 ? s + 1e-37f : rnd<bf16>(rnd<bf16>(s) + 1e-37f);
-      }
+      __syncwarp();  // the final sweep reads the rows' statistics back (fewer registers)
 
-      // p of the 16 x 16 tile of keys 16 kk .. 16 kk + 15 (float32 as the
-      // mode gives it) and pc, its bf16 pairs as one A fragment
-      auto probs = [&](int kk, float (&p)[2][4], uint32_t (&pa)[4]) {
-        float acc[2][4];
-        tile16(acc, qa, Ks + 16 * kk * LD, lane);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int c = 16 * kk + 8 * n + 2 * tq;
+      // o = rnd(pc V); dq = scale (ds K), ds = p (dp - D)
+      float oacc[4][4] = {}, dq[4][4] = {};
+      sweep(stage_q, [&](int j, const float* bt) {
+        float p[2][4], ds[2][4];
+        {
+          float acc[2][4];
+          uint32_t pa[4];
+          tile16(acc, qa, Ks + 16 * j * LD, lane);
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
-            const float2 b = bias_row_pair(brow[hf], c, Tn, even);
-            const uint32_t d = band_diff(bands, c, rowb[hf], sel);
-            float p0, p1;
-            uint32_t pc;
-            if constexpr (F32) {
-              p0 = __fdiv_rn(e_f32(acc[n][2 * hf], b.x, d & 0xffu, c < Tn, scale), den[hf]);
-              p1 = __fdiv_rn(e_f32(acc[n][2 * hf + 1], b.y, d >> 8, c + 1 < Tn, scale), den[hf]);
-              pc = pack_bf16(p0, p1);
-            } else {
-              const uint32_t e = e_bf16(s_bf16(acc[n][2 * hf], acc[n][2 * hf + 1], b, d,
-                                               min(2, max(0, Tn - c)), scale2),
-                                        pack_bf16(m[hf], m[hf]));
-              pc = pack_bf16(__fdiv_rn(bf16_lo(e), den[hf]), __fdiv_rn(bf16_hi(e), den[hf]));
-              p0 = bf16_lo(pc);
-              p1 = bf16_hi(pc);
-            }
-            p[n][2 * hf] = p0;
-            p[n][2 * hf + 1] = p1;
-            pa[2 * n + hf] = pc;
+            const int r = hf ? rb : ra;
+            const float mr = st_m[r], dr = st_den[r], rr = st_r[r];
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              pa[2 * n + hf] = probs_pair<F32>(
+                  acc[n][2 * hf], acc[n][2 * hf + 1], bias_q(bt, n, hf), diff_q(j, n, hf),
+                  in_t(16 * j + 8 * n + 2 * tq), in_t(16 * j + 8 * n + 2 * tq + 1), scale, scale2,
+                  make_float2(mr, mr), make_float2(dr, dr), make_float2(rr, rr),
+                  p[n][2 * hf], p[n][2 * hf + 1]);
           }
+          mma_rows(oacc, pa, Vs + 16 * j * LD, lane);
         }
-      };
-
-      // o = rnd(pc V) and D = sum_j p dp, dp = do V^T
-      float oacc[4][4] = {}, D[2] = {0.f, 0.f};
-      for (int kk = 0; kk < NQ; ++kk) {
-        float p[2][4], dp[2][4];
-        uint32_t pa[4];
-        probs(kk, p, pa);
-        tile16(dp, ga, Vs + 16 * kk * LD, lane);
+        tile16(ds, ga, Vs + 16 * j * LD, lane);
+        const float Dr[2] = {st_D[ra], st_D[rb]};
 #pragma unroll
         for (int n = 0; n < 2; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) D[e >> 1] += p[n][e] * dp[n][e];
-        mma_rows(oacc, pa, Vs + 16 * kk * LD, lane);
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) D[hf] = quad_sum(D[hf]);
-      if (tq == 0) {
-        st_m[ra] = in_a ? m[0] : 0.f;
-        st_m[rb] = in_b ? m[1] : 0.f;
-        st_den[ra] = in_a ? den[0] : 1.f;
-        st_den[rb] = in_b ? den[1] : 1.f;
-        st_D[ra] = in_a ? D[0] : 0.f;
-        st_D[rb] = in_b ? D[1] : 0.f;
-      }
+          for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - Dr[e >> 1]);
+        mma_split(dq, ds, Ks + 16 * j * LD, lane);
+      });
       store_rows(o + (row0 + ra) * C + h * HD, o + (row0 + rb) * C + h * HD, oacc, in_a, in_b,
                  tq);
-
-      // dq = scale (ds K), ds = p (dp - D)
-      float dq[4][4] = {};
-      for (int kk = 0; kk < NQ; ++kk) {
-        float p[2][4], ds[2][4];
-        uint32_t pa[4];
-        probs(kk, p, pa);
-        tile16(ds, ga, Vs + 16 * kk * LD, lane);
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - D[e >> 1]);
-        mma_split(dq, ds, Ks + 16 * kk * LD, lane);
-      }
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -657,47 +778,39 @@ __global__ void __launch_bounds__(32 * NQ, 2)
       const bool first = w == w_lo;
       const bf16* ka = Ks + r0 * LD;  // this warp's k and v rows
       const bf16* va = Vs + r0 * LD;
+      // tile j: queries 16 j .. 16 j + 15 by this warp's keys, of the bias
+      // and (after the group's first window) of the dbias partial so far
+      auto stage_k = [&](int j, float* t) {
+        const int nq = FULL ? 16 : Tn - 16 * j;
+        stage_tile(t, RK_LD, bhead + 16 * j * Tn + r0, Tn, nq, nr, vec, lane);
+        if (!first) stage_tile(t + RING_TILE, RK_LD, dbh + 16 * j * Tn + r0, Tn, nq, nr, vec, lane);
+      };
       float dk[4][4] = {}, dv[4][4] = {};
-      for (int qq = 0; qq < NQ; ++qq) {
+      sweep(stage_k, [&](int j, const float* bt) {
         float p[2][4], ds[2][4];
-        uint32_t pa[4];
-        tile16(p, ka, Qs + 16 * qq * LD, lane);  // S^T: rows keys, cols queries
+        {
+          float acc[2][4];
+          uint32_t pa[4];
+          tile16(acc, ka, Qs + 16 * j * LD, lane);  // S^T: rows keys, cols queries
 #pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int c = 16 * qq + 8 * n + 2 * tq;  // queries c, c + 1
-          const float2 dn = *reinterpret_cast<const float2*>(st_den + c);
+          for (int n = 0; n < 2; ++n) {
+            const int c = 16 * j + 8 * n + 2 * tq;  // queries c, c + 1
+            const float* bc = bt + (8 * n + 2 * tq) * RK_LD + g;
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int key = hf ? rb : ra;
-            const bool kin = hf ? in_b : in_a;
-            const float2 b = make_float2(kin && c < Tn ? __ldg(bhead + c * Tn + key) : 0.f,
-                                         kin && c + 1 < Tn ? __ldg(bhead + (c + 1) * Tn + key)
-                                                           : 0.f);
-            const uint32_t d = band_diff(bands, c, rowb[hf], sel);
-            float p0, p1;
-            uint32_t pc;
-            if constexpr (F32) {
-              p0 = __fdiv_rn(e_f32(p[n][2 * hf], b.x, d & 0xffu, c < Tn, scale), dn.x);
-              p1 = __fdiv_rn(e_f32(p[n][2 * hf + 1], b.y, d >> 8, c + 1 < Tn, scale), dn.y);
-              pc = pack_bf16(p0, p1);
-            } else {
-              const float2 mc = *reinterpret_cast<const float2*>(st_m + c);
-              const uint32_t e = e_bf16(s_bf16(p[n][2 * hf], p[n][2 * hf + 1], b, d,
-                                               min(2, max(0, Tn - c)), scale2),
-                                        pack_bf16(mc.x, mc.y));
-              pc = pack_bf16(__fdiv_rn(bf16_lo(e), dn.x), __fdiv_rn(bf16_hi(e), dn.y));
-              p0 = bf16_lo(pc);
-              p1 = bf16_hi(pc);
-            }
-            p[n][2 * hf] = p0;
-            p[n][2 * hf + 1] = p1;
-            pa[2 * n + hf] = pc;
+            for (int hf = 0; hf < 2; ++hf)
+              pa[2 * n + hf] = probs_pair<F32>(
+                  acc[n][2 * hf], acc[n][2 * hf + 1],
+                  make_float2(bc[8 * hf], bc[RK_LD + 8 * hf]), band_diff(bands, c, rowb[hf], sel),
+                  in_t(c), in_t(c + 1), scale, scale2, *reinterpret_cast<const float2*>(st_m + c),
+                  *reinterpret_cast<const float2*>(st_den + c),
+                  *reinterpret_cast<const float2*>(st_r + c), p[n][2 * hf], p[n][2 * hf + 1]);
           }
+          mma_rows(dv, pa, Gs + 16 * j * LD, lane);
         }
-        tile16(ds, va, Gs + 16 * qq * LD, lane);  // dP^T = V do^T
+        tile16(ds, va, Gs + 16 * j * LD, lane);  // dP^T = V do^T
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
-          const int c = 16 * qq + 8 * n + 2 * tq;
+          const int c = 16 * j + 8 * n + 2 * tq;
           const float2 Dc = *reinterpret_cast<const float2*>(st_D + c);
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
@@ -708,17 +821,15 @@ __global__ void __launch_bounds__(32 * NQ, 2)
               const float x = p[n][2 * hf + u] * (ds[n][2 * hf + u] - (u ? Dc.y : Dc.x));
               ds[n][2 * hf + u] = x;
               // dbias: this thread alone owns element (query c + u, key)
-              // of the group's tile; the group's windows add in order
-              if (kin && c + u < Tn) {
-                float* dst = dbh + (c + u) * Tn + key;
-                *dst = first ? x : *dst + x;
-              }
+              // of the group's partial; the group's windows add in order
+              if (kin && in_t(c + u))
+                dbh[(c + u) * Tn + key] =
+                    first ? x : bt[RING_TILE + (8 * n + 2 * tq + u) * RK_LD + g + 8 * hf] + x;
             }
           }
         }
-        mma_rows(dv, pa, Gs + 16 * qq * LD, lane);
-        mma_split(dk, ds, Qs + 16 * qq * LD, lane);
-      }
+        mma_split(dk, ds, Qs + 16 * j * LD, lane);
+      });
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -772,24 +883,43 @@ int launch_bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqk
   return 0;
 }
 
+template <int NQ, bool F32, bool FULL>
+int launch_bf16_core(const bf16* qkv, const bf16* dout, const float* bias, bf16* o,
+                         bf16* dqkv, float* dbias_part, float* dbqkv_part, int bnw, int t, int c,
+                         int nh, int ws, int ss, int nwh, int nww, int n_groups,
+                         cudaStream_t stream, int* info) {
+  const auto kernel = attn_bwd_core_bf16_kernel<NQ, F32, FULL>;
+  const size_t smem = bf16_bwd_smem_bytes(16 * NQ);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (info) {
+    const int rc = kernel_info(kernel, 32 * NQ, smem, info);
+    info[4] = info[3] * NQ;
+    return rc;
+  }
+  const float scale = 1.f / sqrtf((float)BWD_HD);
+  kernel<<<dim3(n_groups, nh), 32 * NQ, smem, stream>>>(qkv, dout, bias, o, dqkv, dbias_part,
+                                                        dbqkv_part, bnw, t, c, nh, ws, ss, nwh,
+                                                        nww, scale);
+  return 0;
+}
+
+// the FULL kernel where T = 16 NQ is a square (T = 16, 64, 144), else the
+// one that checks its bounds
 template <int NQ, bool F32>
 int launch_bwd_core_bf16(const bf16* qkv, const bf16* dout, const float* bias, bf16* o,
                          bf16* dqkv, float* dbias_part, float* dbqkv_part, int bnw, int t, int c,
                          int nh, int ws, int ss, int nwh, int nww, int n_groups,
                          cudaStream_t stream, int* info) {
-  const size_t smem = bf16_bwd_smem_bytes(16 * NQ);
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_core_bf16_kernel<NQ, F32>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  if (info) {
-    const int rc = kernel_info(attn_bwd_core_bf16_kernel<NQ, F32>, 32 * NQ, smem, info);
-    info[4] = info[3] * NQ;
-    return rc;
+  if constexpr (NQ == 1 || NQ == 4 || NQ == 9) {
+    if (t == 16 * NQ)
+      return launch_bf16_core<NQ, F32, true>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
+                                             bnw, t, c, nh, ws, ss, nwh, nww, n_groups, stream,
+                                             info);
   }
-  const float scale = 1.f / sqrtf((float)BWD_HD);
-  attn_bwd_core_bf16_kernel<NQ, F32><<<dim3(n_groups, nh), 32 * NQ, smem, stream>>>(
-      qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw, t, c, nh, ws, ss, nwh, nww, scale);
-  return 0;
+  return launch_bf16_core<NQ, F32, false>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
+                                          bnw, t, c, nh, ws, ss, nwh, nww, n_groups, stream, info);
 }
 
 template <bool F32>

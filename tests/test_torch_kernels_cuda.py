@@ -284,7 +284,11 @@ def test_window_attn_bwd_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
     order and takes dq, dk as three exact bf16 products of ds's split: o
     at most 1 % differing and 4 bf16 units at its largest magnitude (K2's
     core), dq, dk, dv 4 units at each one's largest magnitude, dbias and
-    dbqkv (float32) 1e-4 of their largest magnitude."""
+    dbqkv (float32) 1e-4 of their largest magnitude; dbias without attn_f32
+    4 bf16 units there: its scores are rounded to bf16, and a score whose
+    tensor-core float32 sum differs from the plain version's in the last
+    bit can round to the neighbouring bf16 value (chip_smoke.py
+    bwd_core_errors)."""
     g = torch.Generator(device=dev).manual_seed(11)
     t = ws * ws
     bnw = 2 * grid[0] * grid[1]
@@ -306,10 +310,29 @@ def test_window_attn_bwd_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
     pairs = [(o, want[0], _ulps(want[0], 4))]
     pairs += [(dqkv[:, i * c:(i + 1) * c], want[1][:, i * c:(i + 1) * c],
                _ulps(want[1][:, i * c:(i + 1) * c], 4)) for i in range(3)]
-    pairs += [(a, b, 1e-4 * b.abs().max().item()) for a, b in ((dbias, want[2]), (dbqkv, want[3]))]
+    pairs += [(dbias, want[2], 1e-4 * want[2].abs().max().item() if attn_f32 else _ulps(want[2], 4)),
+              (dbqkv, want[3], 1e-4 * want[3].abs().max().item())]
     for a, b, tol in pairs:
         assert torch.isfinite(a.float()).all()
         assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("attn_f32", [True, False])
+def test_window_attn_bwd_core_passes_agree_on_p(dev, attn_f32):
+    """Pass K recomputes each score as K Q^T, the transposed product of
+    pass Q's Q K^T, and must round it, and so p, as pass Q does: pc read out
+    of both passes is bit-identical (T = 144, shifted windows)."""
+    from chip_smoke import core_p_readouts
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    ws, grid, c, nh = 12, (2, 3), 128, 4
+    t = ws * ws
+    bnw = grid[0] * grid[1]
+    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(torch.bfloat16)
+    bias = torch.randn((nh, t, t), generator=g, device=dev) * 0.5
+    pq, pk = core_p_readouts(qkv, bias, nh, window_size=ws, shift_size=6, grid_hw=grid,
+                             attn_f32=attn_f32)
+    assert torch.equal(pq, pk)
 
 
 @pytest.mark.parametrize("attn_f32", [True, False])
