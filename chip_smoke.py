@@ -23,7 +23,12 @@ Phases, one printed line each (any failure raises and exits non-zero):
    modes, beside one ``scaled_dot_product_attention`` call with the bias and
    the shift mask as its ``attn_mask``, and its registers, spill bytes,
    shared bytes and resident blocks per SM at T = 144 (no spill, at least
-   2 blocks, at most 48 KB);
+   2 blocks, at most 48 KB); K6's bf16 attention-backward core alone
+   (``window_attention_core_backward``) likewise, beside the backward of one
+   ``scaled_dot_product_attention`` call whose ``attn_mask`` requires its
+   gradient: per output its error against the plain version, the two
+   passes' probabilities read out through o and dv (bit-identical), and its
+   resources at T = 144 (no spill, at least 16 warps per SM);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -663,7 +668,7 @@ def bwd_core_lines(stats, geom, bnw, c, nh, nwh, randn) -> None:
             st["library_ms"] = (st["library_ms"] or 0.0) + t_l
     if failed:
         raise AssertionError(f"window_attn_bwd_core {geom} attn_f32={failed}: outside its "
-                             f"bounds or not repeatable")
+                             f"bounds, not repeatable, or its passes' p differ")
 
 
 def bwd_core_info(stats) -> None:

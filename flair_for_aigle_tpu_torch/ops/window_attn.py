@@ -369,6 +369,14 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _core_groups(bnw: int, nh: int, n_sm: int) -> int:
+    """Window groups of K6's core launch (one block per group and head,
+    walking the group's windows): about two blocks per SM, every group
+    holding at least one window."""
+    groups = min(bnw, max(1, _ceil(2 * n_sm, nh)))
+    return _ceil(bnw, _ceil(bnw, groups))
+
+
 def _bwd_plan(bnw: int, nh: int, m: int, c: int, n_sm: int) -> tuple[int, int]:
     """(window groups of the core launch, k_chunk of the weight-gradient
     GEMMs): about two blocks per SM in each launch."""
@@ -377,14 +385,6 @@ def _bwd_plan(bnw: int, nh: int, m: int, c: int, n_sm: int) -> tuple[int, int]:
     tiles = _ceil(c, 128) * _ceil(c, 64)
     n_split = max(1, min(_ceil(want, tiles), _ceil(m, 256)))
     return groups, _ceil(_ceil(m, n_split), 32) * 32
-
-
-def _core_groups(bnw: int, nh: int, n_sm: int) -> int:
-    """Window groups of K6's core launch (one block per group and head,
-    walking the group's windows): about two blocks per SM, every group
-    holding at least one window."""
-    groups = min(bnw, max(1, _ceil(2 * n_sm, nh)))
-    return _ceil(bnw, _ceil(bnw, groups))
 
 
 def window_attention_core_backward(qkv, do, bias, *, num_heads: int,

@@ -78,6 +78,8 @@ def test_prep_kernel(dev, dtype, h, w, c, ws, ss):
 # (window, shift, window grid, C, heads): T = 144, 64, 16 and 4
 ATTN_GEOMS = [(12, 6, (2, 3), 128, 4), (8, 0, (1, 1), 256, 8), (4, 2, (3, 2), 96, 3),
               (2, 0, (1, 1), 1024, 32)]
+# K6 also at an odd T = 49: padded rows and columns, bias rows not 16-byte aligned
+BWD_GEOMS = ATTN_GEOMS + [(7, 3, (2, 2), 64, 2)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -235,7 +237,7 @@ def _assert_grads_close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("attn_f32", [True, False])
-@pytest.mark.parametrize("ws,ss,grid,c,nh", ATTN_GEOMS)
+@pytest.mark.parametrize("ws,ss,grid,c,nh", BWD_GEOMS)
 def test_window_attn_backward_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
     g = torch.Generator(device=dev).manual_seed(5)
     t = ws * ws
@@ -276,7 +278,7 @@ def _ulps(ref, n):
 
 
 @pytest.mark.parametrize("attn_f32", [True, False])
-@pytest.mark.parametrize("ws,ss,grid,c,nh", ATTN_GEOMS)
+@pytest.mark.parametrize("ws,ss,grid,c,nh", BWD_GEOMS)
 def test_window_attn_bwd_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
     """K6's bf16 attention core alone against its plain version; two calls
     bit-identical (no atomics, fixed-order sums), one launch each. Both
