@@ -18,17 +18,20 @@ Phases, one printed line each (any failure raises and exits non-zero):
    operations over the peak for its dtype); the A/B tool's two
    attention-product kernels (per head, grouped) at the tool's defaults and
    the four stage geometries at batch 16, beside the library call (two bf16
-   ``torch.bmm``) that computes the same function; K2's bf16 attention core
+   ``torch.bmm``) that computes the same function; K2's attention core
    alone (``window_attention_core``) at the four stages in both softmax
-   modes, beside one ``scaled_dot_product_attention`` call with the bias and
-   the shift mask as its ``attn_mask``, and its registers, spill bytes,
-   shared bytes and resident blocks per SM at T = 144 (no spill, at least
-   2 blocks, at most 48 KB); K6's bf16 attention-backward core alone
-   (``window_attention_core_backward``) likewise, beside the backward of one
+   modes, bf16 and float32, beside one ``scaled_dot_product_attention`` call
+   in the same dtype with the bias and the shift mask as its ``attn_mask``
+   (each line names the backend that took it), and the bf16 core's
+   registers, spill bytes, shared bytes and resident blocks per SM at
+   T = 144 (no spill, at least 2 blocks, at most 48 KB); K6's
+   attention-backward core alone (``window_attention_core_backward``)
+   likewise in both dtypes, beside the backward of one
    ``scaled_dot_product_attention`` call whose ``attn_mask`` requires its
-   gradient: per output its error against the plain version, the two
-   passes' probabilities read out through o and dv (bit-identical), and its
-   resources at T = 144 (no spill, at least 16 warps per SM);
+   gradient: per output its error against the plain version (float32: 1e-4
+   of each output's largest magnitude), the two passes' probabilities read
+   out through o and dv, and both cores' resources at T = 144 (the bf16
+   core: no spill, at least 16 warps per SM);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -381,30 +384,53 @@ def library_attn_dots(q, k, v, nh):
     return o.view(bnw, nh, t, hd).transpose(1, 2).reshape(bnw, t, c)
 
 
-def cost_window_attn_core(bnw, c, nh, bias_isz):
-    # bf16 q, k, v in, o out, the (nh, T, T) bias once; QK^T and P V
-    return 4 * bnw * T * c * 2 + nh * T * T * bias_isz, 4 * bnw * T * T * c
+def cost_window_attn_core(bnw, c, nh, isz, bias_isz):
+    # q, k, v in, o out (itemsize isz), the (nh, T, T) bias once; QK^T and P V
+    return 4 * bnw * T * c * isz + nh * T * T * bias_isz, 4 * bnw * T * T * c
+
+
+def _sdpa_backends():
+    """The ``scaled_dot_product_attention`` backends tried for a yardstick,
+    in order: memory-efficient (takes float32 and bf16), cuDNN (bf16 only),
+    then the plain math backend where neither takes the inputs."""
+    from torch.nn.attention import SDPBackend
+
+    return (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH)
+
+
+def _backend_name(backend) -> str:
+    return backend.name + (" (neither memory-efficient nor cuDNN attention takes these "
+                           "inputs)" if backend.name == "MATH" else "")
+
+
+def _sdpa_mask(bias, nwh, nh, bnw, dtype, device):
+    """The bias plus the shift mask, prebuilt as one (bnw, nh, T, T)
+    ``attn_mask`` in the inputs' dtype."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    grid = torch.as_tensor(window_attn._grid_mask(WS, SS, nwh, nwh), device=device)
+    return (bias.float()[None, None] + grid[None, :, None]).expand(
+        bnw // grid.shape[0], -1, -1, -1, -1).reshape(bnw, nh, T, T).to(dtype)
 
 
 def library_core(qkv, bias, nwh, nh):
     """K2's attention core as one ``scaled_dot_product_attention`` call
     (the yardstick, used nowhere in the port): contiguous (bnw, nh, T, 32)
-    bf16 q, k, v and the bias plus the shift mask prebuilt as one bf16
-    (bnw, nh, T, T) ``attn_mask``, the backend pinned to memory-efficient
-    attention, else cuDNN's. Returns (run, backend name, output (bnw*T, C))."""
+    q, k, v in qkv's dtype and the bias plus the shift mask prebuilt as one
+    (bnw, nh, T, T) ``attn_mask`` of that dtype, the backend pinned to the
+    first of ``_sdpa_backends`` that takes them. Returns (run, backend
+    name, output (bnw*T, C))."""
     import torch
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    from flair_for_aigle_tpu_torch.ops import window_attn
+    from torch.nn.attention import sdpa_kernel
 
     m, c3 = qkv.shape
     bnw, c = m // T, c3 // 3
     q, k, v = (t.contiguous() for t in qkv.view(bnw, T, 3, nh, c // nh).permute(2, 0, 3, 1, 4))
-    grid = torch.as_tensor(window_attn._grid_mask(WS, SS, nwh, nwh), device=qkv.device)
-    mask = (bias.float()[None, None] + grid[None, :, None]).expand(
-        bnw // grid.shape[0], -1, -1, -1, -1).reshape(bnw, nh, T, T).to(torch.bfloat16)
-    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+    mask = _sdpa_mask(bias, nwh, nh, bnw, qkv.dtype, qkv.device)
+    for backend in _sdpa_backends():
         def run(backend=backend):
             with sdpa_kernel([backend]):
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
@@ -414,56 +440,65 @@ def library_core(qkv, bias, nwh, nh):
             torch.cuda.synchronize()
         except RuntimeError:
             continue
-        return run, backend.name, out.transpose(1, 2).reshape(m, c)
-    raise RuntimeError("neither memory-efficient nor cuDNN attention takes this attn_mask")
+        return run, _backend_name(backend), out.transpose(1, 2).reshape(m, c)
+    raise RuntimeError("no attention backend takes this attn_mask")
 
 
-def core_lines(stats, geom, bnw, c, nh, nwh, randn, bound) -> None:
-    """K2's bf16 attention core alone at one stage geometry, both softmax
-    modes, against its plain version and beside the library call, timed as
-    device time (``device_ms``: at batch 2 one call's Python outlasts the
-    core's device work); times of the slice's mode (attn_f32 False) go
-    into ``stats``."""
+def core_lines(stats, geom, bnw, c, nh, nwh, randn, bound, dtype) -> None:
+    """K2's attention core alone at one stage geometry in ``dtype``, both
+    softmax modes, against its plain version and beside the library call,
+    timed as device time (``device_ms``: at batch 2 one call's Python
+    outlasts the core's device work). bf16: at most 1 % of the outputs may
+    differ from the plain version's, and 4 bf16 units at the largest
+    magnitude; times of the slice's mode (attn_f32 False) go into
+    ``stats["window_attn_core"]``. float32: 1e-4 of the largest magnitude;
+    times of the training configuration's mode (attn_f32 True) go into
+    ``stats["window_attn_core_f32"]``."""
     import torch
 
     from flair_for_aigle_tpu_torch.ops import window_attn
 
-    qkv = randn(bnw * T, 3 * c)
+    bf = dtype == torch.bfloat16
+    dts, name = ("bf16", "window_attn_core") if bf else ("f32", "window_attn_core_f32")
+    qkv = randn(bnw * T, 3 * c, dtype=dtype)
     bias32 = randn(nh, T, T, dtype=torch.float32, std=0.5)
     run, backend, lib = library_core(qkv, bias32, nwh, nh)
     t_l = device_ms(run)
     for attn_f32 in (True, False):
         akw = dict(num_heads=nh, window_size=WS, shift_size=SS, grid_hw=(nwh, nwh),
                    attn_f32=attn_f32)
-        # the bias in the dtype the mode reads (float32, or bf16 as the
-        # wrappers cast it), so no call times a cast
-        bias = bias32 if attn_f32 else bias32.to(torch.bfloat16)
+        # the bias in the dtype the mode reads (float32, or the compute dtype
+        # as the wrappers cast it), so no call times a cast
+        bias = bias32 if attn_f32 else bias32.to(dtype)
         got = window_attn.window_attention_core(qkv, bias, **akw)
         want = window_attn.window_attention_core_reference(qkv, bias, **akw)
         if attn_f32:  # the library call computes the float32 softmax's function
             lib_err = (lib.float() - want.float()).abs().max().item()
             lib_bound = bound(want, torch.bfloat16, 4, None)
-            say("kernel", f"window_attn_core library {geom}: scaled_dot_product_attention "
-                f"({backend}) {t_l:.4f} ms, max_abs_err {lib_err:.3e} against the attn_f32=True "
-                f"plain core, bound {lib_bound:.3e} {'ok' if lib_err <= lib_bound else 'FAIL'}")
+            say("kernel", f"{name} library {geom}: scaled_dot_product_attention "
+                f"({backend}, {dts}) {t_l:.4f} ms, max_abs_err {lib_err:.3e} against the "
+                f"attn_f32=True plain core, bound {lib_bound:.3e} "
+                f"{'ok' if lib_err <= lib_bound else 'FAIL'}")
             if lib_err > lib_bound:
                 raise AssertionError("the library call computes another function than the core")
-        # the core rounds where its plain version does, in the same order;
-        # only float32 sums run in another order: at most 1 % of the outputs
-        # may differ at all
-        frac = (got != want).float().mean().item()
-        say("kernel", f"window_attn_core {geom} bf16 attn_f32={attn_f32}: outputs differing "
-            f"from the plain version's {frac:.2e} (bound 1.0e-02)")
-        if frac > 0.01:
-            raise AssertionError(f"window_attn_core {geom}: {frac} of the outputs differ")
+        if bf:
+            # the core rounds where its plain version does, in the same
+            # order; only float32 sums run in another order: at most 1 % of
+            # the outputs may differ at all
+            frac = (got != want).float().mean().item()
+            say("kernel", f"{name} {geom} bf16 attn_f32={attn_f32}: outputs differing "
+                f"from the plain version's {frac:.2e} (bound 1.0e-02)")
+            if frac > 0.01:
+                raise AssertionError(f"{name} {geom}: {frac} of the outputs differ")
         t_k = device_ms(lambda: window_attn.window_attention_core(qkv, bias, **akw))
         t_p = device_ms(lambda: window_attn.window_attention_core_reference(qkv, bias, **akw))
-        cost = (*cost_window_attn_core(bnw, c, nh, 4 if attn_f32 else 2), "bf16")
-        _compare("window_attn_core", f"{geom} bf16 attn_f32={attn_f32}", got, want,
-                 bound(want, torch.bfloat16, 4, None), t_k, t_p, stats, cost, t_lib=t_l)
-        if not attn_f32:
-            _add_time(stats, "window_attn_core", t_k, t_p, cost)
-            s = stats["window_attn_core"]
+        cost = (*cost_window_attn_core(bnw, c, nh, 2 if bf else 4, 4 if attn_f32 else
+                                       (2 if bf else 4)), dts)
+        _compare(name, f"{geom} {dts} attn_f32={attn_f32}", got, want,
+                 bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost, t_lib=t_l)
+        if attn_f32 != bf:  # bf16: the slice's mode; float32: training's
+            _add_time(stats, name, t_k, t_p, cost)
+            s = stats[name]
             s["library_ms"] = (s["library_ms"] or 0.0) + t_l
 
 
@@ -487,37 +522,33 @@ def core_info(stats) -> None:
             stats["window_attn_core"]["info"] = info
 
 
-def cost_window_attn_bwd_core(bnw, c, nh):
-    # bf16 qkv and do in, o and dqkv out; the float32 (nh, T, T) bias in and
-    # dbias out, dbqkv out; six T x T x 32 products per (window, head)
-    return 16 * bnw * T * c + 8 * nh * T * T + 12 * c, 12 * bnw * T * T * c
+def cost_window_attn_bwd_core(bnw, c, nh, isz):
+    # qkv and do in, o and dqkv out (itemsize isz: 8 C elements a token); the
+    # float32 (nh, T, T) bias in and dbias out, dbqkv out; six T x T x 32
+    # products per (window, head)
+    return 8 * isz * bnw * T * c + 8 * nh * T * T + 12 * c, 12 * bnw * T * T * c
 
 
 def library_core_backward(qkv, do, bias, nwh, nh):
     """K6's attention core as the backward of one ``scaled_dot_product_
     attention`` (the yardstick, used nowhere in the port): contiguous
-    (bnw, nh, T, 32) bf16 q, k, v and the bias plus the shift mask prebuilt
-    as one bf16 (bnw, nh, T, T) ``attn_mask``, all requiring their
-    gradients, the backend pinned to memory-efficient attention, else
-    cuDNN's. The timed call is the backward alone (dq, dk, dv and the mask's
-    gradient) of a forward run once. Returns (run, backend name, (dq, dk,
-    dv) merged as (bnw*T, 3C))."""
+    (bnw, nh, T, 32) q, k, v in qkv's dtype and the bias plus the shift mask
+    prebuilt as one (bnw, nh, T, T) ``attn_mask`` of that dtype, all
+    requiring their gradients, the backend pinned to the first of
+    ``_sdpa_backends`` that takes them. The timed call is the backward alone
+    (dq, dk, dv and the mask's gradient) of a forward run once. Returns
+    (run, backend name, (dq, dk, dv) merged as (bnw*T, 3C))."""
     import torch
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    from flair_for_aigle_tpu_torch.ops import window_attn
+    from torch.nn.attention import sdpa_kernel
 
     m, c3 = qkv.shape
     bnw, c = m // T, c3 // 3
     q, k, v = (t.contiguous().requires_grad_()
                for t in qkv.view(bnw, T, 3, nh, c // nh).permute(2, 0, 3, 1, 4))
     g = do.view(bnw, T, nh, c // nh).transpose(1, 2).contiguous()
-    grid = torch.as_tensor(window_attn._grid_mask(WS, SS, nwh, nwh), device=qkv.device)
-    mask = (bias.float()[None, None] + grid[None, :, None]).expand(
-        bnw // grid.shape[0], -1, -1, -1, -1).reshape(bnw, nh, T, T).to(torch.bfloat16)
-    mask.requires_grad_()
-    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+    mask = _sdpa_mask(bias, nwh, nh, bnw, qkv.dtype, qkv.device).requires_grad_()
+    for backend in _sdpa_backends():
         try:
             with sdpa_kernel([backend]):
                 out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
@@ -531,9 +562,8 @@ def library_core_backward(qkv, do, bias, nwh, nh):
         except RuntimeError:
             continue
         dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(m, c3)
-        return run, backend.name, dqkv
-    raise RuntimeError("neither memory-efficient nor cuDNN attention takes this attn_mask's "
-                       "gradient")
+        return run, _backend_name(backend), dqkv
+    raise RuntimeError("no attention backend takes this attn_mask's gradient")
 
 
 def ulps(ref, n) -> float:
@@ -543,43 +573,54 @@ def ulps(ref, n) -> float:
 
 
 def bwd_core_errors(got, want, attn_f32) -> tuple[dict, bool]:
-    """K6's bf16 core (o, dqkv, dbias, dbqkv) against its plain version:
-    per output its max error, its bound, and the share of outputs that
-    differ at all. Bounds: o at most 1 % differing and 4 bf16 units at its
-    largest magnitude (K2's core: both round in the same places, only
-    float32 sums run in another order); dq, dk, dv 4 units at each one's
-    largest magnitude; dbias and dbqkv (float32) 1e-4 of their largest
-    magnitude, except dbias with attn_f32 False: 4 bf16 units at its
-    largest magnitude. There the scores are rounded to bf16, and the tensor
-    cores' float32 sum of a score's 32 products (not an IEEE sum) differs
-    from the plain version's in the last bit often enough that a few scores
-    per (window, head) round to the neighbouring bf16 value; each such p
-    and ds moves by up to a few bf16 units, and dbias sums them."""
+    """K6's core (o, dqkv, dbias, dbqkv) against its plain version: per
+    output its max error, its bound, and the share of outputs that differ at
+    all. float32 (o and dqkv float32): every output within 1e-4 of its
+    largest magnitude, the card suite's float32 bound. bf16: o at most 1 %
+    differing and 4 bf16 units at its largest magnitude (K2's core: both
+    round in the same places, only float32 sums run in another order); dq,
+    dk, dv 4 units at each one's largest magnitude; dbias and dbqkv
+    (float32) 1e-4 of their largest magnitude, except dbias with attn_f32
+    False: 4 bf16 units at its largest magnitude. There the scores are
+    rounded to bf16, and the tensor cores' float32 sum of a score's 32
+    products (not an IEEE sum) differs from the plain version's in the last
+    bit often enough that a few scores per (window, head) round to the
+    neighbouring bf16 value; each such p and ds moves by up to a few bf16
+    units, and dbias sums them."""
+    import torch
+
     o, dqkv, dbias, dbqkv = got
     c = o.shape[1]
-    parts = {"o": (o, want[0], ulps(want[0], 4)),
-             "dq": (dqkv[:, :c], want[1][:, :c], ulps(want[1][:, :c], 4)),
-             "dk": (dqkv[:, c:2 * c], want[1][:, c:2 * c], ulps(want[1][:, c:2 * c], 4)),
-             "dv": (dqkv[:, 2 * c:], want[1][:, 2 * c:], ulps(want[1][:, 2 * c:], 4)),
-             "dbias": (dbias, want[2], 1e-4 * want[2].abs().max().item() if attn_f32
-                       else ulps(want[2], 4)),
-             "dbqkv": (dbqkv, want[3], 1e-4 * want[3].abs().max().item())}
+    f32 = o.dtype == torch.float32
+
+    def rel(ref):
+        return 1e-4 * ref.float().abs().max().item()
+
+    act = rel if f32 else (lambda ref: ulps(ref, 4))
+    parts = {"o": (o, want[0], act(want[0])),
+             "dq": (dqkv[:, :c], want[1][:, :c], act(want[1][:, :c])),
+             "dk": (dqkv[:, c:2 * c], want[1][:, c:2 * c], act(want[1][:, c:2 * c])),
+             "dv": (dqkv[:, 2 * c:], want[1][:, 2 * c:], act(want[1][:, 2 * c:])),
+             "dbias": (dbias, want[2], rel(want[2]) if attn_f32 or f32 else ulps(want[2], 4)),
+             "dbqkv": (dbqkv, want[3], rel(want[3]))}
     out, ok = {}, True
     for name, (a, b, bound) in parts.items():
         err = (a.float() - b.float()).abs().max().item()
         frac = (a != b).float().mean().item()
         out[name] = (err, bound, frac)
         ok &= err <= bound and bool(a.float().isfinite().all())
-    ok &= out["o"][2] <= 0.01
+    if not f32:
+        ok &= out["o"][2] <= 0.01
     return out, ok
 
 
 def core_p_readouts(qkv, bias, nh, **kw):
-    """pc, the probabilities in bf16, as each pass of K6's bf16 core
-    computes them, (bnw, nh, T, T) twice: pass Q's through o = pc V with V
-    one-hot (o[q, d] = pc[q, k0 + d]), pass K's through dv = pc^T do with do
-    one-hot (dv[k, d] = pc[k0 + d, k]); each a single exact product. V and do
-    do not enter p, so every call sees the same p."""
+    """The probabilities as each pass of K6's core takes them into its
+    products (pc in bf16; p as the tensor cores see it in float32), (bnw,
+    nh, T, T) twice in qkv's dtype: pass Q's through o = pc V with V one-hot
+    (o[q, d] = pc[q, k0 + d]), pass K's through dv = pc^T do with do one-hot
+    (dv[k, d] = pc[k0 + d, k]); each a single product by 1 with p as the
+    same operand. V and do do not enter p, so every call sees the same p."""
     import torch
 
     from flair_for_aigle_tpu_torch.ops import window_attn
@@ -587,11 +628,11 @@ def core_p_readouts(qkv, bias, nh, **kw):
     t = kw["window_size"] ** 2
     m, c = qkv.shape[0], qkv.shape[1] // 3
     bnw, hd = m // t, c // nh
-    pq = torch.zeros((bnw, nh, t, t), dtype=torch.bfloat16, device=qkv.device)
+    pq = torch.zeros((bnw, nh, t, t), dtype=qkv.dtype, device=qkv.device)
     pk = torch.zeros_like(pq)
     for k0 in range(0, t, hd):
         n = min(hd, t - k0)
-        hot = torch.zeros((bnw, t, nh, hd), dtype=torch.bfloat16, device=qkv.device)
+        hot = torch.zeros((bnw, t, nh, hd), dtype=qkv.dtype, device=qkv.device)
         hot[:, k0 + torch.arange(n), :, torch.arange(n)] = 1
         qkv_v = qkv.clone()
         qkv_v[:, 2 * c:] = hot.reshape(m, c)
@@ -602,21 +643,34 @@ def core_p_readouts(qkv, bias, nh, **kw):
     return pq, pk
 
 
-def bwd_core_lines(stats, geom, bnw, c, nh, nwh, randn) -> None:
-    """K6's bf16 attention core alone at one stage geometry, both softmax
-    modes, against its plain version (``bwd_core_errors``), two calls
-    bit-identical, beside the library call's backward; device times
-    (``device_ms``); times of the training configuration's mode (attn_f32
-    True) go into ``stats``."""
+def f32_units(a, b) -> float:
+    """The largest distance between float32 tensors a and b in units in the
+    last place of b's elements (2^(exponent - 23))."""
+    import torch
+
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(b.abs().clamp(min=torch.finfo(torch.float32).tiny))
+    return ((a - b).abs() / torch.ldexp(torch.ones_like(b), e - 24)).max().item()
+
+
+def bwd_core_lines(stats, geom, bnw, c, nh, nwh, randn, dtype) -> None:
+    """K6's attention core alone at one stage geometry in ``dtype``, both
+    softmax modes, against its plain version (``bwd_core_errors``), two
+    calls bit-identical, both passes' probabilities read out, beside the
+    library call's backward; device times (``device_ms``); times of the
+    training configuration's mode (attn_f32 True) go into ``stats`` as
+    ``window_attn_bwd_core`` (bf16) or ``window_attn_bwd_core_f32``."""
     import torch
 
     from flair_for_aigle_tpu_torch.ops import window_attn
 
-    qkv, do = randn(bnw * T, 3 * c), randn(bnw * T, c)
+    bf = dtype == torch.bfloat16
+    dts, name = ("bf16", "window_attn_bwd_core") if bf else ("f32", "window_attn_bwd_core_f32")
+    qkv, do = randn(bnw * T, 3 * c, dtype=dtype), randn(bnw * T, c, dtype=dtype)
     bias = randn(nh, T, T, dtype=torch.float32, std=0.5)
     run, backend, lib = library_core_backward(qkv, do, bias, nwh, nh)
     t_l = device_ms(run)
-    cost = (*cost_window_attn_bwd_core(bnw, c, nh), "bf16")
+    cost = (*cost_window_attn_bwd_core(bnw, c, nh, 2 if bf else 4), dts)
     failed = []
     for attn_f32 in (True, False):
         akw = dict(num_heads=nh, window_size=WS, shift_size=SS, grid_hw=(nwh, nwh),
@@ -627,16 +681,17 @@ def bwd_core_lines(stats, geom, bnw, c, nh, nwh, randn) -> None:
         if attn_f32:  # the library call computes the float32 softmax's gradients
             rel = ((lib.float() - want[1].float()).abs()
                    / want[1].float().abs().clamp(min=1e-2)).median().item()
-            say("kernel", f"window_attn_bwd_core library {geom}: scaled_dot_product_attention "
-                f"backward ({backend}) {t_l:.4f} ms, dqkv median relative error {rel:.2e} "
-                f"against the attn_f32=True plain core (bound 0.04) "
+            say("kernel", f"{name} library {geom}: scaled_dot_product_attention "
+                f"backward ({backend}, {dts}) {t_l:.4f} ms, dqkv median relative error "
+                f"{rel:.2e} against the attn_f32=True plain core (bound 0.04) "
                 f"{'ok' if rel < 0.04 else 'FAIL'}")
             if not rel < 0.04:
                 raise AssertionError("the library call computes another function than the core")
         errs, ok = bwd_core_errors(got, want, attn_f32)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        # pc out of each pass (they must agree bit for bit), and the share
-        # of it that differs from the plain version's
+        # p out of each pass (bf16: they must agree bit for bit; float32: the
+        # largest distance in float32 units, at most 4), and how it differs
+        # from the plain version's
         pq, pk = core_p_readouts(qkv, bias, nh, **{k: v for k, v in akw.items()
                                                     if k != "num_heads"})
         q, k, _ = window_attn._split_heads(qkv, nh, T)
@@ -644,50 +699,60 @@ def bwd_core_lines(stats, geom, bnw, c, nh, nwh, randn) -> None:
                                 attn_f32=attn_f32)
         e = (torch.exp(torch.clamp(s, max=window_attn.CLAMP) - window_attn.SHIFT) if attn_f32
              else torch.exp(s - s.amax(-1, keepdim=True)))
-        pc = (e / (e.sum(-1, keepdim=True) + 1e-37)).to(torch.bfloat16)
-        p_same = torch.equal(pq, pk)
+        pc = (e / (e.sum(-1, keepdim=True) + 1e-37)).to(dtype)
+        p_units = 0.0 if torch.equal(pq, pk) else (f32_units(pk, pq) if not bf else math.inf)
+        p_ok = p_units <= (0 if bf else 4)
         p_frac = (pq != pc).float().mean().item()
+        p_err = (pq.float() - pc.float()).abs().max().item()
         del q, k, s, e, pc, pk, pq
-        same &= p_same
         t_k = device_ms(lambda: window_attn.window_attention_core_backward(qkv, do, bias, **akw))
         t_p = device_ms(lambda: window_attn.window_attention_core_backward_reference(
             qkv, do, bias, **akw))
-        say("kernel", f"window_attn_bwd_core {geom} bf16 attn_f32={attn_f32}: " + "; ".join(
+        p_text = ("=" if p_units == 0 else f"DIFFERS FROM ({p_units:.1f} float32 units, bound "
+                  f"{0 if bf else 4})")
+        say("kernel", f"{name} {geom} {dts} attn_f32={attn_f32}: " + "; ".join(
             f"{n} max {e:.2e} (bound {b:.2e}) differing {f:.2e}" for n, (e, b, f) in errs.items())
-            + f" (o bound 1.0e-02 differing); pc of pass K {'=' if p_same else 'DIFFERS FROM'} "
-            f"pass Q's, {p_frac:.2e} of it differing from the plain version's; repeat "
-            f"{'bit-identical' if same else 'DIFFERS'} "
-            f"{'ok' if ok and same else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-            f"library {t_l:.4f} ms (x{t_l / t_k:.2f} the kernel's), {_bound_text(cost)}")
-        if not (ok and same):
+            + (" (o bound 1.0e-02 differing)" if bf else "")
+            + f"; p of pass K {p_text} pass Q's, {p_frac:.2e} of it differing from the plain "
+            f"version's (max {p_err:.2e}); repeat {'bit-identical' if same else 'DIFFERS'} "
+            f"{'ok' if ok and same and p_ok else 'FAIL'}; kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, library {t_l:.4f} ms (x{t_l / t_k:.2f} the kernel's), "
+            f"{_bound_text(cost)}")
+        if not (ok and same and p_ok):
             failed.append(attn_f32)
-        st = _stat(stats, "window_attn_bwd_core")
+        st = _stat(stats, name)
         st["max_abs_err"] = max(st["max_abs_err"], max(e for e, _, _ in errs.values()))
         if attn_f32:
-            _add_time(stats, "window_attn_bwd_core", t_k, t_p, cost)
+            _add_time(stats, name, t_k, t_p, cost)
             st["library_ms"] = (st["library_ms"] or 0.0) + t_l
     if failed:
-        raise AssertionError(f"window_attn_bwd_core {geom} attn_f32={failed}: outside its "
-                             f"bounds, not repeatable, or its passes' p differ")
+        raise AssertionError(f"{name} {geom} attn_f32={failed}: outside its bounds, not "
+                             f"repeatable, or its passes' p differ")
 
 
 def bwd_core_info(stats) -> None:
-    """K6's bf16 core kernel's registers, spill bytes, shared bytes,
-    resident blocks and warps per SM at T = 144 in both modes; raises on a
-    spill or on fewer than 16 resident warps per SM."""
+    """K6's core kernels' registers, spill bytes, shared bytes, resident
+    blocks and warps per SM at T = 144 in both modes, bf16 and float32;
+    raises where the bf16 core spills or keeps fewer than 16 warps per SM."""
+    import torch
+
     from flair_for_aigle_tpu_torch.ops import window_attn
 
-    for attn_f32 in (True, False):
-        info = window_attn.window_attention_core_backward_info(T, attn_f32)
-        say("kernel", f"window_attn_bwd_core T{T} bf16 attn_f32={attn_f32}: {info['regs']} "
-            f"registers, {info['spill_bytes']} spill bytes, {info['shared_bytes']} shared bytes "
-            f"per block, {info['blocks_per_sm']} blocks and {info['warps_per_sm']} warps per SM "
-            f"(bound: 0 spill bytes, >= 16 warps per SM)")
-        if info["spill_bytes"] > 0 or info["warps_per_sm"] < 16:
-            raise AssertionError(f"K6's core spills or misses its occupancy at "
-                                 f"attn_f32={attn_f32}: {info}")
-        if attn_f32:
-            stats["window_attn_bwd_core"]["info"] = info
+    for dtype, name in ((torch.bfloat16, "window_attn_bwd_core"),
+                        (torch.float32, "window_attn_bwd_core_f32")):
+        bf = dtype == torch.bfloat16
+        for attn_f32 in (True, False):
+            info = window_attn.window_attention_core_backward_info(T, attn_f32, dtype)
+            say("kernel", f"{name} T{T} {'bf16' if bf else 'f32'} attn_f32={attn_f32}: "
+                f"{info['regs']} registers, {info['spill_bytes']} spill bytes, "
+                f"{info['shared_bytes']} shared bytes per block, {info['blocks_per_sm']} blocks "
+                f"and {info['warps_per_sm']} warps per SM"
+                + (" (bound: 0 spill bytes, >= 16 warps per SM)" if bf else ""))
+            if bf and (info["spill_bytes"] > 0 or info["warps_per_sm"] < 16):
+                raise AssertionError(f"K6's core spills or misses its occupancy at "
+                                     f"attn_f32={attn_f32}: {info}")
+            if attn_f32:
+                stats[name]["info"] = info
 
 
 def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None):
@@ -815,8 +880,7 @@ def phase_kernels() -> dict:
                          bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost)
                 if dtype == bf and not attn_f32:  # the slice's configuration
                     _add_time(stats, "window_attn", t_k, t_p, cost)
-            if dtype == bf:
-                core_lines(stats, geom, win.shape[0], c, nh, nwh, randn, bound)
+            core_lines(stats, geom, win.shape[0], c, nh, nwh, randn, bound, dtype)
 
             # K3: residual + LN + MLP + residual
             a = randn(2, hw, hw, c, dtype=dtype, std=0.5)
@@ -922,8 +986,7 @@ def phase_kernels() -> dict:
                                t_k, t_p, stats, cost)
                 if dtype == f32 and attn_f32:
                     _add_time(stats, "window_attn_bwd", t_k, t_p, cost)
-            if dtype == bf:
-                bwd_core_lines(stats, f"B2 {hw}x{hw}x{c}", x.shape[0], c, nh, nwh, randn)
+            bwd_core_lines(stats, f"B2 {hw}x{hw}x{c}", x.shape[0], c, nh, nwh, randn, dtype)
 
     # K4: epilogue at (2, 19, 128, 128), margin 40, both output types
     for dtype in (bf, f32):
@@ -1492,21 +1555,28 @@ def main() -> int:
     # single PyTorch call computes the other, fused functions)
     runs = {"zonal": zonal, "train": train, "train_switched": train_switched, "tool": tool}
     # K2's bf16 attention core alone, summed over the stages at attn_f32
-    # False (the slice's), with its resources at T = 144
+    # False (the slice's), with its resources at T = 144; its float32 core
+    # at attn_f32 True (the training configuration's), for information
     core, info = stats["window_attn_core"], stats["window_attn_core"]["info"]
+    core32 = stats["window_attn_core_f32"]
     extra = {"window_attn": {
         "core_ms": core["ms"], "core_plain_ms": core["plain_ms"],
         "core_bound_ms": core["bound_ms"], "core_library_ms": core["library_ms"],
         "core_regs": info["regs"], "core_spill_bytes": info["spill_bytes"],
-        "core_blocks_per_sm": info["blocks_per_sm"]}}
-    # K6's bf16 core alone, summed over the stages at attn_f32 True (the
-    # training configuration's), with its resources at T = 144
-    core, info = stats["window_attn_bwd_core"], stats["window_attn_bwd_core"]["info"]
-    extra["window_attn_bwd"] = {
-        "core_ms": core["ms"], "core_plain_ms": core["plain_ms"],
-        "core_bound_ms": core["bound_ms"], "core_library_ms": core["library_ms"],
-        "core_regs": info["regs"], "core_spill_bytes": info["spill_bytes"],
-        "core_blocks_per_sm": info["blocks_per_sm"], "core_warps_per_sm": info["warps_per_sm"]}
+        "core_blocks_per_sm": info["blocks_per_sm"],
+        "core_f32_ms": core32["ms"], "core_f32_plain_ms": core32["plain_ms"],
+        "core_f32_bound_ms": core32["bound_ms"], "core_f32_library_ms": core32["library_ms"]}}
+    # K6's bf16 and float32 cores alone, summed over the stages at attn_f32
+    # True (the training configuration's), with their resources at T = 144
+    extra["window_attn_bwd"] = {}
+    for key, name in (("core", "window_attn_bwd_core"), ("core_f32", "window_attn_bwd_core_f32")):
+        core, info = stats[name], stats[name]["info"]
+        extra["window_attn_bwd"].update({
+            f"{key}_ms": core["ms"], f"{key}_plain_ms": core["plain_ms"],
+            f"{key}_bound_ms": core["bound_ms"], f"{key}_library_ms": core["library_ms"],
+            f"{key}_regs": info["regs"], f"{key}_spill_bytes": info["spill_bytes"],
+            f"{key}_blocks_per_sm": info["blocks_per_sm"],
+            f"{key}_warps_per_sm": info["warps_per_sm"]})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs.values()),
