@@ -1,7 +1,9 @@
 // Helpers of the mma.sync attention cores (K2's forward core in
-// window_attn.cu, K6's backward core in window_attn_bwd.cu): cp.async
-// copies, ldmatrix and mma.sync.m16n8k16 fragments, bf16 pair arithmetic
-// with explicit rounding, read-only loads, and a kernel's resources.
+// window_attn.cu, K6's backward cores in window_attn_bwd.cu and
+// window_attn_bwd_f32.cu): cp.async copies, ldmatrix and
+// mma.sync.m16n8k16 fragments, bf16 pair arithmetic with explicit
+// rounding, read-only loads, 3xTF32 products on mma.sync.m16n8k8 with
+// their split fragments, and a kernel's resources.
 #pragma once
 
 #include "common.cuh"
@@ -126,6 +128,96 @@ __device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
   uint32_t d;
   asm("max.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
   return d;
+}
+
+// ---- 3xTF32: float32-accurate products on the tf32 tensor cores ----
+
+// x rounded to tf32 (10 fraction bits) to nearest, ties away from zero, on
+// the bits: what cvt.rna.tf32.f32 gives for a finite x, with the low 13
+// bits cleared (a NaN whose payload lies only in those bits becomes an
+// infinity)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact):
+// the pair holds x to 2^-22 of its magnitude
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// split m16n8k8 fragments: A (16 x 8) four registers a lane, B (8 x 8) two
+struct TF32A {
+  uint32_t hi[4], lo[4];
+};
+struct TF32B {
+  uint32_t hi[2], lo[2];
+};
+
+// d += a b on one m16n8k8 tile: tf32 in, float32 accumulate
+__device__ __forceinline__ void mma_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: a_lo b_hi, a_hi b_lo, then a_hi b_hi, small terms
+// first, into one float32 accumulator (each product to about 2^-21 of its
+// magnitude). MIRROR issues the two small terms the other way round (a_hi
+// b_lo first): the transposed product b^T a^T then sums the same three
+// terms of every element in the same order as a b.
+template <bool MIRROR>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const TF32A& a, const TF32B& b) {
+  if (MIRROR) {
+    mma_1688(d, a.hi, b.lo[0], b.lo[1]);
+    mma_1688(d, a.lo, b.hi[0], b.hi[1]);
+  } else {
+    mma_1688(d, a.lo, b.hi[0], b.hi[1]);
+    mma_1688(d, a.hi, b.lo[0], b.lo[1]);
+  }
+  mma_1688(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// the A fragment of the 16 x 8 block a(r, k) = p[r * ld + k], split: lane
+// (g, t) = (lane / 4, lane % 4) holds rows g, g + 8 at columns t, t + 4
+__device__ __forceinline__ void ld_a_tf32(TF32A& f, const float* p, int ld, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  split_tf32(p[g * ld + t], f.hi[0], f.lo[0]);
+  split_tf32(p[(g + 8) * ld + t], f.hi[1], f.lo[1]);
+  split_tf32(p[g * ld + t + 4], f.hi[2], f.lo[2]);
+  split_tf32(p[(g + 8) * ld + t + 4], f.hi[3], f.lo[3]);
+}
+
+// the B fragment of the 8 x 8 block b(k, n) = p[n * ld + k] (column n of B
+// is row n of p), split: lane (g, t) holds column g at rows t, t + 4
+__device__ __forceinline__ void ld_b_tf32(TF32B& f, const float* p, int ld, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  split_tf32(p[g * ld + t], f.hi[0], f.lo[0]);
+  split_tf32(p[g * ld + t + 4], f.hi[1], f.lo[1]);
+}
+
+// an A fragment straight from a 16 x 8 float32 accumulator tile c (lane
+// (g, t): c[0], c[1] at row g, columns 2t, 2t + 1; c[2], c[3] at row
+// g + 8), its k order taken as it lies: k = t is column 2t, k = t + 4 is
+// column 2t + 1. A product sums over k, so only the B fragment has to
+// follow that order (ld_b_pairs_tf32); no shuffle is needed.
+__device__ __forceinline__ void acc_a_tf32(TF32A& f, const float (&c)[4]) {
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+}
+
+// the B fragment b(k, n) = p[row(k) * ld + n] in acc_a_tf32's k order:
+// lane (g, t) holds column g at rows 2t (k = t) and 2t + 1 (k = t + 4)
+__device__ __forceinline__ void ld_b_pairs_tf32(TF32B& f, const float* p, int ld, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  split_tf32(p[2 * t * ld + g], f.hi[0], f.lo[0]);
+  split_tf32(p[(2 * t + 1) * ld + g], f.hi[1], f.lo[1]);
 }
 
 }  // namespace

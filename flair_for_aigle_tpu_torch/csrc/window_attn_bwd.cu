@@ -73,250 +73,22 @@
 // terms (hi + mid + lo, 3 x 8 significant bits) summed in one float32
 // accumulator. Each block takes 107 KB of shared memory at T = 144 and at
 // most 96 registers a thread, so two blocks (18 warps) share an SM. The
-// float32 core (attn_bwd_core_kernel) stays on the SIMT units: one 180 KB
-// block per SM with q, k, v, do, the score strips and the dbias tile in
-// shared memory.
+// float32 core (attn_bwd_core_f32_kernel, window_attn_bwd_f32.cu) keeps
+// this skeleton and takes every product float32-accurate on the tf32
+// tensor cores (3xTF32); the helpers both share are in window_attn_bwd.cuh.
 #include <type_traits>
 
 #include "common.cuh"
 #include "core_util.cuh"
 #include "gemm.cuh"
+#include "window_attn_bwd.cuh"
 
 namespace flair {
-
-constexpr int BWD_HD = 32;       // head dim
-constexpr int BWD_HDP = 33;      // padded row of q, k, v, do in shared memory
-constexpr int BWD_THREADS = 256;
-constexpr int BWD_MAXR = 18;     // (TP * 32) / 256 at TP = 144
-
-__host__ __device__ inline size_t bwd_smem_bytes(int t) {
-  const int tp = (t + 15) / 16 * 16;
-  return (size_t)(4 * tp * BWD_HDP + 2 * 16 * tp + t * t + 3 * BWD_THREADS) * sizeof(float);
-}
-
-__device__ __forceinline__ int bwd_band(int x, int ws, int ss) { return x < ws - ss ? 1 : 2; }
-
-template <typename T, bool F32>
-__global__ void __launch_bounds__(BWD_THREADS)
-attn_bwd_core_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                     const float* __restrict__ bias, T* __restrict__ o, T* __restrict__ dqkv,
-                     float* __restrict__ dbias_part, float* __restrict__ dbqkv_part, int bnw,
-                     int Tn, int C, int nh, int ws, int ss, int nwh, int nww, float scale) {
-  constexpr int HD = BWD_HD, HDP = BWD_HDP;
-  const int TP = (Tn + 15) / 16 * 16;
-  const int grp = blockIdx.x, h = blockIdx.y, n_groups = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const int nr = TP / 8;  // register entries of dk / dv per thread
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + TP * HDP;
-  float* Vs = Ks + TP * HDP;
-  float* Ds = Vs + TP * HDP;      // do of this head
-  float* Ps = Ds + TP * HDP;      // 16 x TP: scores, then p (float32)
-  float* Gs = Ps + 16 * TP;       // 16 x TP: dp, then ds
-  float* Bacc = Gs + 16 * TP;     // Tn x Tn: sum of ds over the group's windows
-  float* Csum = Bacc + Tn * Tn;   // 3 x 256: per-thread column sums, reduced at the end
-
-  for (int e = tid; e < Tn * Tn; e += BWD_THREADS) Bacc[e] = 0.f;
-  float colq = 0.f, colk = 0.f, colv = 0.f;  // column `lane` of dq, dk, dv
-
-  const int wpb = (bnw + n_groups - 1) / n_groups;
-  const int w_lo = grp * wpb, w_hi = min(bnw, w_lo + wpb);
-  const int C3 = 3 * C;
-  const float scale_t = rnd<T>(scale);
-  for (int w = w_lo; w < w_hi; ++w) {
-    const long long row0 = (long long)w * Tn;
-    __syncthreads();  // the previous window is done with Qs .. Ds
-    for (int e = tid; e < TP * HD; e += BWD_THREADS) {
-      const int t = e / HD, d = e % HD;
-      float q = 0.f, k = 0.f, v = 0.f, g = 0.f;
-      if (t < Tn) {
-        const T* src = qkv + (row0 + t) * C3 + h * HD + d;
-        q = to_f<T>(src[0]);
-        k = to_f<T>(src[C]);
-        v = to_f<T>(src[2 * C]);
-        g = to_f<T>(dout[(row0 + t) * C + h * HD + d]);
-      }
-      Qs[t * HDP + d] = q;
-      Ks[t * HDP + d] = k;
-      Vs[t * HDP + d] = v;
-      Ds[t * HDP + d] = g;
-    }
-    float acc_dk[BWD_MAXR], acc_dv[BWD_MAXR];
-#pragma unroll
-    for (int u = 0; u < BWD_MAXR; ++u) acc_dk[u] = acc_dv[u] = 0.f;
-    const int widx = w % (nwh * nww);
-    const bool li = ss > 0 && widx / nww == nwh - 1;
-    const bool lj = ss > 0 && widx % nww == nww - 1;
-    __syncthreads();
-
-    for (int r0 = 0; r0 < TP; r0 += 16) {
-      // (a) raw scores q k^T of the strip, and dp = do v^T
-      for (int e = tid; e < 16 * TP; e += BWD_THREADS) {
-        const int r = e / TP, j = e % TP;
-        const float* qr = Qs + (r0 + r) * HDP;
-        const float* dr = Ds + (r0 + r) * HDP;
-        const float* kr = Ks + j * HDP;
-        const float* vr = Vs + j * HDP;
-        float s = 0.f, dp = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) {
-          s = fmaf(qr[d], kr[d], s);
-          dp = fmaf(dr[d], vr[d], dp);
-        }
-        Ps[r * TP + j] = s;
-        Gs[r * TP + j] = dp;
-      }
-      __syncthreads();
-      // (b) softmax and ds per row, one warp per row
-      for (int r = wid; r < 16; r += BWD_THREADS / 32) {
-        const int i = r0 + r;
-        float* prow = Ps + r * TP;
-        float* grow = Gs + r * TP;
-        if (i >= Tn) {
-          for (int j = lane; j < TP; j += 32) prow[j] = grow[j] = 0.f;
-          continue;
-        }
-        const int bri = bwd_band(i / ws, ws, ss), bci = bwd_band(i % ws, ws, ss);
-        const float* brow = bias + ((long long)h * Tn + i) * Tn;
-        constexpr int MAXQ = 5;  // ceil(144 / 32)
-        float sv[MAXQ];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int q = 0; q < MAXQ; ++q) {
-          const int j = lane + 32 * q;
-          sv[q] = -INFINITY;
-          if (j < Tn) {
-            float s = prow[j];
-            const bool differ = (li && bri != bwd_band(j / ws, ws, ss)) ||
-                                (lj && bci != bwd_band(j % ws, ws, ss));
-            if constexpr (F32) {
-              s = s * scale + brow[j];
-              if (differ) s += -100.f;
-            } else {
-              s = rnd<T>(rnd<T>(s) * scale_t);
-              s = rnd<T>(s + rnd<T>(brow[j]));
-              if (differ) s = rnd<T>(s + -100.f);
-            }
-            sv[q] = s;
-            mx = fmaxf(mx, s);
-          }
-        }
-        if constexpr (!F32) mx = warp_max(mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int q = 0; q < MAXQ; ++q) {
-          const int j = lane + 32 * q;
-          if (j < Tn) {
-            sv[q] = F32 ? expf(fminf(sv[q], 80.f) - 30.f) : rnd<T>(expf(rnd<T>(sv[q] - mx)));
-            sum += sv[q];
-          }
-        }
-        sum = warp_sum(sum);
-        const float den = F32 ? sum + 1e-37f : rnd<T>(rnd<T>(sum) + 1e-37f);
-        float pv[MAXQ];
-        float pdp = 0.f;
-#pragma unroll
-        for (int q = 0; q < MAXQ; ++q) {
-          const int j = lane + 32 * q;
-          pv[q] = 0.f;
-          if (j < Tn) {
-            pv[q] = F32 ? sv[q] / den : rnd<T>(sv[q] / den);
-            pdp = fmaf(grow[j], pv[q], pdp);
-          }
-        }
-        pdp = warp_sum(pdp);
-#pragma unroll
-        for (int q = 0; q < MAXQ; ++q) {
-          const int j = lane + 32 * q;
-          if (j < Tn) {
-            const float ds = pv[q] * (grow[j] - pdp);
-            prow[j] = pv[q];
-            grow[j] = ds;
-            Bacc[i * Tn + j] += ds;
-          } else if (j < TP) {
-            prow[j] = grow[j] = 0.f;
-          }
-        }
-      }
-      __syncthreads();
-      // (c) o = pc v and dq = scale ds k for the strip; thread column d = lane
-      for (int e = tid; e < 16 * HD; e += BWD_THREADS) {
-        const int r = e / HD, d = e % HD, i = r0 + r;
-        if (i >= Tn) continue;
-        const float* prow = Ps + r * TP;
-        const float* grow = Gs + r * TP;
-        float ov = 0.f, dq = 0.f;
-        for (int j = 0; j < Tn; ++j) {
-          ov = fmaf(rnd<T>(prow[j]), Vs[j * HDP + d], ov);
-          dq = fmaf(grow[j], Ks[j * HDP + d], dq);
-        }
-        dq *= scale;
-        o[(row0 + i) * C + h * HD + d] = from_f<T>(ov);
-        dqkv[(row0 + i) * C3 + h * HD + d] = from_f<T>(dq);
-        colq += dq;
-      }
-      // (d) dk += ds^T q and dv += pc^T do over the strip's rows
-#pragma unroll
-      for (int u = 0; u < BWD_MAXR; ++u) {
-        if (u >= nr) break;
-        const int j = (tid + BWD_THREADS * u) / HD;  // d = lane
-        float sk = 0.f, sv2 = 0.f;
-#pragma unroll 4
-        for (int r = 0; r < 16; ++r) {
-          sk = fmaf(Gs[r * TP + j], Qs[(r0 + r) * HDP + lane], sk);
-          sv2 = fmaf(rnd<T>(Ps[r * TP + j]), Ds[(r0 + r) * HDP + lane], sv2);
-        }
-        acc_dk[u] += sk;
-        acc_dv[u] += sv2;
-      }
-      __syncthreads();
-    }
-    // dk, dv of this window: rows j < Tn (rows past Tn are zero)
-#pragma unroll
-    for (int u = 0; u < BWD_MAXR; ++u) {
-      if (u >= nr) break;
-      const int j = (tid + BWD_THREADS * u) / HD;
-      if (j >= Tn) continue;
-      const float dk = acc_dk[u] * scale;
-      const long long base = (row0 + j) * C3 + h * HD + lane;
-      dqkv[base + C] = from_f<T>(dk);
-      dqkv[base + 2 * C] = from_f<T>(acc_dv[u]);
-      colk += dk;
-      colv += acc_dv[u];
-    }
-  }
-
-  // this (group, head)'s partials: the dbias tile and the dq/dk/dv column sums
-  __syncthreads();
-  float* dst = dbias_part + ((long long)grp * nh + h) * Tn * Tn;
-  for (int e = tid; e < Tn * Tn; e += BWD_THREADS) dst[e] = Bacc[e];
-  Csum[tid] = colq;
-  Csum[BWD_THREADS + tid] = colk;
-  Csum[2 * BWD_THREADS + tid] = colv;
-  __syncthreads();
-  if (tid < 3 * HD) {
-    const int s = tid / HD, d = tid % HD;
-    float acc = 0.f;
-    for (int k = 0; k < BWD_THREADS / 32; ++k) acc += Csum[s * BWD_THREADS + k * 32 + d];
-    dbqkv_part[(long long)grp * C3 + s * C + h * HD + d] = acc;
-  }
-}
 
 // ---- the bf16 core: S, P, dP and dS in mma.sync registers (see the note
 // at the top) ----
 
 constexpr int BC_LD = BWD_HD + 8;  // bf16 row stride in shared memory (80 bytes)
-
-// staged float32 tiles of the bias (and dbias) in each warp's ring: rows
-// of RQ_LD floats in pass Q (query rows by keys), RK_LD in pass K (queries
-// by the warp's keys), the strides at which the fragments' reads hit
-// distinct banks; two stages of a bias and a dbias tile per warp
-constexpr int RQ_LD = 24;
-constexpr int RK_LD = 20;
-constexpr int RING_TILE = 16 * RQ_LD;
-constexpr int RING_WARP = 2 * 2 * RING_TILE;
 
 // shared bytes of the bf16 core at tp padded tokens: q, k, v, do rows; the
 // warps' rings; per query row its max, denominator, reciprocal and D; per
@@ -384,23 +156,6 @@ __device__ __forceinline__ void mma_split(float (&acc)[4][4], float (&ds)[2][4],
   }
 }
 
-// bits 0 and 8: whether cols c and c + 1 lie in another compared band than
-// the row (rowb: the row's band byte in both bytes; sel: the bands compared
-// in this window, bit 0 the grid's last row, bit 1 its last column)
-__device__ __forceinline__ uint32_t band_diff(const uint8_t* bands, int c, uint32_t rowb,
-                                              uint32_t sel) {
-  return sel ? (*reinterpret_cast<const uint16_t*>(bands + c) ^ rowb) & sel : 0u;
-}
-
-// attn_f32: e = exp(min(s, 80) - 30) of s = acc * scale + bias (-100 where
-// the bands differ), 0 past Tn; the float32 ops one at a time, as the
-// reference rounds them (no fused multiply-add)
-__device__ __forceinline__ float e_f32(float acc, float b, bool differ, bool in, float scale) {
-  float s = __fadd_rn(__fmul_rn(acc, scale), b);
-  if (differ) s = __fadd_rn(s, -100.f);
-  return in ? expf(fminf(s, 80.f) - 30.f) : 0.f;
-}
-
 // attn_f32 = 0: the bf16 scores of an element pair, rnd(rnd(rnd(acc) *
 // rnd(scale)) + rnd(bias)), then rnd(s - 100) where the bands differ; -inf
 // past Tn (n_in: how many of the two lie before Tn)
@@ -419,13 +174,6 @@ __device__ __forceinline__ uint32_t s_bf16(float a0, float a1, float2 b, uint32_
 __device__ __forceinline__ uint32_t e_bf16(uint32_t s, uint32_t m2) {
   const uint32_t d = sub_bf16x2(s, m2);
   return pack_bf16(expf(bf16_lo(d)), expf(bf16_hi(d)));
-}
-
-// p = RN(a / b) from r = RN(1 / b): q = RN(a r) and one correction step,
-// exact (Markstein) whenever r is correctly rounded and a / b is normal
-__device__ __forceinline__ float div_r(float a, float b, float r) {
-  const float q = __fmul_rn(a, r);
-  return __fmaf_rn(__fmaf_rn(-q, b, a), r, q);
 }
 
 // the probabilities p0, p1 of an element pair (acc0, acc1: its products;
@@ -453,60 +201,6 @@ __device__ __forceinline__ uint32_t probs_pair(float acc0, float acc1, float2 b,
     p1 = bf16_hi(pc);
     return pc;
   }
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(smem)), "l"(gmem));
-}
-
-// put the 16 x 16 float32 tile src[r * stride + c] (rows below nr and
-// columns below nc; zero elsewhere) in flight into dst, rows of ld floats,
-// by cp.async from the warp's 32 lanes: 16-byte chunks where `vec` (stride
-// and nc multiples of 4, src 16-byte aligned), else 4-byte elements
-__device__ __forceinline__ void stage_tile(float* dst, int ld, const float* src, int stride,
-                                           int nr, int nc, bool vec, int lane) {
-  if (vec) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int ch = lane + 32 * i, r = ch >> 2, c = (ch & 3) * 4;
-      float* d = dst + r * ld + c;
-      if (r < nr && c < nc)
-        cp_async16(d, src + r * stride + c);
-      else
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int e = lane + 32 * i, r = e >> 4, c = e & 15;
-      float* d = dst + r * ld + c;
-      if (r < nr && c < nc)
-        cp_async4(d, src + r * stride + c);
-      else
-        *d = 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// the column sums of a 16 x 32 float32 tile (rows past Tn left out, as
-// invalid0 / 1 say for rows g, g + 8) added to this warp's slots `cs`
-__device__ __forceinline__ void add_colsums(float* cs, const float (&acc)[4][4], bool in0,
-                                            bool in1, int lane) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      float v = (in0 ? acc[n][u] : 0.f) + (in1 ? acc[n][2 + u] : 0.f);
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < 4) cs[8 * n + 2 * lane + u] += v;
-    }
 }
 
 // a 16 x 32 float32 tile (rows r, r + 8 at dst_g, dst_g8) rounded to bf16
@@ -864,25 +558,6 @@ __global__ void colsum_partial_kernel(const T* __restrict__ X, float* __restrict
   part[(long long)blockIdx.x * N + n] = s;
 }
 
-template <typename T, bool F32>
-int launch_bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqkv,
-                    float* dbias_part, float* dbqkv_part, int bnw, int t, int c, int nh, int ws,
-                    int ss, int nwh, int nww, int n_groups, cudaStream_t stream, int* info) {
-  const size_t smem = bwd_smem_bytes(t);
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_core_kernel<T, F32>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  if (info) {
-    const int rc = kernel_info(attn_bwd_core_kernel<T, F32>, BWD_THREADS, smem, info);
-    info[4] = info[3] * BWD_THREADS / 32;
-    return rc;
-  }
-  const float scale = 1.f / sqrtf((float)BWD_HD);
-  attn_bwd_core_kernel<T, F32><<<dim3(n_groups, nh), BWD_THREADS, smem, stream>>>(
-      qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw, t, c, nh, ws, ss, nwh, nww, scale);
-  return 0;
-}
-
 template <int NQ, bool F32, bool FULL>
 int launch_bf16_core(const bf16* qkv, const bf16* dout, const float* bias, bf16* o,
                          bf16* dqkv, float* dbias_part, float* dbqkv_part, int bnw, int t, int c,
@@ -958,10 +633,8 @@ int bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqkv, floa
                     : bwd_core_bf16<false>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw,
                                            t, c, nh, ws, ss, nwh, nww, n_groups, s, info);
   } else {
-    return attn_f32 ? launch_bwd_core<T, true>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
-                                               bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info)
-                    : launch_bwd_core<T, false>(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part,
-                                                bnw, t, c, nh, ws, ss, nwh, nww, n_groups, s, info);
+    return bwd_core_f32(qkv, dout, bias, o, dqkv, dbias_part, dbqkv_part, bnw, t, c, nh, ws, ss,
+                        nwh, nww, attn_f32, n_groups, s, info);
   }
 }
 

@@ -369,19 +369,28 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _core_groups(bnw: int, nh: int, n_sm: int) -> int:
+def _core_groups(bnw: int, nh: int, slots: int) -> int:
     """Window groups of K6's core launch (one block per group and head,
-    walking the group's windows): about two blocks per SM, every group
-    holding at least one window."""
-    groups = min(bnw, max(1, _ceil(2 * n_sm, nh)))
-    return _ceil(bnw, _ceil(bnw, groups))
+    each walking its group's windows): as many groups as one wave of the
+    kernel's ``slots`` resident blocks holds, each with as few windows as
+    that allows, so that a launch never ends on a nearly empty second wave."""
+    per = _ceil(bnw, max(1, min(bnw, slots // nh)))
+    return _ceil(bnw, per)
 
 
-def _bwd_plan(bnw: int, nh: int, m: int, c: int, n_sm: int) -> tuple[int, int]:
-    """(window groups of the core launch, k_chunk of the weight-gradient
-    GEMMs): about two blocks per SM in each launch."""
+@lru_cache(maxsize=None)
+def _core_slots(t: int, attn_f32: bool, dtype: torch.dtype, n_sm: int) -> int:
+    """Blocks of K6's core kernel resident on the card at once, as the CUDA
+    runtime reports its residency at T = t tokens."""
+    return n_sm * window_attention_core_backward_info(t, attn_f32, dtype)["blocks_per_sm"]
+
+
+def _bwd_plan(bnw: int, nh: int, m: int, c: int, n_sm: int,
+              slots: int) -> tuple[int, int]:
+    """(window groups of the core launch, for its ``slots`` resident
+    blocks; k_chunk of the weight-gradient GEMMs: about two blocks per SM)."""
     want = 2 * n_sm
-    groups = _core_groups(bnw, nh, n_sm)
+    groups = _core_groups(bnw, nh, slots)
     tiles = _ceil(c, 128) * _ceil(c, 64)
     n_split = max(1, min(_ceil(want, tiles), _ceil(m, 256)))
     return groups, _ceil(_ceil(m, n_split), 32) * 32
@@ -415,7 +424,8 @@ def window_attention_core_backward(qkv, do, bias, *, num_heads: int,
     if bias.shape != (nh, t, t):
         raise ValueError(f"{what}: bias must be ({nh}, {t}, {t})")
     dev = qkv.device
-    groups = _core_groups(bnw, nh, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = _core_groups(bnw, nh, _core_slots(t, bool(attn_f32), qkv.dtype, n_sm))
     o = torch.empty((m, c), dtype=qkv.dtype, device=dev)
     dqkv = torch.empty((m, 3 * c), dtype=qkv.dtype, device=dev)
     dbias_part, dbqkv_part, dbias, dbqkv = (
@@ -477,8 +487,9 @@ def fused_window_attention_backward(g, x, wqkv, bqkv, wproj, bproj, bias, *,
     wq, bq, wp, _, b32 = _params(x, wqkv, bqkv, wproj, bproj, bias, nh,
                                  torch.float32, what)
     m = bnw * t
-    groups, k_chunk = _bwd_plan(bnw, nh, m, c,
-                                torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups, k_chunk = _bwd_plan(bnw, nh, m, c, n_sm,
+                                _core_slots(t, bool(attn_f32), dt, n_sm))
     n_split = _ceil(m, k_chunk)
 
     def f32(*shape):

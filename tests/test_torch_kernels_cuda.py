@@ -277,25 +277,27 @@ def _ulps(ref, n):
     return n * 2.0 ** -7 * ref.float().abs().max().item()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("attn_f32", [True, False])
 @pytest.mark.parametrize("ws,ss,grid,c,nh", BWD_GEOMS)
-def test_window_attn_bwd_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
-    """K6's bf16 attention core alone against its plain version; two calls
-    bit-identical (no atomics, fixed-order sums), one launch each. Both
-    round where the Pallas body rounds; the kernel sums in another float32
-    order and takes dq, dk as three exact bf16 products of ds's split: o
-    at most 1 % differing and 4 bf16 units at its largest magnitude (K2's
-    core), dq, dk, dv 4 units at each one's largest magnitude, dbias and
-    dbqkv (float32) 1e-4 of their largest magnitude; dbias without attn_f32
-    4 bf16 units there: its scores are rounded to bf16, and a score whose
-    tensor-core float32 sum differs from the plain version's in the last
-    bit can round to the neighbouring bf16 value (chip_smoke.py
-    bwd_core_errors)."""
+def test_window_attn_bwd_core_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
+    """K6's attention core alone against its plain version; two calls
+    bit-identical (no atomics, fixed-order sums), one launch each. float32
+    (the 3xTF32 core): every output within 1e-4 of its largest magnitude.
+    bf16: both round where the Pallas body rounds; the kernel sums in
+    another float32 order and takes dq, dk as three exact bf16 products of
+    ds's split: o at most 1 % differing and 4 bf16 units at its largest
+    magnitude (K2's core), dq, dk, dv 4 units at each one's largest
+    magnitude, dbias and dbqkv (float32) 1e-4 of their largest magnitude;
+    dbias without attn_f32 4 bf16 units there: its scores are rounded to
+    bf16, and a score whose tensor-core float32 sum differs from the plain
+    version's in the last bit can round to the neighbouring bf16 value
+    (chip_smoke.py bwd_core_errors)."""
     g = torch.Generator(device=dev).manual_seed(11)
     t = ws * ws
     bnw = 2 * grid[0] * grid[1]
-    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(torch.bfloat16)
-    do = torch.randn((bnw * t, c), generator=g, device=dev).to(torch.bfloat16)
+    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(dtype)
+    do = torch.randn((bnw * t, c), generator=g, device=dev).to(dtype)
     bias = torch.randn((nh, t, t), generator=g, device=dev) * 0.5
     kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=attn_f32)
     window_attn.window_attention_core_backward.launches = 0
@@ -308,41 +310,52 @@ def test_window_attn_bwd_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
     assert [a.dtype for a in got] == [a.dtype for a in want]
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     o, dqkv, dbias, dbqkv = got
-    assert (o != want[0]).float().mean().item() <= 0.01
-    pairs = [(o, want[0], _ulps(want[0], 4))]
+
+    def rel(ref):
+        return 1e-4 * ref.abs().max().item()
+
+    act = rel if dtype == torch.float32 else (lambda ref: _ulps(ref, 4))
+    if dtype == torch.bfloat16:
+        assert (o != want[0]).float().mean().item() <= 0.01
+    pairs = [(o, want[0], act(want[0]))]
     pairs += [(dqkv[:, i * c:(i + 1) * c], want[1][:, i * c:(i + 1) * c],
-               _ulps(want[1][:, i * c:(i + 1) * c], 4)) for i in range(3)]
-    pairs += [(dbias, want[2], 1e-4 * want[2].abs().max().item() if attn_f32 else _ulps(want[2], 4)),
-              (dbqkv, want[3], 1e-4 * want[3].abs().max().item())]
+               act(want[1][:, i * c:(i + 1) * c])) for i in range(3)]
+    pairs += [(dbias, want[2], rel(want[2]) if attn_f32 or dtype == torch.float32
+               else _ulps(want[2], 4)),
+              (dbqkv, want[3], rel(want[3]))]
     for a, b, tol in pairs:
         assert torch.isfinite(a.float()).all()
         assert (a.float() - b.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("attn_f32", [True, False])
-def test_window_attn_bwd_core_passes_agree_on_p(dev, attn_f32):
+def test_window_attn_bwd_core_passes_agree_on_p(dev, dtype, attn_f32):
     """Pass K recomputes each score as K Q^T, the transposed product of
-    pass Q's Q K^T, and must round it, and so p, as pass Q does: pc read out
-    of both passes is bit-identical (T = 144, shifted windows)."""
+    pass Q's Q K^T, and must round it, and so p, as pass Q does: p read out
+    of both passes (bf16 pc; float32 p as the tensor cores take it) is
+    bit-identical (T = 144, shifted windows)."""
     from chip_smoke import core_p_readouts
 
     g = torch.Generator(device=dev).manual_seed(12)
     ws, grid, c, nh = 12, (2, 3), 128, 4
     t = ws * ws
     bnw = grid[0] * grid[1]
-    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(torch.bfloat16)
+    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(dtype)
     bias = torch.randn((nh, t, t), generator=g, device=dev) * 0.5
     pq, pk = core_p_readouts(qkv, bias, nh, window_size=ws, shift_size=6, grid_hw=grid,
                              attn_f32=attn_f32)
     assert torch.equal(pq, pk)
 
 
+@pytest.mark.parametrize("dtype,warps", [(torch.bfloat16, 16), (torch.float32, 9)])
 @pytest.mark.parametrize("attn_f32", [True, False])
-def test_window_attn_bwd_core_resources(dev, attn_f32):
-    """At T = 144 K6's bf16 core spills nothing and keeps at least 16 warps
-    resident per SM."""
-    info = window_attn.window_attention_core_backward_info(144, attn_f32)
-    assert info["spill_bytes"] == 0 and info["warps_per_sm"] >= 16, info
+def test_window_attn_bwd_core_resources(dev, attn_f32, dtype, warps):
+    """At T = 144 K6's cores spill nothing and keep their design's warps
+    resident per SM: the bf16 core at least 16 (two blocks of 9), the
+    float32 core 9 (one block of 9 warps: 144 KB of float32 rows and rings)."""
+    info = window_attn.window_attention_core_backward_info(144, attn_f32, dtype)
+    assert info["spill_bytes"] == 0 and info["warps_per_sm"] >= warps, info
 
 
 def test_swin_ops_pass_gradients_on_the_card(dev):
