@@ -30,8 +30,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
    ``scaled_dot_product_attention`` call whose ``attn_mask`` requires its
    gradient: per output its error against the plain version (float32: 1e-4
    of each output's largest magnitude), the two passes' probabilities read
-   out through o and dv, and both cores' resources at T = 144 (the bf16
-   core: no spill, at least 16 warps per SM);
+   out through o and dv (equal), and both cores' resources at T = 144 (no
+   spill; at least 16 warps per SM for the bf16 core, 9 for the float32
+   core);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -732,24 +733,25 @@ def bwd_core_lines(stats, geom, bnw, c, nh, nwh, randn, dtype) -> None:
 
 def bwd_core_info(stats) -> None:
     """K6's core kernels' registers, spill bytes, shared bytes, resident
-    blocks and warps per SM at T = 144 in both modes, bf16 and float32;
-    raises where the bf16 core spills or keeps fewer than 16 warps per SM."""
+    blocks and warps per SM at T = 144 in both modes; raises on a spill, or
+    on fewer resident warps per SM than the design's: 16 for the bf16 core
+    (two blocks of 9), 9 for the float32 core (one block of 9: 144 KB of
+    float32 rows and rings)."""
     import torch
 
     from flair_for_aigle_tpu_torch.ops import window_attn
 
-    for dtype, name in ((torch.bfloat16, "window_attn_bwd_core"),
-                        (torch.float32, "window_attn_bwd_core_f32")):
-        bf = dtype == torch.bfloat16
+    for dtype, name, warps in ((torch.bfloat16, "window_attn_bwd_core", 16),
+                               (torch.float32, "window_attn_bwd_core_f32", 9)):
         for attn_f32 in (True, False):
             info = window_attn.window_attention_core_backward_info(T, attn_f32, dtype)
-            say("kernel", f"{name} T{T} {'bf16' if bf else 'f32'} attn_f32={attn_f32}: "
-                f"{info['regs']} registers, {info['spill_bytes']} spill bytes, "
-                f"{info['shared_bytes']} shared bytes per block, {info['blocks_per_sm']} blocks "
-                f"and {info['warps_per_sm']} warps per SM"
-                + (" (bound: 0 spill bytes, >= 16 warps per SM)" if bf else ""))
-            if bf and (info["spill_bytes"] > 0 or info["warps_per_sm"] < 16):
-                raise AssertionError(f"K6's core spills or misses its occupancy at "
+            say("kernel", f"{name} T{T} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                f"attn_f32={attn_f32}: {info['regs']} registers, {info['spill_bytes']} spill "
+                f"bytes, {info['shared_bytes']} shared bytes per block, {info['blocks_per_sm']} "
+                f"blocks and {info['warps_per_sm']} warps per SM (bound: 0 spill bytes, >= "
+                f"{warps} warps per SM)")
+            if info["spill_bytes"] > 0 or info["warps_per_sm"] < warps:
+                raise AssertionError(f"{name} spills or misses its occupancy at "
                                      f"attn_f32={attn_f32}: {info}")
             if attn_f32:
                 stats[name]["info"] = info
