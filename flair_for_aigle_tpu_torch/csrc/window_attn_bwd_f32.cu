@@ -25,10 +25,8 @@
 //   - One block per (window group, head), one warp per 16 rows (T padded
 //     to TP = 16 ceil(T / 16)); two passes per window, every (T, T) tile
 //     recomputed in registers and never stored: pass Q (the warp's query
-//     rows against every key) takes the row sums and o = (E V) / den in
-//     one sweep, D = sum_j p dp as the row's sum of do o (= do . P V), and
-//     dq in a second; pass K (the warp's keys against every query) takes
-//     dk, dv and dbias.
+//     rows against every key) takes the row statistics, then o, D and dq;
+//     pass K (the warp's keys against every query) takes dk, dv and dbias.
 //     The bias (and in pass K the dbias partial) reaches each warp as
 //     16 x 16 float32 tiles staged by cp.async one tile ahead in a
 //     two-stage ring of its own; the thread that holds ds(i, j) in pass K
@@ -50,7 +48,7 @@
 //     pass Q's Q K^T, and both passes take every p through one function
 //     (prob_f32) from the row statistics pass Q left in shared memory.
 //   - attn_f32 = 0 in float32 has no clamp or static shift: pass Q takes
-//     the row max in a sweep of its own first.
+//     the row max in a sweep of its own, then den and D in one more.
 // 144 KB of shared memory a block at T = 144 (rows and rings): one block of
 // 9 warps per SM, with the registers that frees (up to 224 a thread)
 // holding the split strips. The launch sizes its window groups by that
@@ -250,8 +248,9 @@ __global__ void __launch_bounds__(32 * NQ, 1)
 
     // ---- pass Q: the warp's 16 query rows against every key ----
     {
-      TF32A fq[4];  // this warp's q rows, split
+      TF32A fq[4], fg[4];  // this warp's q and do rows, split
       load_strip(fq, Qs + r0 * LD, lane);
+      load_strip(fg, Gs + r0 * LD, lane);
       // pair (n, hf) of tile j (keys 16 j + 8 n + 2 tq, + 1 of row g + 8 hf):
       // its bias pair and its band bits, read where they are used
       auto bias_q = [&](const float* bt, int n, int hf) {
@@ -285,47 +284,32 @@ __global__ void __launch_bounds__(32 * NQ, 1)
           m[hf] = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
         }
       }
-      // one sweep: den = sum e + 1e-37 and o = (E V) / den, the
-      // normalisation taken out of P V
-      float oacc[4][4] = {};
+      // one sweep: den = sum e + 1e-37 and D = (sum e dp) / den, the
+      // float32 sum of p dp with the division by den taken out
       sweep(stage_q, [&](int j, const float* bt) {
-        float e[2][4];
-        {
-          float acc[2][4];
-          tile16_f32<false>(acc, fq, Ks + 16 * j * LD, lane);
+        float acc[2][4], dp[2][4];
+        tile16_f32<false>(acc, fq, Ks + 16 * j * LD, lane);
+        tile16_f32<false>(dp, fg, Vs + 16 * j * LD, lane);
 #pragma unroll
-          for (int n = 0; n < 2; ++n)
+        for (int n = 0; n < 2; ++n)
 #pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              const int c = 16 * j + 8 * n + 2 * tq;
-              const float2 b = bias_q(bt, n, hf);
-              const uint32_t d = diff_q(j, n, hf);
-              e[n][2 * hf] = e_of<F32>(acc[n][2 * hf], b.x, d & 0xffu, in_t(c), scale, m[hf]);
-              e[n][2 * hf + 1] =
-                  e_of<F32>(acc[n][2 * hf + 1], b.y, d >> 8, in_t(c + 1), scale, m[hf]);
-              sum[hf] += e[n][2 * hf] + e[n][2 * hf + 1];
-            }
-        }
-        mma_rows_f32(oacc, e, Vs + 16 * j * LD, lane);
+          for (int hf = 0; hf < 2; ++hf) {
+            const int c = 16 * j + 8 * n + 2 * tq;
+            const float2 b = bias_q(bt, n, hf);
+            const uint32_t d = diff_q(j, n, hf);
+            const float e0 = e_of<F32>(acc[n][2 * hf], b.x, d & 0xffu, in_t(c), scale, m[hf]);
+            const float e1 =
+                e_of<F32>(acc[n][2 * hf + 1], b.y, d >> 8, in_t(c + 1), scale, m[hf]);
+            sum[hf] += e0 + e1;
+            D[hf] += e0 * dp[n][2 * hf] + e1 * dp[n][2 * hf + 1];
+          }
       });
-      // o, and D = sum_j p dp = do . (P V) = the row's sum of do o
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         den[hf] = quad_sum(sum[hf]) + 1e-37f;
         rden[hf] = __frcp_rn(den[hf]);
-        const float* gr = Gs + (hf ? rb : ra) * LD + 2 * tq;
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            float& x = oacc[n][2 * hf + u];
-            x = div_r(x, den[hf], rden[hf]);
-            D[hf] += x * gr[8 * n + u];
-          }
-        D[hf] = quad_sum(D[hf]);
+        D[hf] = div_r(quad_sum(D[hf]), den[hf], rden[hf]);
       }
-      store_rows_f32(o + (row0 + ra) * C + h * HD, o + (row0 + rb) * C + h * HD, oacc, in_a,
-                     in_b, tq);
       if (tq == 0) {
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
@@ -339,10 +323,8 @@ __global__ void __launch_bounds__(32 * NQ, 1)
       }
       __syncwarp();  // the final sweep reads the rows' statistics back (fewer registers)
 
-      // dq = scale (dS K), dS = P (dP - D)
-      TF32A fg[4];  // this warp's do rows, split
-      load_strip(fg, Gs + r0 * LD, lane);
-      float dq[4][4] = {};
+      // o = P V; dq = scale (dS K), dS = P (dP - D)
+      float oacc[4][4] = {}, dq[4][4] = {};
       sweep(stage_q, [&](int j, const float* bt) {
         float p[2][4], ds[2][4];
         {
@@ -364,6 +346,7 @@ __global__ void __launch_bounds__(32 * NQ, 1)
             }
           }
         }
+        mma_rows_f32(oacc, p, Vs + 16 * j * LD, lane);
         tile16_f32<false>(ds, fg, Vs + 16 * j * LD, lane);  // dP = dO V^T
         const float Dr[2] = {st_D[ra], st_D[rb]};
 #pragma unroll
@@ -372,6 +355,8 @@ __global__ void __launch_bounds__(32 * NQ, 1)
           for (int e = 0; e < 4; ++e) ds[n][e] = p[n][e] * (ds[n][e] - Dr[e >> 1]);
         mma_rows_f32(dq, ds, Ks + 16 * j * LD, lane);
       });
+      store_rows_f32(o + (row0 + ra) * C + h * HD, o + (row0 + rb) * C + h * HD, oacc, in_a,
+                     in_b, tq);
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
