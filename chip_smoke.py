@@ -22,9 +22,11 @@ Phases, one printed line each (any failure raises and exits non-zero):
    alone (``window_attention_core``) at the four stages in both softmax
    modes, bf16 and float32, beside one ``scaled_dot_product_attention`` call
    in the same dtype with the bias and the shift mask as its ``attn_mask``
-   (each line names the backend that took it), and the bf16 core's
-   registers, spill bytes, shared bytes and resident blocks per SM at
-   T = 144 (no spill, at least 2 blocks, at most 48 KB); K6's
+   (each line names the backend that took it; two calls bit-identical;
+   the float32 lines also give the bound at 3xTF32's effective rate), and
+   both cores' registers, spill bytes, shared bytes and resident blocks
+   per SM at T = 144 (no spill, at least 2 blocks, at most 48 KB bf16 and
+   104 KB float32); K6's
    attention-backward core alone (``window_attention_core_backward``)
    likewise in both dtypes, beside the backward of one
    ``scaled_dot_product_attention`` call whose ``attn_mask`` requires its
@@ -116,9 +118,11 @@ KERNELS = {
 SWITCHED = {"ffn_bwd": ("FLAIR_FFN_BWD", "kernel"), "finish": ("FLAIR_SWIN_FINISH", "1")}
 # the H100 SXM's published peaks: memory bytes/s,
 # and dense operations/s for the dtype a kernel's products run in (bf16 on
-# the tensor cores; float32 on the SIMT units, the kernels take no TF32)
+# the tensor cores; float32 on the SIMT units, the bound of every float32
+# kernel); "tf32x3": a third of the tf32 tensor cores' 495 TFLOP/s, the
+# effective rate of the float32 cores' 3xTF32 products, printed beside
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 T = WS * WS  # tokens per window
 # (H = W, C) entering each merge of swin-base@512 (stages 1->2, 2->3, 3->4)
 MERGES = [(128, 128), (64, 256), (32, 512)]
@@ -448,13 +452,14 @@ def library_core(qkv, bias, nwh, nh):
 def core_lines(stats, geom, bnw, c, nh, nwh, randn, bound, dtype) -> None:
     """K2's attention core alone at one stage geometry in ``dtype``, both
     softmax modes, against its plain version and beside the library call,
-    timed as device time (``device_ms``: at batch 2 one call's Python
-    outlasts the core's device work). bf16: at most 1 % of the outputs may
-    differ from the plain version's, and 4 bf16 units at the largest
-    magnitude; times of the slice's mode (attn_f32 False) go into
-    ``stats["window_attn_core"]``. float32: 1e-4 of the largest magnitude;
-    times of the training configuration's mode (attn_f32 True) go into
-    ``stats["window_attn_core_f32"]``."""
+    two calls bit-identical, timed as device time (``device_ms``: at batch
+    2 one call's Python outlasts the core's device work). bf16: at most 1 %
+    of the outputs may differ from the plain version's, and 4 bf16 units at
+    the largest magnitude; times of the slice's mode (attn_f32 False) go
+    into ``stats["window_attn_core"]``. float32: 1e-4 of the largest
+    magnitude, and beside the float32 bound the one at 3xTF32's effective
+    rate; times of the training configuration's mode (attn_f32 True) go
+    into ``stats["window_attn_core_f32"]``."""
     import torch
 
     from flair_for_aigle_tpu_torch.ops import window_attn
@@ -472,7 +477,13 @@ def core_lines(stats, geom, bnw, c, nh, nwh, randn, bound, dtype) -> None:
         # as the wrappers cast it), so no call times a cast
         bias = bias32 if attn_f32 else bias32.to(dtype)
         got = window_attn.window_attention_core(qkv, bias, **akw)
+        again = window_attn.window_attention_core(qkv, bias, **akw)
         want = window_attn.window_attention_core_reference(qkv, bias, **akw)
+        same = torch.equal(got, again)
+        say("kernel", f"{name} {geom} {dts} attn_f32={attn_f32}: repeat "
+            f"{'bit-identical ok' if same else 'DIFFERS FAIL'}")
+        if not same:
+            raise AssertionError(f"{name} {geom}: two calls differ")
         if attn_f32:  # the library call computes the float32 softmax's function
             lib_err = (lib.float() - want.float()).abs().max().item()
             lib_bound = bound(want, torch.bfloat16, 4, None)
@@ -495,32 +506,43 @@ def core_lines(stats, geom, bnw, c, nh, nwh, randn, bound, dtype) -> None:
         t_p = device_ms(lambda: window_attn.window_attention_core_reference(qkv, bias, **akw))
         cost = (*cost_window_attn_core(bnw, c, nh, 2 if bf else 4, 4 if attn_f32 else
                                        (2 if bf else 4)), dts)
+        x3 = (*cost[:2], "tf32x3")  # the same work at 3xTF32's effective rate
+        note = "" if bf else f"; at 3xTF32's 165 TFLOP/s {_bound_text(x3)}"
         _compare(name, f"{geom} {dts} attn_f32={attn_f32}", got, want,
-                 bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost, t_lib=t_l)
+                 bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost, t_lib=t_l, note=note)
         if attn_f32 != bf:  # bf16: the slice's mode; float32: training's
             _add_time(stats, name, t_k, t_p, cost)
             s = stats[name]
             s["library_ms"] = (s["library_ms"] or 0.0) + t_l
+            if not bf:
+                s["bound_3xtf32_ms"] = s.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
 
 
 def core_info(stats) -> None:
-    """The bf16 core kernel's registers, spill bytes, shared bytes and
-    resident blocks per SM at T = 144 in both modes; raises on a spill, on
-    fewer than 2 blocks per SM or on more than 48 KB of shared memory."""
+    """K2's core kernels' registers, spill bytes, shared bytes and resident
+    blocks per SM at T = 144 in both modes; raises on a spill, on fewer
+    than 2 blocks per SM, or on more shared memory a block than the
+    design's: 48 KB for the bf16 core, 104 KB for the float32 core (float32
+    q rows, k and v split into tf32 halves)."""
+    import torch
+
     from flair_for_aigle_tpu_torch.ops import window_attn
 
-    for attn_f32 in (True, False):
-        info = window_attn.window_attention_core_info(T, attn_f32)
-        say("kernel", f"window_attn_core T{T} bf16 attn_f32={attn_f32}: {info['regs']} registers, "
-            f"{info['spill_bytes']} spill bytes, {info['shared_bytes']} shared bytes per block, "
-            f"{info['blocks_per_sm']} blocks per SM (bound: 0 spill bytes, >= 2 blocks per SM, "
-            f"<= 49152 shared bytes)")
-        if (info["spill_bytes"] > 0 or info["blocks_per_sm"] < 2
-                or info["shared_bytes"] > 48 * 1024):
-            raise AssertionError(f"the core spills or misses its occupancy at "
-                                 f"attn_f32={attn_f32}: {info}")
-        if not attn_f32:
-            stats["window_attn_core"]["info"] = info
+    for dtype, name, smem, mode in ((torch.bfloat16, "window_attn_core", 48 * 1024, False),
+                                    (torch.float32, "window_attn_core_f32", 104 * 1024, True)):
+        for attn_f32 in (True, False):
+            info = window_attn.window_attention_core_info(T, attn_f32, dtype)
+            say("kernel", f"{name} T{T} {'bf16' if dtype == torch.bfloat16 else 'f32'} "
+                f"attn_f32={attn_f32}: {info['regs']} registers, {info['spill_bytes']} spill "
+                f"bytes, {info['shared_bytes']} shared bytes per block, {info['blocks_per_sm']} "
+                f"blocks per SM (bound: 0 spill bytes, >= 2 blocks per SM, <= {smem} shared "
+                f"bytes)")
+            if (info["spill_bytes"] > 0 or info["blocks_per_sm"] < 2
+                    or info["shared_bytes"] > smem):
+                raise AssertionError(f"{name} spills or misses its occupancy at "
+                                     f"attn_f32={attn_f32}: {info}")
+            if attn_f32 == mode:  # the mode whose times the stats sum
+                stats[name]["info"] = info
 
 
 def cost_window_attn_bwd_core(bnw, c, nh, isz):
@@ -757,7 +779,7 @@ def bwd_core_info(stats) -> None:
                 stats[name]["info"] = info
 
 
-def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None):
+def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None, note=""):
     import torch
 
     err = (got.float() - want.float()).abs()
@@ -766,7 +788,7 @@ def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None):
     lib = "" if t_lib is None else f"library {t_lib:.4f} ms (x{t_lib / t_k:.2f} the kernel's), "
     say("kernel", f"{name} {case}: max_abs_err {mx:.3e} median {med:.3e} "
         f"bound {bound:.3e} {'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, {lib}{_bound_text(cost)}")
+        f"plain {t_p:.4f} ms, {lib}{_bound_text(cost)}{note}")
     s = _stat(stats, name)
     s["max_abs_err"] = max(s["max_abs_err"], mx)
     if not ok:
@@ -1048,9 +1070,11 @@ def phase_kernels() -> dict:
     bwd_core_info(stats)
     for name, st in stats.items():
         lib = "" if st["library_ms"] is None else f"library {st['library_ms']:.4f} ms, "
+        x3 = (f", at 3xTF32's rate {st['bound_3xtf32_ms']:.4f} ms" if "bound_3xtf32_ms" in st
+              else "")
         say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
             f"{lib}bound {st['bound_ms']:.4f} ms (bytes {st['bytes_ms']:.4f}, operations "
-            f"{st['ops_ms']:.4f}); share of bound {st['bound_ms'] / st['ms']:.3f}")
+            f"{st['ops_ms']:.4f}{x3}); share of bound {st['bound_ms'] / st['ms']:.3f}")
     return stats
 
 
@@ -1557,17 +1581,19 @@ def main() -> int:
     # single PyTorch call computes the other, fused functions)
     runs = {"zonal": zonal, "train": train, "train_switched": train_switched, "tool": tool}
     # K2's bf16 attention core alone, summed over the stages at attn_f32
-    # False (the slice's), with its resources at T = 144; its float32 core
-    # at attn_f32 True (the training configuration's), for information
-    core, info = stats["window_attn_core"], stats["window_attn_core"]["info"]
-    core32 = stats["window_attn_core_f32"]
-    extra = {"window_attn": {
-        "core_ms": core["ms"], "core_plain_ms": core["plain_ms"],
-        "core_bound_ms": core["bound_ms"], "core_library_ms": core["library_ms"],
-        "core_regs": info["regs"], "core_spill_bytes": info["spill_bytes"],
-        "core_blocks_per_sm": info["blocks_per_sm"],
-        "core_f32_ms": core32["ms"], "core_f32_plain_ms": core32["plain_ms"],
-        "core_f32_bound_ms": core32["bound_ms"], "core_f32_library_ms": core32["library_ms"]}}
+    # False (the slice's), and its float32 core at attn_f32 True (the
+    # training configuration's, with its bound at 3xTF32's rate beside),
+    # with their resources at T = 144
+    extra = {"window_attn": {}}
+    for key, name in (("core", "window_attn_core"), ("core_f32", "window_attn_core_f32")):
+        core, info = stats[name], stats[name]["info"]
+        extra["window_attn"].update({
+            f"{key}_ms": core["ms"], f"{key}_plain_ms": core["plain_ms"],
+            f"{key}_bound_ms": core["bound_ms"], f"{key}_library_ms": core["library_ms"],
+            f"{key}_regs": info["regs"], f"{key}_spill_bytes": info["spill_bytes"],
+            f"{key}_blocks_per_sm": info["blocks_per_sm"]})
+    extra["window_attn"]["core_f32_bound_3xtf32_ms"] = stats["window_attn_core_f32"][
+        "bound_3xtf32_ms"]
     # K6's bf16 and float32 cores alone, summed over the stages at attn_f32
     # True (the training configuration's), with their resources at T = 144
     extra["window_attn_bwd"] = {}

@@ -1,9 +1,10 @@
-// Helpers of the mma.sync attention cores (K2's forward core in
-// window_attn.cu, K6's backward cores in window_attn_bwd.cu and
-// window_attn_bwd_f32.cu): cp.async copies, ldmatrix and
-// mma.sync.m16n8k16 fragments, bf16 pair arithmetic with explicit
+// Helpers of the mma.sync attention cores (K2's forward cores in
+// window_attn.cu and window_attn_f32.cu, K6's backward cores in
+// window_attn_bwd.cu and window_attn_bwd_f32.cu): cp.async copies, ldmatrix
+// and mma.sync.m16n8k16 fragments, bf16 pair arithmetic with explicit
 // rounding, read-only loads, 3xTF32 products on mma.sync.m16n8k8 with
-// their split fragments, and a kernel's resources.
+// their split fragments, the float32 cores' scores, and a kernel's
+// resources.
 #pragma once
 
 #include "common.cuh"
@@ -218,6 +219,81 @@ __device__ __forceinline__ void ld_b_pairs_tf32(TF32B& f, const float* p, int ld
   const int g = lane >> 2, t = lane & 3;
   split_tf32(p[2 * t * ld + g], f.hi[0], f.lo[0]);
   split_tf32(p[(2 * t + 1) * ld + g], f.hi[1], f.lo[1]);
+}
+
+// ld_b_tf32's and ld_b_pairs_tf32's fragments from operands split ahead:
+// the tf32 bit patterns split_tf32 made, hi at `hi`, lo at `lo`, rows of ld
+__device__ __forceinline__ void ld_b_bits(TF32B& f, const uint32_t* hi, const uint32_t* lo,
+                                          int ld, int lane) {
+  const int i = (lane >> 2) * ld + (lane & 3);
+  f.hi[0] = hi[i];
+  f.lo[0] = lo[i];
+  f.hi[1] = hi[i + 4];
+  f.lo[1] = lo[i + 4];
+}
+
+__device__ __forceinline__ void ld_b_pairs_bits(TF32B& f, const uint32_t* hi, const uint32_t* lo,
+                                                int ld, int lane) {
+  const int i = 2 * (lane & 3) * ld + (lane >> 2);
+  f.hi[0] = hi[i];
+  f.lo[0] = lo[i];
+  f.hi[1] = hi[i + ld];
+  f.lo[1] = lo[i + ld];
+}
+
+// ---- the float32 cores' scores (K2's window_attn_f32.cu, K6's
+// window_attn_bwd_f32.cu) ----
+
+// float32 rows of a head (32 floats) in shared memory are padded to F_LD:
+// lane (g, t) of an A or B fragment then reads bank (4 g + t) mod 32, and of
+// a B fragment over the row pair (2 t, 2 t + 1) bank (8 t + g) or
+// (8 t + g + 4) mod 32, no conflicts
+constexpr int F_LD = 36;
+
+// the warp's 16 rows at `rows` (16 x 32, rows of F_LD) as four split A
+// fragments, head dims 8 kk .. 8 kk + 7
+__device__ __forceinline__ void load_strip(TF32A (&a)[4], const float* rows, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ld_a_tf32(a[kk], rows + 8 * kk, F_LD, lane);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// bits 0 and 8: whether cols c and c + 1 lie in another compared band than
+// the row (rowb: the row's band byte in both bytes; sel: the bands compared
+// in this window, bit 0 the grid's last row, bit 1 its last column)
+__device__ __forceinline__ uint32_t band_diff(const uint8_t* bands, int c, uint32_t rowb,
+                                              uint32_t sel) {
+  return sel ? (*reinterpret_cast<const uint16_t*>(bands + c) ^ rowb) & sel : 0u;
+}
+
+// the float32 score s = acc * scale + bias (- 100 where the bands differ),
+// the float32 ops one at a time, as the reference rounds them (no fused
+// multiply-add)
+__device__ __forceinline__ float s_f32(float acc, float b, bool differ, float scale) {
+  float s = __fadd_rn(__fmul_rn(acc, scale), b);
+  if (differ) s = __fadd_rn(s, -100.f);
+  return s;
+}
+
+// attn_f32: e = exp(min(s, 80) - 30) of the float32 score, 0 past Tn
+__device__ __forceinline__ float e_f32(float acc, float b, bool differ, bool in, float scale) {
+  return in ? expf(fminf(s_f32(acc, b, differ, scale), 80.f) - 30.f) : 0.f;
+}
+
+// e of one element (acc: its product, b: its bias, differ: whether its
+// bands differ, in: whether its column lies before T, else 0): attn_f32
+// exp(min(s, 80) - 30); else exp(s - m), m its query row's max
+template <bool F32>
+__device__ __forceinline__ float e_of(float acc, float b, bool differ, bool in, float scale,
+                                      float m) {
+  if constexpr (F32)
+    return e_f32(acc, b, differ, in, scale);
+  else
+    return in ? expf(__fsub_rn(s_f32(acc, b, differ, scale), m)) : 0.f;
 }
 
 }  // namespace

@@ -51,8 +51,9 @@
 //     own q rows and stored in 16-byte rows.
 //   - __launch_bounds__(32 * TP / 16, 2): two blocks per SM, no spill.
 // No (T, T) tile touches shared memory. The float32 core
-// (attn_core_f32_kernel) stays on the SIMT units: one block per (window,
-// head) with each warp's float32 score strip in shared memory.
+// (attn_core_f32_kernel, window_attn_f32.cu) keeps this skeleton with both
+// products on the tensor cores as 3xTF32, the scores streamed one 16 x 8
+// key tile at a time into O.
 #include <type_traits>
 
 #include "common.cuh"
@@ -63,131 +64,12 @@ namespace flair {
 
 constexpr int ATTN_HD = 32;        // swin v1 head dim (embed_dim / heads) at every size
 constexpr int CORE_LD = ATTN_HD + 8;  // bf16 core: shared row stride in elements (80 bytes)
-constexpr int F32_HDP = ATTN_HD + 1;  // float32 core: padded shared row
 
-inline size_t attn_f32_smem_bytes(int tp) {
-  return (3ull * tp * F32_HDP + (size_t)tp * tp + tp) * sizeof(float);
-}
-
-__device__ __forceinline__ int band(int x, int ws, int ss) { return x < ws - ss ? 1 : 2; }
-
-// float32 core: SIMT FMAs, scores in shared memory, probabilities in place
-template <bool F32>
-__global__ void attn_core_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                                     float* __restrict__ o, int Tn, int C, int ws, int ss,
-                                     int nwh, int nww, float scale) {
-  constexpr int HD = ATTN_HD;
-  constexpr int HDP = F32_HDP;
-  const int TP = (Tn + 15) / 16 * 16;
-  const int w = blockIdx.x, h = blockIdx.y;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int r0 = wid * 16;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + TP * HDP;
-  float* Vs = Ks + TP * HDP;
-  float* Ss = Vs + TP * HDP;
-  float* Ps = Ss;
-  float* dn = Ss + TP * TP;
-
-  // q, k, v of this (window, head); rows past Tn are zero
-  const long long row0 = (long long)w * Tn;
-  const int C3 = 3 * C;
-  for (int e = threadIdx.x; e < TP * HD; e += blockDim.x) {
-    const int t = e / HD, d = e % HD;
-    float q = 0.f, k = q, v = q;
-    if (t < Tn) {
-      const float* src = qkv + (row0 + t) * C3 + h * HD + d;
-      q = src[0];
-      k = src[C];
-      v = src[2 * C];
-    }
-    Qs[t * HDP + d] = q;
-    Ks[t * HDP + d] = k;
-    Vs[t * HDP + d] = v;
-  }
-  __syncthreads();
-
-  float* Sw = Ss + r0 * TP;  // this warp's 16 x TP score strip
-  float* Pw = Ps + r0 * TP;
-  for (int e = lane; e < 16 * TP; e += 32) {
-    const int r = e / TP, j = e % TP;
-    float s = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) s = fmaf(Qs[(r0 + r) * HDP + d], Ks[j * HDP + d], s);
-    Sw[r * TP + j] = s;
-  }
-  __syncwarp();
-
-  // softmax over each of the warp's rows (columns spread over the lanes)
-  const int widx = w % (nwh * nww);
-  const bool li = ss > 0 && widx / nww == nwh - 1;
-  const bool lj = ss > 0 && widx % nww == nww - 1;
-  const float scale_t = scale;  // the compute dtype is float32
-  constexpr int MAXQ = 5;       // ceil(144 / 32)
-  for (int r = 0; r < 16; ++r) {
-    const int i = r0 + r;
-    if (i >= Tn) {
-      for (int j = lane; j < TP; j += 32) Pw[r * TP + j] = 0.f;
-      if (lane == 0) dn[i] = 1.f;
-      continue;
-    }
-    const int bri = band(i / ws, ws, ss), bci = band(i % ws, ws, ss);
-    const float* brow = bias + ((long long)h * Tn + i) * Tn;
-    float sv[MAXQ];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int q = 0; q < MAXQ; ++q) {
-      const int j = lane + 32 * q;
-      sv[q] = -INFINITY;
-      if (j < Tn) {
-        float s = Sw[r * TP + j];
-        const bool differ = (li && bri != band(j / ws, ws, ss)) || (lj && bci != band(j % ws, ws, ss));
-        if constexpr (F32) {
-          s = s * scale + brow[j];
-          if (differ) s += -100.f;
-        } else {
-          s = s * scale_t;
-          s = s + brow[j];
-          if (differ) s = s + -100.f;
-        }
-        sv[q] = s;
-        mx = fmaxf(mx, s);
-      }
-    }
-    float sum = 0.f;
-    if constexpr (!F32) mx = warp_max(mx);
-#pragma unroll
-    for (int q = 0; q < MAXQ; ++q) {
-      const int j = lane + 32 * q;
-      if (j < Tn) {
-        float e;
-        if constexpr (F32) {
-          e = expf(fminf(sv[q], 80.f) - 30.f);
-        } else {
-          e = expf(sv[q] - mx);
-        }
-        sum += e;
-        Pw[r * TP + j] = e;
-      } else if (j < TP) {
-        Pw[r * TP + j] = 0.f;
-      }
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) dn[i] = sum + 1e-37f;
-  }
-  __syncwarp();
-
-  // o = P V / denominator, written at this head's channel offset
-  for (int e = lane; e < 16 * HD; e += 32) {
-    const int r = e / HD, d = e % HD, i = r0 + r;
-    if (i >= Tn) continue;
-    float acc = 0.f;
-    for (int j = 0; j < Tn; ++j) acc = fmaf(Pw[r * TP + j], Vs[j * HDP + d], acc);
-    o[(row0 + i) * C + h * HD + d] = acc / dn[i];
-  }
-}
+// the float32 core on qkv (bnw * t, 3c) -> o (bnw * t, c)
+// (window_attn_f32.cu); with `info`, nothing launches and info[0..3]
+// receive its resources at t tokens
+int attn_core_f32(const float* qkv, const float* bias, float* o, int bnw, int t, int c, int nh,
+                  int ws, int ss, int nwh, int nww, int attn_f32, cudaStream_t s, int* info);
 
 // bf16 core: S and P in mma.sync registers (see the note at the top)
 template <int NQ, bool F32>
@@ -376,21 +258,6 @@ __global__ void __launch_bounds__(32 * NQ, 2)
 }
 
 
-template <bool F32>
-int f32_core(const float* qkv, const void* bias, float* o, int bnw, int t, int c, int nh, int ws,
-             int ss, int nwh, int nww, cudaStream_t stream, int* info) {
-  const int tp = (t + 15) / 16 * 16;
-  const size_t smem = attn_f32_smem_bytes(tp);
-  cudaError_t e = cudaFuncSetAttribute(attn_core_f32_kernel<F32>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  if (info) return kernel_info(attn_core_f32_kernel<F32>, tp / 16 * 32, smem, info);
-  const float scale = 1.f / sqrtf((float)ATTN_HD);
-  attn_core_f32_kernel<F32><<<dim3(bnw, nh), tp / 16 * 32, smem, stream>>>(
-      qkv, (const float*)bias, o, t, c, ws, ss, nwh, nww, scale);
-  return 0;
-}
-
 template <int NQ, bool F32>
 int bf16_core_nq(const bf16* qkv, const void* bias, bf16* o, int bnw, int t, int c, int nh,
                  int ws, int ss, int nwh, int nww, cudaStream_t stream, int* info) {
@@ -428,8 +295,8 @@ template <typename T>
 int attn_core(const T* qkv, const void* bias, T* o, int bnw, int t, int c, int nh, int ws,
               int ss, int nwh, int nww, int attn_f32, cudaStream_t s, int* info = nullptr) {
   if constexpr (std::is_same<T, float>::value) {
-    return attn_f32 ? f32_core<true>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s, info)
-                    : f32_core<false>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s, info);
+    return attn_core_f32(qkv, (const float*)bias, o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32,
+                         s, info);
   } else {
     return attn_f32 ? bf16_core<true>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s, info)
                     : bf16_core<false>(qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, s, info);

@@ -2,7 +2,8 @@
 // the bf16 core (window_attn_bwd.cu) and the float32 core
 // (window_attn_bwd_f32.cu). Both take one block per (window group, head),
 // one warp per 16 rows, the bias and dbias tiles staged per warp by
-// cp.async, and the same score and probability arithmetic.
+// cp.async, and the same score and probability arithmetic (the score
+// functions in core_util.cuh, shared with K2's float32 core).
 #pragma once
 
 #include "common.cuh"
@@ -56,11 +57,6 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld, const float* src,
   }
 }
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // the column sums of a 16 x 32 float32 tile (rows past Tn left out, as
 // invalid0 / 1 say for rows g, g + 8) added to this warp's slots `cs`
 __device__ __forceinline__ void add_colsums(float* cs, const float (&acc)[4][4], bool in0,
@@ -75,28 +71,6 @@ __device__ __forceinline__ void add_colsums(float* cs, const float (&acc)[4][4],
       v += __shfl_xor_sync(0xffffffffu, v, 16);
       if (lane < 4) cs[8 * n + 2 * lane + u] += v;
     }
-}
-
-// bits 0 and 8: whether cols c and c + 1 lie in another compared band than
-// the row (rowb: the row's band byte in both bytes; sel: the bands compared
-// in this window, bit 0 the grid's last row, bit 1 its last column)
-__device__ __forceinline__ uint32_t band_diff(const uint8_t* bands, int c, uint32_t rowb,
-                                              uint32_t sel) {
-  return sel ? (*reinterpret_cast<const uint16_t*>(bands + c) ^ rowb) & sel : 0u;
-}
-
-// the float32 score s = acc * scale + bias (- 100 where the bands differ),
-// the float32 ops one at a time, as the reference rounds them (no fused
-// multiply-add)
-__device__ __forceinline__ float s_f32(float acc, float b, bool differ, float scale) {
-  float s = __fadd_rn(__fmul_rn(acc, scale), b);
-  if (differ) s = __fadd_rn(s, -100.f);
-  return s;
-}
-
-// attn_f32: e = exp(min(s, 80) - 30) of the float32 score, 0 past Tn
-__device__ __forceinline__ float e_f32(float acc, float b, bool differ, bool in, float scale) {
-  return in ? expf(fminf(s_f32(acc, b, differ, scale), 80.f) - 30.f) : 0.f;
 }
 
 // p = RN(a / b) from r = RN(1 / b): q = RN(a r) and one correction step,

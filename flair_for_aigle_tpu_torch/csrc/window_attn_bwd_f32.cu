@@ -61,8 +61,6 @@
 
 namespace flair {
 
-constexpr int F_LD = BWD_HD + 4;  // float32 row stride in shared memory (36 floats)
-
 // shared bytes of the float32 core at tp padded tokens: q, k, v, do rows;
 // the warps' rings; per query row its max, denominator, reciprocal and D;
 // per warp the dq, dk, dv column sums; per token its band byte
@@ -72,13 +70,6 @@ inline size_t f32_bwd_smem_bytes(int tp) {
 }
 
 namespace {
-
-// the warp's 16 rows at `rows` (16 x 32) as four split A fragments, head
-// dims 8 kk .. 8 kk + 7
-__device__ __forceinline__ void load_strip(TF32A (&a)[4], const float* rows, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) ld_a_tf32(a[kk], rows + 8 * kk, F_LD, lane);
-}
 
 // acc[n] = the strip a times rows 8 n .. 8 n + 7 of b_rows over the head
 // dims (one 16 x 16 tile); MIRROR: the transposed product's term order
@@ -113,18 +104,6 @@ __device__ __forceinline__ void mma_rows_f32(float (&acc)[4][4], const float (&x
       mma_3xtf32<false>(acc[m], a, b);
     }
   }
-}
-
-// e of one element (acc: its product, b: its bias, differ: whether its
-// bands differ, in: whether its column lies before T, else 0): attn_f32
-// exp(min(s, 80) - 30); else exp(s - m), m its query row's max
-template <bool F32>
-__device__ __forceinline__ float e_of(float acc, float b, bool differ, bool in, float scale,
-                                      float m) {
-  if constexpr (F32)
-    return e_f32(acc, b, differ, in, scale);
-  else
-    return in ? expf(__fsub_rn(s_f32(acc, b, differ, scale), m)) : 0.f;
 }
 
 // p = e / den of one element (m, den, rden = 1 / den: its query row's

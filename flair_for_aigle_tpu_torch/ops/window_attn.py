@@ -5,9 +5,11 @@ with their plain PyTorch versions.
 Replaces ``flair_for_aigle_tpu/ops/pallas/window_attn.py:973
 fused_window_attention`` (forward; body ``_kernel_body`` :173). On the card
 the two projections are tensor-core GEMMs with a fused bias epilogue and the
-attention core runs one block per (window, head) with the score strip, the
-probabilities and the output tile in shared memory, so the (B*nW, nh, T, T)
-scores never reach device memory. See the CUDA source for the bounds.
+attention core runs one block per (window, head), one warp per 16 query
+rows, with the scores and probabilities in mma.sync registers (bf16 on
+m16n8k16; float32 as 3xTF32 on m16n8k8, ``csrc/window_attn_f32.cu``), so
+the (B*nW, nh, T, T) scores never leave the SM. See the CUDA sources for
+the bounds.
 
 Weights use the ``nn.Linear`` layout: ``wqkv`` (3C, C), ``wproj`` (C, C).
 The softmax follows the Pallas body: ``attn_f32=True`` is the float32

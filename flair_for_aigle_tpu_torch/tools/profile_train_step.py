@@ -12,8 +12,10 @@ nvidia-smi), then two JSON lines: ``ms_per_step``, the host clock around
 then, from ``torch.profiler`` over another ``--steps`` steps,
 ``device_busy_ms_per_step`` (the summed time of the card's kernels and
 copies, one stream, so no overlap), ``wall_ms_per_step`` (the host clock
-under the profiler) and ``kernels``: the 15 largest by device time as
-[name, ms per step, calls per step]. ``FLAIR_FFN_BWD`` and
+under the profiler), ``kernels``: the 15 largest by device time as
+[name, ms per step, calls per step], and ``cores``: the attention cores of
+K2 and K6 (``attn_core_*``, ``attn_bwd_core_*``) as {name: [ms per step,
+calls per step]}, however small. ``FLAIR_FFN_BWD`` and
 ``FLAIR_SWIN_FINISH`` are read as in training. Runs on the card unless
 ``--device cpu`` asks for the CPU (the plain versions; no device lines).
 """
@@ -110,7 +112,11 @@ def main(argv=None) -> None:
     print(json.dumps({
         "device_busy_ms_per_step": busy, "wall_ms_per_step": wall / args.steps * 1e3,
         "kernels": [[e.key[:90], e.self_device_time_total / 1e3 / args.steps,
-                     e.count / args.steps] for e in events[:15]]}), flush=True)
+                     e.count / args.steps] for e in events[:15]],
+        "cores": {e.key[:90]: [e.self_device_time_total / 1e3 / args.steps,
+                               e.count / args.steps]
+                  for e in events if "attn_core" in e.key or "attn_bwd_core" in e.key}}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -102,17 +102,20 @@ def test_window_attn_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("attn_f32", [True, False])
-@pytest.mark.parametrize("ws,ss,grid,c,nh", ATTN_GEOMS)
-def test_window_attn_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
-    """The bf16 attention core alone against its plain version; two calls
-    bit-identical. Both round in the same places in the same order, and only
-    their float32 sums (P V, the row sums) run in another order, so at most
-    1 % of the outputs may differ at all."""
+@pytest.mark.parametrize("ws,ss,grid,c,nh", BWD_GEOMS)
+def test_window_attn_core_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
+    """K2's attention core alone against its plain version; two calls
+    bit-identical, one launch each. bf16: both round in the same places in
+    the same order, and only their float32 sums (P V, the row sums) run in
+    another order, so at most 1 % of the outputs may differ at all, by 4
+    bf16 units at the largest magnitude. float32 (the 3xTF32 core): within
+    1e-4 of the largest magnitude."""
     g = torch.Generator(device=dev).manual_seed(10)
     t = ws * ws
     bnw = 2 * grid[0] * grid[1]
-    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(torch.bfloat16)
+    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(dtype)
     bias = torch.randn((nh, t, t), generator=g, device=dev) * 0.5
     kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=attn_f32)
     window_attn.window_attention_core.launches = 0
@@ -121,16 +124,21 @@ def test_window_attn_core_kernel(dev, attn_f32, ws, ss, grid, c, nh):
     want = window_attn.window_attention_core_reference(qkv, bias, **kw)
     torch.cuda.synchronize()
     assert window_attn.window_attention_core.launches == 2
-    assert got.shape == (bnw * t, c) and got.dtype == torch.bfloat16
+    assert got.shape == (bnw * t, c) and got.dtype == dtype
     assert torch.equal(got, again)
-    _assert_close(got, want, torch.bfloat16)
-    assert (got != want).float().mean().item() <= 0.01
+    assert torch.isfinite(got).all()
+    _assert_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        assert (got != want).float().mean().item() <= 0.01
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("attn_f32", [True, False])
-def test_window_attn_core_resources(dev, attn_f32):
-    """At T = 144 the bf16 core spills nothing and keeps two blocks per SM."""
-    info = window_attn.window_attention_core_info(144, attn_f32)
+def test_window_attn_core_resources(dev, attn_f32, dtype):
+    """At T = 144 both cores spill nothing and keep two blocks (18 warps)
+    per SM: the bf16 core in 35 KB of shared memory, the float32 core in
+    104 KB (float32 q rows, k and v split into tf32 halves)."""
+    info = window_attn.window_attention_core_info(144, attn_f32, dtype)
     assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 2, info
 
 

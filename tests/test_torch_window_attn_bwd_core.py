@@ -23,6 +23,7 @@ import torch
 
 from flair_for_aigle_tpu.ops.pallas import window_attn as jwa
 from flair_for_aigle_tpu_torch.ops import window_attn
+from tests._tf32 import matmul_3xtf32, split, tf32
 from tests._torch_threads import few_torch_threads  # noqa: F401
 
 NAMES = ["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias"]
@@ -130,34 +131,10 @@ def test_core_backward_wrapper_takes_the_plain_version_on_cpu_tensors(attn_f32):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-_MATMUL = torch.matmul
-
-
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 rounded to tf32 (10 fraction bits) as cvt.rna.tf32.f32
-    rounds a finite value: to nearest, ties away from zero, on the bits
-    (u + 0x1000) & 0xFFFFE000."""
-    u = x.contiguous().view(torch.int32)
-    return ((u + 0x1000) & -0x2000).view(torch.float32)  # -0x2000: 0xFFFFE000
-
-
-def _split(x: torch.Tensor):
-    hi = _tf32(x)
-    return hi, _tf32(x - hi)
-
-
-def _matmul_3xtf32(a, b):
-    """a @ b as the float32 core's tensor cores take it: both operands split
-    into tf32 halves, a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first,
-    float32 accumulation."""
-    (ah, al), (bh, bl) = _split(a.float()), _split(b.float())
-    return (_MATMUL(al, bh) + _MATMUL(ah, bl)) + _MATMUL(ah, bh)
-
-
 def _core_3xtf32(qkv, do, bias, **kw):
     """The plain float32 core with every product (q k^T, p v, p^T do,
     do v^T, ds k, ds^T q) taken as 3xTF32."""
-    with mock.patch.object(torch, "matmul", _matmul_3xtf32):
+    with mock.patch.object(torch, "matmul", matmul_3xtf32):
         return window_attn.window_attention_core_backward_reference(qkv, do, bias, **kw)
 
 
@@ -167,7 +144,7 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     x = torch.tensor([one + ulp / 2, one + ulp / 2 - 2 ** -23, -(one + ulp / 2),
                       one + 3 * ulp / 2, 3.0e-39, 0.0], dtype=torch.float32)
     want = torch.tensor([one + ulp, one, -(one + ulp), one + 2 * ulp, 3.0e-39, 0.0])
-    got = _tf32(x)
+    got = tf32(x)
     assert torch.equal(got[:4], want[:4].float())
     assert got[4].item() == pytest.approx(3.0e-39, rel=2 ** -10) and got[5].item() == 0.0
     assert not (got.view(torch.int32) & 0x1FFF).any()  # the low 13 bits are clear
@@ -176,7 +153,7 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
 def test_the_tf32_split_holds_float32_to_2_to_the_minus_22():
     x = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
     x = x * torch.exp2(torch.from_numpy(np.random.default_rng(1).integers(-20, 20, 4096)).float())
-    hi, lo = _split(x)
+    hi, lo = split(x)
     assert (((hi.double() + lo.double()) - x.double()).abs() <= 2.0 ** -22 * x.double().abs()).all()
 
 
