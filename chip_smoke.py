@@ -34,7 +34,13 @@ Phases, one printed line each (any failure raises and exits non-zero):
    of each output's largest magnitude), the two passes' probabilities read
    out through o and dv (equal), and both cores' resources at T = 144 (no
    spill; at least 16 warps per SM for the bf16 core, 9 for the float32
-   core);
+   core); K3 at the four stages in bf16 and float32 at batch 2 and in bf16
+   at batch 16 (the zonal batch): two calls bit-identical, kernel and
+   plain ms (device time), its two products alone through cuBLAS
+   (``torch.nn.functional.linear`` in the same dtype, TF32 off: the GEMM
+   part's yardstick, K3's function being fused), float32 also bounded at
+   3xTF32's rate; then its GEMM kernels' resources at each stage (no
+   spill; at least 2 blocks per SM);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -779,6 +785,88 @@ def bwd_core_info(stats) -> None:
                 stats[name]["info"] = info
 
 
+def ffn_lines(stats, batch, hw, c, dtype, randn, bound, ffn_params) -> None:
+    """K3 at one stage for ``batch`` tiles of 512 px in ``dtype``: against
+    its plain version (4 bf16 units, float32 1e-4 of the largest
+    magnitude), two calls bit-identical, kernel and plain ms as device time
+    (``device_ms``: at batch 2 a call's Python outlasts K3's device work;
+    ``tools/time_ffn.py`` times it the same way), and beside them the two products alone through cuBLAS
+    (``torch.nn.functional.linear`` twice in the same dtype, float32 with
+    TF32 off): a yardstick of the GEMM part, not a library call computing
+    K3's fused function. float32 lines give the bound at 67 TFLOP/s and
+    at 3xTF32's 165. Sums: bf16 at batch 2 in ``stats["ffn"]``, float32 in
+    ``stats["ffn_f32"]``, bf16 at the zonal batch in ``stats["ffn_b16"]``."""
+    import torch
+    import torch.nn.functional as F
+
+    from flair_for_aigle_tpu_torch.ops import ffn
+
+    bf = dtype == torch.bfloat16
+    dts = "bf16" if bf else "f32"
+    n = batch * hw * hw
+    x = randn(batch, hw, hw, c, dtype=dtype)
+    a = randn(batch, hw, hw, c, dtype=dtype, std=0.5)
+    fp = ffn_params(c)
+    got = ffn.fused_ln_mlp_residual(x, a, *fp)
+    again = ffn.fused_ln_mlp_residual(x, a, *fp)
+    want = ffn.fused_ln_mlp_residual_reference(x, a, *fp)
+    tag = f"B{batch} {hw}x{hw}x{c} {dts}"
+    same = torch.equal(got, again)
+    say("kernel", f"ffn {tag}: repeat {'bit-identical ok' if same else 'DIFFERS FAIL'}")
+    if not same:
+        raise AssertionError(f"ffn {tag}: two calls differ")
+    t_k = device_ms(lambda: ffn.fused_ln_mlp_residual(x, a, *fp))
+    t_p = device_ms(lambda: ffn.fused_ln_mlp_residual_reference(x, a, *fp))
+    ln, h = randn(n, c, dtype=dtype), randn(n, 4 * c, dtype=dtype)
+    w1, w2 = fp[2].to(dtype), fp[4].to(dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t_l = device_ms(lambda: (F.linear(ln, w1), F.linear(h, w2)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cost = (*cost_ffn(n, c, 2 if bf else 4), dts)
+    x3 = (*cost[:2], "tf32x3")  # the same work at 3xTF32's effective rate
+    note = (f"; cuBLAS products (F.linear x2, {dts}) {t_l:.4f} ms"
+            + ("" if bf else f"; at 3xTF32's 165 TFLOP/s {_bound_text(x3)}"))
+    _compare("ffn", tag, got, want, bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost,
+             note=note)
+    name = "ffn_b16" if batch != 2 else ("ffn" if bf else "ffn_f32")
+    _add_time(stats, name, t_k, t_p, cost)
+    s = stats[name]
+    s["cublas_ms"] = s.get("cublas_ms", 0.0) + t_l
+    if not bf:
+        s["bound_3xtf32_ms"] = s.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
+
+
+def ffn_info_lines(stats) -> None:
+    """K3's two GEMM kernels at each stage's C and the rows of batch 2 (bf16
+    and float32) and of the zonal batch (bf16): registers, spill bytes,
+    shared bytes and resident blocks per SM; raises on a spill or on fewer
+    than the design's 2 blocks per SM."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import ffn
+
+    worst = {"gemm_spill_bytes": 0, "gemm_max_regs": 0, "gemm_min_blocks_per_sm": 99}
+    for (hw, c, _) in STAGES:
+        for dtype, batch in ((torch.bfloat16, 2), (torch.float32, 2), (torch.bfloat16, BATCH)):
+            dts = "bf16" if dtype == torch.bfloat16 else "f32"
+            info = ffn.ffn_info(c, 4 * c, dtype, n=batch * hw * hw)
+            for kname, i in info.items():
+                say("kernel", f"ffn GEMM B{batch} C{c} {dts} {kname}: {i['regs']} registers, "
+                    f"{i['spill_bytes']} spill bytes, {i['shared_bytes']} shared bytes per "
+                    f"block, {i['blocks_per_sm']} blocks per SM (bound: 0 spill bytes, >= 2 "
+                    f"blocks per SM)")
+                if i["spill_bytes"] > 0 or i["blocks_per_sm"] < 2:
+                    raise AssertionError(f"ffn GEMM {kname} spills or misses its occupancy: {i}")
+                worst["gemm_spill_bytes"] = max(worst["gemm_spill_bytes"], i["spill_bytes"])
+                worst["gemm_max_regs"] = max(worst["gemm_max_regs"], i["regs"])
+                worst["gemm_min_blocks_per_sm"] = min(worst["gemm_min_blocks_per_sm"],
+                                                      i["blocks_per_sm"])
+    stats["ffn"]["info"] = worst
+
+
 def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None, note=""):
     import torch
 
@@ -907,16 +995,9 @@ def phase_kernels() -> dict:
             core_lines(stats, geom, win.shape[0], c, nh, nwh, randn, bound, dtype)
 
             # K3: residual + LN + MLP + residual
-            a = randn(2, hw, hw, c, dtype=dtype, std=0.5)
-            fp = ffn_params(c)
-            got = ffn.fused_ln_mlp_residual(x, a, *fp)
-            want = ffn.fused_ln_mlp_residual_reference(x, a, *fp)
-            t_k = cuda_ms(lambda: ffn.fused_ln_mlp_residual(x, a, *fp))
-            t_p = cuda_ms(lambda: ffn.fused_ln_mlp_residual_reference(x, a, *fp))
-            cost = (*cost_ffn(2 * hw * hw, c, isz), dts)
-            _compare("ffn", tag, got, want, bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost)
-            if dtype == bf:
-                _add_time(stats, "ffn", t_k, t_p, cost)
+            ffn_lines(stats, 2, hw, c, dtype, randn, bound, ffn_params)
+        # K3 at the zonal batch
+        ffn_lines(stats, BATCH, hw, c, bf, randn, bound, ffn_params)
 
     # K8: the fused finish at the four stages with the real shift, both
     # dtypes; K3's bounds (after its gather it computes K3's function); times
@@ -1068,8 +1149,11 @@ def phase_kernels() -> dict:
         del q, k, v, want, lib
     core_info(stats)
     bwd_core_info(stats)
+    ffn_info_lines(stats)
     for name, st in stats.items():
         lib = "" if st["library_ms"] is None else f"library {st['library_ms']:.4f} ms, "
+        if "cublas_ms" in st:
+            lib += f"cuBLAS products {st['cublas_ms']:.4f} ms, "
         x3 = (f", at 3xTF32's rate {st['bound_3xtf32_ms']:.4f} ms" if "bound_3xtf32_ms" in st
               else "")
         say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -1605,6 +1689,16 @@ def main() -> int:
             f"{key}_regs": info["regs"], f"{key}_spill_bytes": info["spill_bytes"],
             f"{key}_blocks_per_sm": info["blocks_per_sm"],
             f"{key}_warps_per_sm": info["warps_per_sm"]})
+    # K3 summed over the stages: bf16 at batch 2 (the entry's own numbers),
+    # float32 at batch 2 (with its bound at 3xTF32's rate) and bf16 at the
+    # zonal batch, each beside its two products through cuBLAS; and the
+    # worst resources of its GEMM kernels
+    extra["ffn"] = {"cublas_ms": stats["ffn"]["cublas_ms"], **stats["ffn"]["info"]}
+    for key, name in (("f32", "ffn_f32"), (f"b{BATCH}", "ffn_b16")):
+        st = stats[name]
+        extra["ffn"].update({f"{key}_ms": st["ms"], f"{key}_plain_ms": st["plain_ms"],
+                             f"{key}_bound_ms": st["bound_ms"], f"{key}_cublas_ms": st["cublas_ms"]})
+    extra["ffn"]["f32_bound_3xtf32_ms"] = stats["ffn_f32"]["bound_3xtf32_ms"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs.values()),

@@ -31,6 +31,11 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
+// exact GELU, 0.5 h (1 + erf(h / sqrt 2)), in float32
+__device__ __forceinline__ float gelu_f(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

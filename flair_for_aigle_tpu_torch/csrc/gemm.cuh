@@ -56,10 +56,8 @@ enum {
   EPI_DGELU = 7
 };
 
-// exact GELU and its derivative Phi(z) + z phi(z), in float32
-__device__ __forceinline__ float gelu_f(float h) {
-  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
-}
+// the derivative of the exact GELU (common.cuh gelu_f), Phi(z) + z phi(z),
+// in float32
 __device__ __forceinline__ float gelu_grad_f(float z) {
   return 0.5f * (1.f + erff(z * 0.7071067811865476f)) +
          z * expf(-0.5f * z * z) * 0.3989422804014327f;

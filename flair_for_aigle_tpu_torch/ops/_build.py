@@ -45,9 +45,12 @@ _SIGNATURES = {
     # t, attn_f32, dtype, out (int[4]: registers, local bytes, shared
     # bytes, blocks per SM)
     "window_attn_core_info": [_I] * 3 + [_P],
-    # x, attn, ln_scale, ln_bias, w1, b1, w2, b2, ln, h, out,
-    # n, c, hidden, eps, dtype, stream
-    "ffn_fwd": [_P] * 11 + [_I, _I, _I, _F, _I, _P],
+    # x, attn, ln_scale, ln_bias, w1, b1, w2, b2, ln, h, part, out,
+    # n, c, hidden, tile1, tile2, k_chunk2, nz2, eps, dtype, stream
+    "ffn_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    # dtype, tile, epilogue, out (int[4]: registers, local bytes, shared
+    # bytes, blocks per SM)
+    "ffn_gemm_info": [_I] * 3 + [_P],
     # logits, row_lo, row_hi, row_w_lo, row_w_hi, col_lo, col_hi, col_w_lo,
     # col_w_hi, out, b, k, h4, w4, inner, class_prob, dtype, stream
     "epilogue_fwd": [_P] * 10 + [_I] * 7 + [_P],

@@ -4,9 +4,12 @@ backward (CUDA kernel ``csrc/ffn_bwd.cu``) and the backward's plain version.
 
 Replaces ``flair_for_aigle_tpu/ops/pallas/ffn.py:481 fused_ln_mlp_residual``
 (forward; body ``_kernel_body`` :120). On the card the fc1/fc2 products are
-tensor-core GEMMs whose epilogues apply bias + exact GELU (fc1) and the
-float32 residual (fc2, recomputing x + attn); the LayerNorm is one
-bandwidth-bound pass. See the CUDA source for the bounds.
+mma.sync tensor-core GEMMs (``csrc/gemm_mma.cuh``: bf16, or float32 as
+3xTF32) whose epilogues apply bias + exact GELU (fc1) and the float32
+residual (fc2, recomputing x + attn); the LayerNorm is one bandwidth-bound
+pass. ``ffn_gemm_plan`` picks each product's tile and fc2's split of K;
+``ffn_info`` reports the GEMM kernels' resources. See the CUDA sources for
+the bounds.
 
 Weights use the ``nn.Linear`` layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
 Differentiable. The backward reads ``FLAIR_FFN_BWD`` when it runs, as the
@@ -19,6 +22,7 @@ reference's default, recomputes through the plain forward under autograd.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -52,6 +56,52 @@ def fused_ln_mlp_residual_reference(x, attn, ln_scale, ln_bias, w1, b1, w2,
     return ((x2 + b2.to(dt).float()) + part).to(dt).reshape(shape)
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+#: K3's GEMM tiles (rows of A, rows of W a block); a tile's index is its
+#: code in csrc/ffn.cu
+FFN_TILES = ((128, 128), (64, 128))
+#: the tiles each dtype's plan picks from, largest first: float32's 128 x
+#: 128 would hold one block an SM, and 64 x 128 ran faster at every
+#: swin-base stage on the H100
+PLAN_TILES = {torch.bfloat16: (0, 1), torch.float32: (1,)}
+#: elements of K one pipeline step stages: 128 bytes of a bf16 row, 64 of
+#: a float32 row
+K_STEP = {torch.float32: 16, torch.bfloat16: 64}
+#: fewest pipeline steps a split-K chunk keeps
+MIN_STEPS = 8
+
+
+def ffn_gemm_plan(m: int, n: int, k: int, n_sm: int, dtype,
+                  split: bool = False) -> tuple[int, int, int]:
+    """(tile code, k_chunk, partials) of one of K3's products, C (m, n) =
+    A (m, k) W^T, in ``dtype`` on a card of ``n_sm`` SMs: the largest tile
+    of ``PLAN_TILES[dtype]`` that gives every SM a block, at the full K.
+    Where even the smallest tile does not and ``split`` is set (fc2), K is
+    cut into the fewest chunks of whole pipeline steps (``K_STEP[dtype]``
+    elements, at least ``MIN_STEPS`` of them a chunk) that do: block z of
+    the grid sums K range [z k_chunk, (z + 1) k_chunk), and the partials
+    are added in the order z = 0, 1, ... (a fixed order: two calls give
+    the same bits)."""
+    for code in PLAN_TILES[dtype]:
+        bm, bn = FFN_TILES[code]
+        tiles = _ceil(m, bm) * _ceil(n, bn)
+        if tiles >= n_sm:
+            return code, k, 1
+    if not split:
+        return code, k, 1
+    step = K_STEP[dtype]
+    parts = max(1, min(_ceil(n_sm, tiles), k // (MIN_STEPS * step)))
+    k_chunk = _ceil(_ceil(k, parts), step) * step
+    return code, k_chunk, _ceil(k, k_chunk)
+
+
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
     """The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
@@ -80,13 +130,19 @@ def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
             or lns.shape != (c,) or lnb.shape != (c,)):
         raise ValueError("ffn kernel: parameter shapes do not match x")
     n = x.numel() // c
+    n_sm = _n_sm(x.device)
+    tile1, _, _ = ffn_gemm_plan(n, hidden, c, n_sm, dt)
+    tile2, k_chunk2, nz2 = ffn_gemm_plan(n, c, hidden, n_sm, dt, split=True)
     ln = torch.empty((n, c), dtype=dt, device=x.device)
     h = torch.empty((n, hidden), dtype=dt, device=x.device)
+    part = (torch.empty((nz2, n, c), dtype=torch.float32, device=x.device)
+            if nz2 > 1 else None)
     out = torch.empty(shape, dtype=dt, device=x.device)
     rc = _build.lib().ffn_fwd(
         x.data_ptr(), attn.data_ptr(), lns.data_ptr(), lnb.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        ln.data_ptr(), h.data_ptr(), out.data_ptr(), n, c, hidden, float(eps),
+        ln.data_ptr(), h.data_ptr(), 0 if part is None else part.data_ptr(),
+        out.data_ptr(), n, c, hidden, tile1, tile2, k_chunk2, nz2, float(eps),
         _build.dtype_code(x), _build.stream_ptr(x))
     _build.check(rc, "ffn_fwd")
     fused_ln_mlp_residual.launches += 1
@@ -125,6 +181,39 @@ def fused_ln_mlp_residual(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, *,
 
 
 fused_ln_mlp_residual.launches = 0
+
+#: ffn_info's epilogues: the C entry's code of each
+_EPILOGUES = {"fc1": 0, "fc2": 1, "fc2 split": 2}
+
+
+def ffn_info(c: int, hidden: int, dtype=torch.bfloat16, n: int | None = None) -> dict:
+    """The resources of K3's GEMM kernels in ``dtype`` on the current card,
+    as the CUDA runtime reports them: registers per thread, local (spill)
+    bytes per thread, shared bytes per block and resident blocks per SM,
+    keyed ``"fc1 128x128"``, ``"fc2 64x128 split"`` (fc2's split-K
+    partials), .... Without ``n``, every tile of the dtype's plan and
+    every epilogue; with ``n``,
+    the two kernels that ``fused_ln_mlp_residual`` launches for n rows of
+    C = c with this hidden width."""
+    if c > 1024 or c % 8 or hidden % 8:
+        raise ValueError(f"ffn kernel: unsupported C={c}, hidden={hidden}")
+    code = 0 if dtype == torch.float32 else 1
+    if n is None:
+        kernels = [(e, t) for e in _EPILOGUES for t in PLAN_TILES[dtype]]
+    else:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        tile1, _, _ = ffn_gemm_plan(n, hidden, c, _n_sm(dev), dtype)
+        tile2, _, nz2 = ffn_gemm_plan(n, c, hidden, _n_sm(dev), dtype, split=True)
+        kernels = [("fc1", tile1), ("fc2 split" if nz2 > 1 else "fc2", tile2)]
+    info = {}
+    for epi, tile in kernels:
+        out = (ctypes.c_int * 4)()
+        rc = _build.lib().ffn_gemm_info(code, tile, _EPILOGUES[epi], ctypes.addressof(out))
+        _build.check(rc, "ffn_gemm_info")
+        bm, bn = FFN_TILES[tile]
+        info[f"{epi.split()[0]} {bm}x{bn}{' split' if 'split' in epi else ''}"] = dict(
+            zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
+    return info
 
 
 def fused_ln_mlp_residual_backward_reference(x, attn, ln_scale, ln_bias, w1, b1,
@@ -170,10 +259,6 @@ def fused_ln_mlp_residual_backward_reference(x, attn, ln_scale, ln_bias, w1, b1,
     return (dx, dx.to(attn.dtype), dlns.to(ln_scale.dtype),
             dlnb.to(ln_bias.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
             dw2.to(w2.dtype), db2.to(w2.dtype))
-
-
-def _ceil(a: int, b: int) -> int:
-    return -(-a // b)
 
 
 def _bwd_plan(n: int, c: int, hidden: int, n_sm: int) -> tuple[int, int]:

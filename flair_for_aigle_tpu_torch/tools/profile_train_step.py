@@ -15,7 +15,9 @@ copies, one stream, so no overlap), ``wall_ms_per_step`` (the host clock
 under the profiler), ``kernels``: the 15 largest by device time as
 [name, ms per step, calls per step], and ``cores``: the attention cores of
 K2 and K6 (``attn_core_*``, ``attn_bwd_core_*``) as {name: [ms per step,
-calls per step]}, however small. ``FLAIR_FFN_BWD`` and
+calls per step]}, however small, and ``ffn_gemms``: K3's two products
+(``gemm_mma_kernel``, with ``resid_sum_kernel`` where fc2 splits K) the
+same way. ``FLAIR_FFN_BWD`` and
 ``FLAIR_SWIN_FINISH`` are read as in training. Runs on the card unless
 ``--device cpu`` asks for the CPU (the plain versions; no device lines).
 """
@@ -115,7 +117,11 @@ def main(argv=None) -> None:
                      e.count / args.steps] for e in events[:15]],
         "cores": {e.key[:90]: [e.self_device_time_total / 1e3 / args.steps,
                                e.count / args.steps]
-                  for e in events if "attn_core" in e.key or "attn_bwd_core" in e.key}}),
+                  for e in events if "attn_core" in e.key or "attn_bwd_core" in e.key},
+        "ffn_gemms": {e.key[:90]: [e.self_device_time_total / 1e3 / args.steps,
+                                   e.count / args.steps]
+                      for e in events
+                      if "gemm_mma_kernel" in e.key or "resid_sum_kernel" in e.key}}),
           flush=True)
 
 

@@ -143,8 +143,12 @@ def test_window_attn_core_resources(dev, attn_f32, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,c", [(37, 128), (300, 96), (64, 1024)])
+@pytest.mark.parametrize("n,c", [(37, 128), (300, 96), (64, 1024), (37, 96),
+                                 (512, 1024), (2048, 512)])
 def test_ffn_kernel(dev, dtype, n, c):
+    """K3 against its plain version, and two calls bit-identical: odd row
+    counts and C = 96 for the tiles' ragged edges; at 512 x 1024 (batch 2,
+    stage 4) and 2048 x 512 (stage 3) fc2 splits K."""
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((n, c), generator=g, device=dev).to(dtype)
     a = (torch.randn((n, c), generator=g, device=dev) * 0.5).to(dtype)
@@ -155,9 +159,20 @@ def test_ffn_kernel(dev, dtype, n, c):
          torch.randn((c, 4 * c), generator=g, device=dev) * (4 * c) ** -0.5,
          torch.randn(c, generator=g, device=dev) * 0.02)
     got = ffn.fused_ln_mlp_residual(x, a, *p)
+    again = ffn.fused_ln_mlp_residual(x, a, *p)
     want = ffn.fused_ln_mlp_residual_reference(x, a, *p)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ffn_gemm_resources(dev, dtype):
+    """No K3 GEMM kernel spills, and every one holds two blocks per SM, as
+    the design states (bf16 128 x 128: 108 KB of shared memory a block;
+    float32 64 x 128: 96 KB)."""
+    for name, info in ffn.ffn_info(128, 512, dtype).items():
+        assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 2, (name, info)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
