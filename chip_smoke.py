@@ -788,14 +788,15 @@ def bwd_core_info(stats) -> None:
 def ffn_lines(stats, batch, hw, c, dtype, randn, bound, ffn_params) -> None:
     """K3 at one stage for ``batch`` tiles of 512 px in ``dtype``: against
     its plain version (4 bf16 units, float32 1e-4 of the largest
-    magnitude), two calls bit-identical, kernel and plain ms as device time
-    (``device_ms``: at batch 2 a call's Python outlasts K3's device work;
-    ``tools/time_ffn.py`` times it the same way), and beside them the two products alone through cuBLAS
-    (``torch.nn.functional.linear`` twice in the same dtype, float32 with
-    TF32 off): a yardstick of the GEMM part, not a library call computing
-    K3's fused function. float32 lines give the bound at 67 TFLOP/s and
-    at 3xTF32's 165. Sums: bf16 at batch 2 in ``stats["ffn"]``, float32 in
-    ``stats["ffn_f32"]``, bf16 at the zonal batch in ``stats["ffn_b16"]``."""
+    magnitude), two calls bit-identical, kernel and plain ms as device
+    time (``device_ms``: at batch 2 a call's Python outlasts K3's device
+    work; ``tools/time_ffn.py`` times it the same way), and beside them
+    the two products alone through cuBLAS (``torch.nn.functional.linear``
+    twice in the same dtype, float32 with TF32 off): a yardstick of the
+    GEMM part, not a library call computing K3's fused function. float32
+    lines give the bound at 67 TFLOP/s and at 3xTF32's 165. Sums: bf16 at
+    batch 2 in ``stats["ffn"]``, float32 in ``stats["ffn_f32"]``, bf16 at
+    the zonal batch in ``stats["ffn_b16"]``."""
     import torch
     import torch.nn.functional as F
 
@@ -1697,7 +1698,8 @@ def main() -> int:
     for key, name in (("f32", "ffn_f32"), (f"b{BATCH}", "ffn_b16")):
         st = stats[name]
         extra["ffn"].update({f"{key}_ms": st["ms"], f"{key}_plain_ms": st["plain_ms"],
-                             f"{key}_bound_ms": st["bound_ms"], f"{key}_cublas_ms": st["cublas_ms"]})
+                             f"{key}_bound_ms": st["bound_ms"],
+                             f"{key}_cublas_ms": st["cublas_ms"]})
     extra["ffn"]["f32_bound_3xtf32_ms"] = stats["ffn_f32"]["bound_3xtf32_ms"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

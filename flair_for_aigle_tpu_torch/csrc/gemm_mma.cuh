@@ -31,12 +31,14 @@
 //     three products of a half step go term by term over all of the
 //     warp's tiles, so that no product waits on the one before it in its
 //     accumulator.
-//   - One __syncthreads per k step. All stages start in flight. The next
-//     half step's fragments (32 bytes of each row: k16 bf16, k8 float32)
-//     load while a half step's products run; before the last half step's
-//     products each thread waits for its own copies of the next step (and
-//     splits them), the barrier, the copies of step + 3 go into the slot
-//     this step was read from, and the next step's first fragments load.
+//   - One __syncthreads per k step. All stages start in flight. A's
+//     fragments of the next half step (32 bytes of each row: k16 bf16, k8
+//     float32) load while a half step's products run, W's just before
+//     them (double-buffering both would take more than the 128 registers
+//     of two blocks an SM); before the last half step's products each
+//     thread waits for its own copies of the next step (and splits them),
+//     the barrier, the copies of step + 3 go into the slot this step was
+//     read from, and the next step's first A fragments load.
 //     The barrier orders every reuse: a bf16 slot (or a split buffer, two
 //     steps apart) is rewritten only after every warp has passed the
 //     barrier that follows its last read; a float32 raw slot is read only
@@ -117,8 +119,10 @@ template <int MT, int NT> struct MmaFrags<true, MT, NT> {
 // 16-byte aligned) as float32, and back
 template <typename T> __device__ __forceinline__ void ld8(const T* p, float (&v)[8]);
 template <> __device__ __forceinline__ void ld8<float>(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p), b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 template <> __device__ __forceinline__ void ld8<bf16>(const bf16* p, float (&v)[8]) {
   const uint4 a = *reinterpret_cast<const uint4*>(p);

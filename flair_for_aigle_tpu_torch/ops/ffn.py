@@ -190,20 +190,20 @@ def ffn_info(c: int, hidden: int, dtype=torch.bfloat16, n: int | None = None) ->
     """The resources of K3's GEMM kernels in ``dtype`` on the current card,
     as the CUDA runtime reports them: registers per thread, local (spill)
     bytes per thread, shared bytes per block and resident blocks per SM,
-    keyed ``"fc1 128x128"``, ``"fc2 64x128 split"`` (fc2's split-K
-    partials), .... Without ``n``, every tile of the dtype's plan and
-    every epilogue; with ``n``,
-    the two kernels that ``fused_ln_mlp_residual`` launches for n rows of
-    C = c with this hidden width."""
+    keyed ``"fc1 128x128"``, ``"fc2 split 64x128"`` (fc2's split-K
+    partials), .... Without ``n``, every tile of the dtype's plan with
+    every epilogue; with ``n``, the two kernels that
+    ``fused_ln_mlp_residual`` launches for n rows of C = c with this
+    hidden width."""
     if c > 1024 or c % 8 or hidden % 8:
         raise ValueError(f"ffn kernel: unsupported C={c}, hidden={hidden}")
     code = 0 if dtype == torch.float32 else 1
     if n is None:
         kernels = [(e, t) for e in _EPILOGUES for t in PLAN_TILES[dtype]]
     else:
-        dev = torch.device("cuda", torch.cuda.current_device())
-        tile1, _, _ = ffn_gemm_plan(n, hidden, c, _n_sm(dev), dtype)
-        tile2, _, nz2 = ffn_gemm_plan(n, c, hidden, _n_sm(dev), dtype, split=True)
+        n_sm = _n_sm(torch.device("cuda", torch.cuda.current_device()))
+        tile1, _, _ = ffn_gemm_plan(n, hidden, c, n_sm, dtype)
+        tile2, _, nz2 = ffn_gemm_plan(n, c, hidden, n_sm, dtype, split=True)
         kernels = [("fc1", tile1), ("fc2 split" if nz2 > 1 else "fc2", tile2)]
     info = {}
     for epi, tile in kernels:
@@ -211,7 +211,7 @@ def ffn_info(c: int, hidden: int, dtype=torch.bfloat16, n: int | None = None) ->
         rc = _build.lib().ffn_gemm_info(code, tile, _EPILOGUES[epi], ctypes.addressof(out))
         _build.check(rc, "ffn_gemm_info")
         bm, bn = FFN_TILES[tile]
-        info[f"{epi.split()[0]} {bm}x{bn}{' split' if 'split' in epi else ''}"] = dict(
+        info[f"{epi} {bm}x{bn}"] = dict(
             zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
     return info
 

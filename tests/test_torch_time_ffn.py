@@ -13,6 +13,3 @@ def test_time_ffn_raises_without_a_card():
     with pytest.raises(RuntimeError, match="card"):
         time_ffn.main(["--batch", "1"])
 
-
-def test_time_ffn_stages_are_swin_base_at_512():
-    assert time_ffn.STAGES == [(128, 128), (64, 256), (32, 512), (16, 1024)]
