@@ -82,6 +82,7 @@ import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1468,6 +1469,8 @@ def phase_train(card: str, write_geotiff) -> tuple[dict, dict]:
     from flair_for_aigle_tpu_torch.train.trainer import load_state_safetensors
 
     root = os.path.join(TMP, "train")
+    # a run before this one in the same checkout left its checkpoints there
+    shutil.rmtree(root, ignore_errors=True)
     cfg = train_config(root)
     (d_train, d_val, d_test), how = synthetic_split(cfg, root, write_geotiff)
     say("train", f"host probe: {how}")
