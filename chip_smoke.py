@@ -36,9 +36,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    spill; at least 16 warps per SM for the bf16 core, 9 for the float32
    core); K3 at the four stages in bf16 and float32 at batch 2 and in bf16
    at batch 16 (the zonal batch): two calls bit-identical, kernel and
-   plain ms (device time), its two products alone through cuBLAS
-   (``torch.nn.functional.linear`` in the same dtype, TF32 off: the GEMM
-   part's yardstick, K3's function being fused), float32 also bounded at
+   plain ms by CUDA events and as device time, its two products alone
+   through cuBLAS as device time (``torch.nn.functional.linear`` in the
+   same dtype, TF32 off: the GEMM part's yardstick, K3's function being
+   fused), float32 also bounded at
    3xTF32's rate; then its GEMM kernels' resources at each stage (no
    spill; at least 2 blocks per SM);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
@@ -195,54 +196,6 @@ def plain_versions():
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median device time of fn() in ms (CUDA events around each call)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one fn() in ms: ``reps`` calls queued behind a spin of
-    the card twice as long as the host takes to enqueue them (at least 20
-    ms), so the host's work (the wrapper's Python, the library's dispatch)
-    is hidden, between two CUDA events; the median of 3 such runs. For
-    calls whose device work is shorter than their host work, where cuda_ms
-    times the host."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        fn()
-    host_ms = (time.perf_counter() - t0) / 3 * 1e3
-    spin = int(max(20.0, 2 * reps * host_ms) * 2e6)  # cycles: >= 1 ms per 2e6 up to 2 GHz
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        runs.append(a.elapsed_time(b) / reps)
-    runs.sort()
-    return runs[1]
 
 
 def phase_env() -> dict:
@@ -470,6 +423,7 @@ def core_lines(stats, geom, bnw, c, nh, nwh, randn, bound, dtype) -> None:
     import torch
 
     from flair_for_aigle_tpu_torch.ops import window_attn
+    from flair_for_aigle_tpu_torch.tools.timing import device_ms
 
     bf = dtype == torch.bfloat16
     dts, name = ("bf16", "window_attn_core") if bf else ("f32", "window_attn_core_f32")
@@ -693,6 +647,7 @@ def bwd_core_lines(stats, geom, bnw, c, nh, nwh, randn, dtype) -> None:
     import torch
 
     from flair_for_aigle_tpu_torch.ops import window_attn
+    from flair_for_aigle_tpu_torch.tools.timing import device_ms
 
     bf = dtype == torch.bfloat16
     dts, name = ("bf16", "window_attn_bwd_core") if bf else ("f32", "window_attn_bwd_core_f32")
@@ -789,19 +744,20 @@ def bwd_core_info(stats) -> None:
 def ffn_lines(stats, batch, hw, c, dtype, randn, bound, ffn_params) -> None:
     """K3 at one stage for ``batch`` tiles of 512 px in ``dtype``: against
     its plain version (4 bf16 units, float32 1e-4 of the largest
-    magnitude), two calls bit-identical, kernel and plain ms as device
-    time (``device_ms``: at batch 2 a call's Python outlasts K3's device
-    work; ``tools/time_ffn.py`` times it the same way), and beside them
-    the two products alone through cuBLAS (``torch.nn.functional.linear``
-    twice in the same dtype, float32 with TF32 off): a yardstick of the
-    GEMM part, not a library call computing K3's fused function. float32
-    lines give the bound at 67 TFLOP/s and at 3xTF32's 165. Sums: bf16 at
-    batch 2 in ``stats["ffn"]``, float32 in ``stats["ffn_f32"]``, bf16 at
-    the zonal batch in ``stats["ffn_b16"]``."""
+    magnitude), two calls bit-identical, and ``tools/time_ffn.py``'s
+    ``stage_times``: kernel and plain ms by CUDA events around each call,
+    as every kernel line, then as device time (at batch 2 a call's Python
+    outlasts K3's device work), and beside them the two products alone
+    through cuBLAS (``torch.nn.functional.linear`` twice in the same dtype,
+    float32 with TF32 off) as device time: a yardstick of the GEMM part,
+    not a library call computing K3's fused function. float32 lines give
+    the bound at 67 TFLOP/s and at 3xTF32's 165. Sums: bf16 at batch 2 in
+    ``stats["ffn"]``, float32 in ``stats["ffn_f32"]``, bf16 at the zonal
+    batch in ``stats["ffn_b16"]``."""
     import torch
-    import torch.nn.functional as F
 
     from flair_for_aigle_tpu_torch.ops import ffn
+    from flair_for_aigle_tpu_torch.tools.time_ffn import stage_times
 
     bf = dtype == torch.bfloat16
     dts = "bf16" if bf else "f32"
@@ -817,26 +773,19 @@ def ffn_lines(stats, batch, hw, c, dtype, randn, bound, ffn_params) -> None:
     say("kernel", f"ffn {tag}: repeat {'bit-identical ok' if same else 'DIFFERS FAIL'}")
     if not same:
         raise AssertionError(f"ffn {tag}: two calls differ")
-    t_k = device_ms(lambda: ffn.fused_ln_mlp_residual(x, a, *fp))
-    t_p = device_ms(lambda: ffn.fused_ln_mlp_residual_reference(x, a, *fp))
-    ln, h = randn(n, c, dtype=dtype), randn(n, 4 * c, dtype=dtype)
-    w1, w2 = fp[2].to(dtype), fp[4].to(dtype)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        t_l = device_ms(lambda: (F.linear(ln, w1), F.linear(h, w2)))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    t = stage_times(x, a, fp)
     cost = (*cost_ffn(n, c, 2 if bf else 4), dts)
     x3 = (*cost[:2], "tf32x3")  # the same work at 3xTF32's effective rate
-    note = (f"; cuBLAS products (F.linear x2, {dts}) {t_l:.4f} ms"
+    note = (f"; device time kernel {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms, "
+            f"cuBLAS products (F.linear x2, {dts}) {t['cublas_device_ms']:.4f} ms"
             + ("" if bf else f"; at 3xTF32's 165 TFLOP/s {_bound_text(x3)}"))
-    _compare("ffn", tag, got, want, bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost,
-             note=note)
+    _compare("ffn", tag, got, want, bound(want, dtype, 4, 1e-4), t["ms"], t["plain_ms"], stats,
+             cost, note=note)
     name = "ffn_b16" if batch != 2 else ("ffn" if bf else "ffn_f32")
-    _add_time(stats, name, t_k, t_p, cost)
+    _add_time(stats, name, t["ms"], t["plain_ms"], cost)
     s = stats[name]
-    s["cublas_ms"] = s.get("cublas_ms", 0.0) + t_l
+    for key in ("device_ms", "plain_device_ms", "cublas_device_ms"):
+        s[key] = s.get(key, 0.0) + t[key]
     if not bf:
         s["bound_3xtf32_ms"] = s.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
 
@@ -925,6 +874,7 @@ def phase_kernels() -> dict:
     default geometry, with the library call's time)."""
     import torch
 
+    from flair_for_aigle_tpu_torch.tools.timing import cuda_ms
     from flair_for_aigle_tpu_torch.ops import (
         attn_dots,
         epilogue,
@@ -1154,8 +1104,10 @@ def phase_kernels() -> dict:
     ffn_info_lines(stats)
     for name, st in stats.items():
         lib = "" if st["library_ms"] is None else f"library {st['library_ms']:.4f} ms, "
-        if "cublas_ms" in st:
-            lib += f"cuBLAS products {st['cublas_ms']:.4f} ms, "
+        if "device_ms" in st:
+            lib += (f"device time kernel {st['device_ms']:.4f} ms, plain "
+                    f"{st['plain_device_ms']:.4f} ms, cuBLAS products "
+                    f"{st['cublas_device_ms']:.4f} ms, ")
         x3 = (f", at 3xTF32's rate {st['bound_3xtf32_ms']:.4f} ms" if "bound_3xtf32_ms" in st
               else "")
         say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -1695,14 +1647,15 @@ def main() -> int:
             f"{key}_warps_per_sm": info["warps_per_sm"]})
     # K3 summed over the stages: bf16 at batch 2 (the entry's own numbers),
     # float32 at batch 2 (with its bound at 3xTF32's rate) and bf16 at the
-    # zonal batch, each beside its two products through cuBLAS; and the
-    # worst resources of its GEMM kernels
-    extra["ffn"] = {"cublas_ms": stats["ffn"]["cublas_ms"], **stats["ffn"]["info"]}
+    # zonal batch; each by CUDA events (ms, plain_ms) and as device time
+    # beside its two products through cuBLAS; and the worst resources of
+    # its GEMM kernels
+    dev = ("device_ms", "plain_device_ms", "cublas_device_ms")
+    extra["ffn"] = {**{k: stats["ffn"][k] for k in dev}, **stats["ffn"]["info"]}
     for key, name in (("f32", "ffn_f32"), (f"b{BATCH}", "ffn_b16")):
         st = stats[name]
-        extra["ffn"].update({f"{key}_ms": st["ms"], f"{key}_plain_ms": st["plain_ms"],
-                             f"{key}_bound_ms": st["bound_ms"],
-                             f"{key}_cublas_ms": st["cublas_ms"]})
+        extra["ffn"].update({f"{key}_{k}": st[k]
+                             for k in ("ms", "plain_ms", "bound_ms", *dev)})
     extra["ffn"]["f32_bound_3xtf32_ms"] = stats["ffn_f32"]["bound_3xtf32_ms"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

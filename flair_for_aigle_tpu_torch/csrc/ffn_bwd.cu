@@ -125,17 +125,17 @@ int ffn_bwd_impl(const void* x, const void* a, const void* g, const void* lns, c
   launch_ffn_ln<T>((const T*)x, (const T*)a, (const float*)lns, (const float*)lnb, (T*)ln, n, c,
                    eps, s);
   launch_gemm<T, EPI_BIAS_GELU_AUX>((const T*)ln, (const T*)w1, h, n, hidden, c, (const T*)b1,
-                                    nullptr, nullptr, s, 0, h0);
+                                    nullptr, s, 0, h0);
   launch_gemm<T, EPI_DGELU, false, true>((const T*)g, (const T*)w2, dh0c, n, hidden, c, nullptr,
-                                         (const T*)h0, nullptr, s, 0, db1_part);
+                                         (const T*)h0, s, 0, db1_part);
   launch_gemm<T, EPI_F32, true, true>((const T*)g, (const T*)h, part, c, hidden, n, nullptr,
-                                      nullptr, nullptr, s, k_chunk);
+                                      nullptr, s, k_chunk);
   launch_sum_partials(part, (float*)dw2, (long long)c * hidden, n_split, s);
   launch_gemm<T, EPI_F32, true, true>((const T*)dh0c, (const T*)ln, part, hidden, c, n, nullptr,
-                                      nullptr, nullptr, s, k_chunk);
+                                      nullptr, s, k_chunk);
   launch_sum_partials(part, (float*)dw1, (long long)hidden * c, n_split, s);
   launch_gemm<T, EPI_F32, false, true>((const T*)dh0c, (const T*)w1, dln, n, c, hidden, nullptr,
-                                       nullptr, nullptr, s);
+                                       nullptr, s);
   if (c <= 128) {
     launch_bwd_ln<T, 4>((const T*)x, (const T*)a, (const T*)g, (const float*)dln,
                         (const float*)lns, (T*)dx, (float*)row_part, c, eps, n, rows, s);

@@ -70,9 +70,9 @@ int finish_impl(const void* win, const void* x, const void* lns, const void* lnb
       (const T*)win, (const T*)x, (const float*)lns, (const float*)lnb, (T*)ln, (T*)x2, H, W, c,
       ws, ss, nwh, nww, eps, n);
   launch_gemm<T, EPI_BIAS_GELU>((const T*)ln, (const T*)w1, (T*)h, (int)n, hidden, c,
-                                (const T*)b1, nullptr, nullptr, s);
+                                (const T*)b1, nullptr, s);
   launch_gemm<T, EPI_ADD>((const T*)h, (const T*)w2, (T*)out, (int)n, c, hidden, (const T*)b2,
-                          (const T*)x2, nullptr, s);
+                          (const T*)x2, s);
   return (int)cudaGetLastError();
 }
 

@@ -27,7 +27,6 @@
 // TorchLinear, ops/pallas/ffn.py :132-146):
 //   EPI_BIAS       out = rnd(rnd(acc) + b[n])
 //   EPI_BIAS_GELU  h = rnd(rnd(acc) + b[n]); out = 0.5 h (1 + erf(h / sqrt 2))
-//   EPI_RESID      out = (rnd(x + a) + b[n]) + acc      (float32, then rounded)
 //   EPI_NONE       out = rnd(acc)
 //   EPI_F32        out = acc, float32 (the split-K partials)
 //   EPI_ADD        out = (r[m, n] + b[n]) + acc    (r = ra, float32, then rounded)
@@ -48,7 +47,6 @@ namespace flair {
 enum {
   EPI_BIAS = 0,
   EPI_BIAS_GELU = 1,
-  EPI_RESID = 2,
   EPI_NONE = 3,
   EPI_F32 = 4,
   EPI_ADD = 5,
@@ -100,7 +98,7 @@ template <typename T, int EPI, bool AT, bool BKN>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__ Cout,
             int M, int N, int K, int k_chunk, const T* __restrict__ bias,
-            const T* __restrict__ ra, const T* __restrict__ rb, void* __restrict__ aux) {
+            const T* __restrict__ ra, void* __restrict__ aux) {
   static_assert(EPI == EPI_F32 || !AT, "A^T @ B is only used for float32 weight gradients");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int PAD = gemm_pad<T>();
@@ -220,10 +218,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__
       continue;
     }
     float o;
-    if constexpr (EPI == EPI_RESID) {
-      const float x2 = rnd<T>(to_f<T>(ra[idx]) + to_f<T>(rb[idx]));
-      o = (x2 + to_f<T>(bias[gn])) + v;
-    } else if constexpr (EPI == EPI_ADD) {
+    if constexpr (EPI == EPI_ADD) {
       o = (to_f<T>(ra[idx]) + to_f<T>(bias[gn])) + v;
     } else if constexpr (EPI == EPI_NONE) {
       o = v;
@@ -270,12 +265,12 @@ static inline void launch_sum_partials(const float* part, float* out, long long 
 // (ceil(M / GEMM_BM) x N, float32).
 template <typename T, int EPI, bool AT = false, bool BKN = false>
 void launch_gemm(const T* A, const T* B, void* C, int M, int N, int K, const T* bias,
-                 const T* ra, const T* rb, cudaStream_t stream, int k_chunk = 0,
+                 const T* ra, cudaStream_t stream, int k_chunk = 0,
                  void* aux = nullptr) {
   if (k_chunk <= 0) k_chunk = K;
   dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM, (K + k_chunk - 1) / k_chunk);
   gemm_kernel<T, EPI, AT, BKN><<<grid, GEMM_THREADS, gemm_smem_bytes<T>(), stream>>>(
-      A, B, C, M, N, K, k_chunk, bias, ra, rb, aux);
+      A, B, C, M, N, K, k_chunk, bias, ra, aux);
 }
 
 }  // namespace flair

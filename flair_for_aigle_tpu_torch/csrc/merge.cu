@@ -91,7 +91,7 @@ int merge_impl(const void* x, const void* lns, const void* lnb, const void* w, v
                                                            (const float*)lnb, (T*)ln, h, wd, c,
                                                            eps);
   launch_gemm<T, EPI_NONE>((const T*)ln, (const T*)w, out, (int)m, out_c, 4 * c, nullptr,
-                           nullptr, nullptr, s);
+                           nullptr, s);
   return (int)cudaGetLastError();
 }
 

@@ -310,12 +310,12 @@ int window_attn_impl(const void* x, const void* wqkv, const void* bqkv, const vo
                      int attn_f32, cudaStream_t s) {
   const int m = bnw * t;
   launch_gemm<T, EPI_BIAS>((const T*)x, (const T*)wqkv, (T*)qkv, m, 3 * c, c,
-                           (const T*)bqkv, nullptr, nullptr, s);
+                           (const T*)bqkv, nullptr, s);
   const int rc =
       attn_core<T>((const T*)qkv, bias, (T*)o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, s);
   if (rc) return rc;
   launch_gemm<T, EPI_BIAS>((const T*)o, (const T*)wproj, (T*)out, m, c, c, (const T*)bproj,
-                           nullptr, nullptr, s);
+                           nullptr, s);
   return (int)cudaGetLastError();
 }
 

@@ -649,22 +649,22 @@ int window_attn_bwd_impl(const void* x, const void* g, const void* wqkv, const v
   const int n_split = (m + k_chunk - 1) / k_chunk;
   float* part = (float*)wpart;
   launch_gemm<T, EPI_BIAS>((const T*)x, (const T*)wqkv, qkv, m, 3 * c, c, (const T*)bqkv,
-                           nullptr, nullptr, s);
+                           nullptr, s);
   launch_gemm<T, EPI_NONE, false, true>((const T*)g, (const T*)wproj, dout, m, c, c, nullptr,
-                                        nullptr, nullptr, s);
+                                        nullptr, s);
   const int rc = bwd_core<T>((const T*)qkv, (const T*)dout, (const float*)bias, (T*)o, (T*)dqkv,
                             (float*)dbias_part, (float*)dbqkv_part, bnw, t, c, nh, ws, ss, nwh,
                             nww, attn_f32, n_groups, s);
   if (rc) return rc;
   // weight gradients in the nn.Linear layout: dWproj = g^T o, dWqkv = dqkv^T x
   launch_gemm<T, EPI_F32, true, true>((const T*)g, (const T*)o, part, c, c, m, nullptr, nullptr,
-                                      nullptr, s, k_chunk);
+                                      s, k_chunk);
   launch_sum_partials(part, (float*)dwproj, (long long)c * c, n_split, s);
   launch_gemm<T, EPI_F32, true, true>((const T*)dqkv, (const T*)x, part, 3 * c, c, m, nullptr,
-                                      nullptr, nullptr, s, k_chunk);
+                                      nullptr, s, k_chunk);
   launch_sum_partials(part, (float*)dwqkv, 3ll * c * c, n_split, s);
   launch_gemm<T, EPI_NONE, false, true>((const T*)dqkv, (const T*)wqkv, dx, m, c, 3 * c, nullptr,
-                                        nullptr, nullptr, s);
+                                        nullptr, s);
   colsum_partial_kernel<T><<<dim3(n_split, (c + 255) / 256), 256, 0, s>>>((const T*)g, part, m,
                                                                            c, k_chunk);
   launch_sum_partials(part, (float*)dbproj, c, n_split, s);

@@ -102,6 +102,16 @@ def _n_sm(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _require_aligned(**tensors) -> None:
+    """The GEMMs stage A and W with 16-byte ``cp.async`` copies and their
+    epilogues read x, attn, b1 and b2 16 bytes at a time: a tensor whose
+    data starts off a 16-byte boundary (a view at an odd offset) raises
+    here rather than as a misaligned address on the card."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"ffn kernel: {name} does not start on a 16-byte boundary")
+
+
 def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
     """The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
@@ -129,6 +139,7 @@ def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
             or w2.shape != (c, hidden) or b2.shape != (c,)
             or lns.shape != (c,) or lnb.shape != (c,)):
         raise ValueError("ffn kernel: parameter shapes do not match x")
+    _require_aligned(x=x, attn=attn, w1=w1, b1=b1, w2=w2, b2=b2)
     n = x.numel() // c
     n_sm = _n_sm(x.device)
     tile1, _, _ = ffn_gemm_plan(n, hidden, c, n_sm, dt)

@@ -94,3 +94,20 @@ def test_ffn_gradient_matches_jax_vjp():
     names = ["dx", "dattn", "dln_scale", "dln_bias", "dw1", "db1", "dw2", "db2"]
     for name, t, e in zip(names, leaves, want):
         np.testing.assert_allclose(t.grad.numpy(), e, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["x", "attn", "w1", "b1", "w2", "b2"])
+def test_ffn_kernel_refuses_a_tensor_off_a_16_byte_boundary(name):
+    """The kernel's 16-byte copies and loads need every tensor it reads as
+    a block to start on a 16-byte boundary: a view one float32 element
+    into a larger buffer raises before any launch; fresh tensors pass."""
+    c, hidden = 96, 384
+    shapes = {"x": (5, c), "attn": (5, c), "w1": (hidden, c), "b1": (hidden,),
+              "w2": (c, hidden), "b2": (c,)}
+    fresh = {k: torch.zeros(s) for k, s in shapes.items()}
+    ffn._require_aligned(**fresh)
+    numel = int(np.prod(shapes[name]))
+    off = dict(fresh, **{name: torch.zeros(numel + 1)[1:].view(shapes[name])})
+    assert off[name].is_contiguous() and off[name].data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match=f"{name} does not start on a 16-byte boundary"):
+        ffn._require_aligned(**off)

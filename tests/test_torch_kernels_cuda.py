@@ -167,6 +167,38 @@ def test_ffn_kernel(dev, dtype, n, c):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_ffn_kernel_refuses_offset_views(dev, dtype):
+    """x one element into a larger buffer, and in float32 b1 likewise (a
+    bf16 call converts the float32 parameters into fresh tensors), raise
+    ValueError before the launch; the card then runs K3 as before."""
+    n, c = 37, 96
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((n, c), generator=g, device=dev).to(dtype)
+    a = (torch.randn((n, c), generator=g, device=dev) * 0.5).to(dtype)
+    p = [torch.randn(c, generator=g, device=dev) * 0.1 + 1,
+         torch.randn(c, generator=g, device=dev) * 0.1,
+         torch.randn((4 * c, c), generator=g, device=dev) * c ** -0.5,
+         torch.randn(4 * c, generator=g, device=dev) * 0.02,
+         torch.randn((c, 4 * c), generator=g, device=dev) * (4 * c) ** -0.5,
+         torch.randn(c, generator=g, device=dev) * 0.02]
+    x_off = torch.empty(n * c + 1, dtype=dtype, device=dev)[1:].view(n, c)
+    x_off.copy_(x)
+    with pytest.raises(ValueError, match="x does not start on a 16-byte boundary"):
+        ffn.fused_ln_mlp_residual(x_off, a, *p)
+    b1_off = torch.empty(4 * c + 1, device=dev)[1:]
+    b1_off.copy_(p[3])
+    q = [*p[:3], b1_off, *p[4:]]
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="b1 does not start on a 16-byte boundary"):
+            ffn.fused_ln_mlp_residual(x, a, *q)
+    else:
+        assert torch.equal(ffn.fused_ln_mlp_residual(x, a, *q), ffn.fused_ln_mlp_residual(x, a, *p))
+    got = ffn.fused_ln_mlp_residual(x, a, *p)
+    torch.cuda.synchronize()
+    _assert_close(got, ffn.fused_ln_mlp_residual_reference(x, a, *p), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_ffn_gemm_resources(dev, dtype):
     """No K3 GEMM kernel spills, and every one holds two blocks per SM, as
     the design states (bf16 128 x 128: 108 KB of shared memory a block;
