@@ -40,8 +40,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    through cuBLAS as device time (``torch.nn.functional.linear`` in the
    same dtype, TF32 off: the GEMM part's yardstick, K3's function being
    fused), float32 also bounded at
-   3xTF32's rate; then its GEMM kernels' resources at each stage (no
-   spill; at least 2 blocks per SM);
+   3xTF32's rate; K2 the same way (two calls bit-identical, CUDA events
+   and device time, its two projections alone through cuBLAS as device
+   time); then the tensor-core GEMM kernels' resources at each stage, K3's
+   and K2's projections' (no spill; at least 2 blocks per SM);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -790,32 +792,94 @@ def ffn_lines(stats, batch, hw, c, dtype, randn, bound, ffn_params) -> None:
         s["bound_3xtf32_ms"] = s.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
 
 
-def ffn_info_lines(stats) -> None:
-    """K3's two GEMM kernels at each stage's C and the rows of batch 2 (bf16
-    and float32) and of the zonal batch (bf16): registers, spill bytes,
-    shared bytes and resident blocks per SM; raises on a spill or on fewer
-    than the design's 2 blocks per SM."""
+def window_attn_lines(stats, tag, win, params, nh, nwh, attn_f32, bound) -> None:
+    """K2 on the stage's windows in one softmax mode against its plain
+    version (4 bf16 units, float32 1e-4 of the largest magnitude), two
+    calls bit-identical, and ``tools/time_window_attn.py``'s
+    ``stage_times``: kernel and plain ms by CUDA events, as every kernel
+    line, then as device time, and beside them its two products alone
+    through cuBLAS (``torch.nn.functional.linear`` twice in the same dtype,
+    float32 with TF32 off) as device time: a yardstick of the projections,
+    not a library call computing K2's fused function. float32 lines give
+    the bound at 67 TFLOP/s and at 3xTF32's 165. Sums: bf16 at attn_f32
+    False (the slice's) in ``stats["window_attn"]``, float32 at attn_f32
+    True (the training configuration's) in ``stats["window_attn_f32"]``."""
     import torch
 
-    from flair_for_aigle_tpu_torch.ops import ffn
+    from flair_for_aigle_tpu_torch.ops import window_attn
+    from flair_for_aigle_tpu_torch.tools.time_window_attn import stage_times
 
-    worst = {"gemm_spill_bytes": 0, "gemm_max_regs": 0, "gemm_min_blocks_per_sm": 99}
+    bf = win.dtype == torch.bfloat16
+    dts = "bf16" if bf else "f32"
+    c = win.shape[-1]
+    akw = dict(num_heads=nh, window_size=WS, shift_size=SS, grid_hw=(nwh, nwh),
+               attn_f32=attn_f32)
+    got = window_attn.fused_window_attention(win, *params, **akw)
+    again = window_attn.fused_window_attention(win, *params, **akw)
+    want = window_attn.fused_window_attention_reference(win, *params, **akw)
+    case = f"{tag} attn_f32={attn_f32}"
+    same = torch.equal(got, again)
+    say("kernel", f"window_attn {case}: repeat {'bit-identical ok' if same else 'DIFFERS FAIL'}")
+    if not same:
+        raise AssertionError(f"window_attn {case}: two calls differ")
+    t = stage_times(win, params, akw)
+    cost = (*cost_window_attn(win.shape[0], c, nh, 2 if bf else 4), dts)
+    x3 = (*cost[:2], "tf32x3")  # the same work at 3xTF32's effective rate
+    note = (f"; device time kernel {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms, "
+            f"cuBLAS products (F.linear x2, {dts}) {t['cublas_device_ms']:.4f} ms"
+            + ("" if bf else f"; at 3xTF32's 165 TFLOP/s {_bound_text(x3)}"))
+    _compare("window_attn", case, got, want, bound(want, win.dtype, 4, 1e-4), t["ms"],
+             t["plain_ms"], stats, cost, note=note)
+    if attn_f32 == bf:  # neither the slice's mode nor training's
+        return
+    name = "window_attn" if bf else "window_attn_f32"
+    _add_time(stats, name, t["ms"], t["plain_ms"], cost)
+    s = stats[name]
+    for key in ("device_ms", "plain_device_ms", "cublas_device_ms"):
+        s[key] = s.get(key, 0.0) + t[key]
+    if not bf:
+        s["bound_3xtf32_ms"] = s.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
+
+
+def _resource_line(what, i, worst) -> None:
+    """One GEMM kernel's resources; raises on a spill or on fewer than the
+    design's 2 blocks per SM, and folds them into ``worst``."""
+    say("kernel", f"{what}: {i['regs']} registers, {i['spill_bytes']} spill bytes, "
+        f"{i['shared_bytes']} shared bytes per block, {i['blocks_per_sm']} blocks per SM "
+        f"(bound: 0 spill bytes, >= 2 blocks per SM)")
+    if i["spill_bytes"] > 0 or i["blocks_per_sm"] < 2:
+        raise AssertionError(f"{what} spills or misses its occupancy: {i}")
+    worst["gemm_spill_bytes"] = max(worst["gemm_spill_bytes"], i["spill_bytes"])
+    worst["gemm_max_regs"] = max(worst["gemm_max_regs"], i["regs"])
+    worst["gemm_min_blocks_per_sm"] = min(worst["gemm_min_blocks_per_sm"], i["blocks_per_sm"])
+
+
+def ffn_info_lines(stats) -> None:
+    """The tensor-core GEMM kernels (gemm_mma.cuh) at each stage's C and
+    the rows of batch 2 (bf16 and float32) and of the zonal batch (bf16):
+    K3's two and K2's two projections (the bias epilogue, which K6's qkv
+    recompute shares); registers, spill bytes, shared bytes and resident
+    blocks per SM; raises on a spill or on fewer than the design's 2 blocks
+    per SM. The worst of each kernel's go into its stats."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import ffn, window_attn
+
+    def fresh():
+        return {"gemm_spill_bytes": 0, "gemm_max_regs": 0, "gemm_min_blocks_per_sm": 99}
+
+    worst = {"ffn": fresh(), "window_attn": fresh()}
     for (hw, c, _) in STAGES:
+        m = (-(-hw // WS)) ** 2 * T  # window rows of one tile
         for dtype, batch in ((torch.bfloat16, 2), (torch.float32, 2), (torch.bfloat16, BATCH)):
             dts = "bf16" if dtype == torch.bfloat16 else "f32"
-            info = ffn.ffn_info(c, 4 * c, dtype, n=batch * hw * hw)
-            for kname, i in info.items():
-                say("kernel", f"ffn GEMM B{batch} C{c} {dts} {kname}: {i['regs']} registers, "
-                    f"{i['spill_bytes']} spill bytes, {i['shared_bytes']} shared bytes per "
-                    f"block, {i['blocks_per_sm']} blocks per SM (bound: 0 spill bytes, >= 2 "
-                    f"blocks per SM)")
-                if i["spill_bytes"] > 0 or i["blocks_per_sm"] < 2:
-                    raise AssertionError(f"ffn GEMM {kname} spills or misses its occupancy: {i}")
-                worst["gemm_spill_bytes"] = max(worst["gemm_spill_bytes"], i["spill_bytes"])
-                worst["gemm_max_regs"] = max(worst["gemm_max_regs"], i["regs"])
-                worst["gemm_min_blocks_per_sm"] = min(worst["gemm_min_blocks_per_sm"],
-                                                      i["blocks_per_sm"])
-    stats["ffn"]["info"] = worst
+            for kname, i in ffn.ffn_info(c, 4 * c, dtype, n=batch * hw * hw).items():
+                _resource_line(f"ffn GEMM B{batch} C{c} {dts} {kname}", i, worst["ffn"])
+            for kname, i in window_attn.window_attention_gemm_info(dtype, batch * m, c).items():
+                _resource_line(f"window_attn GEMM B{batch} C{c} {dts} {kname}", i,
+                               worst["window_attn"])
+    stats["ffn"]["info"] = worst["ffn"]
+    stats["window_attn"]["info"] = worst["window_attn"]
 
 
 def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None, note=""):
@@ -933,17 +997,7 @@ def phase_kernels() -> dict:
                       randn(c, c, dtype=f32, std=bound_c), randn(c, dtype=f32, std=0.02),
                       randn(nh, T, T, dtype=f32, std=0.02))
             for attn_f32 in (True, False):
-                akw = dict(num_heads=nh, window_size=WS, shift_size=SS,
-                           grid_hw=(nwh, nwh), attn_f32=attn_f32)
-                got = window_attn.fused_window_attention(win, *params, **akw)
-                want = window_attn.fused_window_attention_reference(win, *params, **akw)
-                t_k = cuda_ms(lambda: window_attn.fused_window_attention(win, *params, **akw))
-                t_p = cuda_ms(lambda: window_attn.fused_window_attention_reference(win, *params, **akw))
-                cost = (*cost_window_attn(win.shape[0], c, nh, isz), dts)
-                _compare("window_attn", f"{tag} attn_f32={attn_f32}", got, want,
-                         bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost)
-                if dtype == bf and not attn_f32:  # the slice's configuration
-                    _add_time(stats, "window_attn", t_k, t_p, cost)
+                window_attn_lines(stats, tag, win, params, nh, nwh, attn_f32, bound)
             core_lines(stats, geom, win.shape[0], c, nh, nwh, randn, bound, dtype)
 
             # K3: residual + LN + MLP + residual
@@ -1651,6 +1705,15 @@ def main() -> int:
     # beside its two products through cuBLAS; and the worst resources of
     # its GEMM kernels
     dev = ("device_ms", "plain_device_ms", "cublas_device_ms")
+    # K2 summed over the stages: bf16 at attn_f32 False (the entry's own
+    # numbers) and float32 at attn_f32 True (with its bound at 3xTF32's
+    # rate), each by CUDA events and as device time beside its two
+    # products through cuBLAS; and the worst resources of its projections'
+    # GEMM kernels
+    st = stats["window_attn_f32"]
+    extra["window_attn"].update({
+        **{k: stats["window_attn"][k] for k in dev}, **stats["window_attn"]["info"],
+        **{f"f32_{k}": st[k] for k in ("ms", "plain_ms", "bound_ms", "bound_3xtf32_ms", *dev)}})
     extra["ffn"] = {**{k: stats["ffn"][k] for k in dev}, **stats["ffn"]["info"]}
     for key, name in (("f32", "ffn_f32"), (f"b{BATCH}", "ffn_b16")):
         st = stats[name]

@@ -18,7 +18,7 @@
 //     recomputes x2 = x + attn and adds the residual, so x2 is never
 //     stored. Both come straight from the accumulator registers.
 //   - Each product's tile (bf16: 128 x 128 or 64 x 128 of the output;
-//     float32: 64 x 128) and fc2's split of K come from ops/ffn.py's plan,
+//     float32: 64 x 128) and fc2's split of K come from ops/mma_plan.py,
 //     from M, N, K and the SM count: the largest tile that gives every SM
 //     a block; where even the smallest does not (fc2 at few rows, hidden =
 //     4 C long), fc2 splits K into float32 partials that resid_sum_kernel
@@ -41,23 +41,6 @@
 namespace flair {
 
 namespace {
-
-// tile codes of ops/ffn.py FFN_TILES
-template <typename T, int EPI>
-int gemm_tile(int tile, const T* A, const T* W, void* out, int M, int N, int K, int k_chunk,
-              int nz, const T* bias, const T* rx, const T* ra, cudaStream_t s, int* info) {
-  switch (tile) {
-    case 0:  // bf16 only: float32's would hold one block an SM
-      if constexpr (!mma_f32<T>())
-        return launch_gemm_mma<T, 128, 128, EPI>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra,
-                                                 s, info);
-      break;
-    case 1:
-      return launch_gemm_mma<T, 64, 128, EPI>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra, s,
-                                              info);
-  }
-  return (int)cudaErrorInvalidValue;
-}
 
 template <typename T>
 int ffn_impl(const T* x, const T* a, const float* lns, const float* lnb, const T* w1,

@@ -4,11 +4,12 @@
 //   A @ B     A (M, K), B (K, N) row-major              (BKN = true)
 //   A^T @ B   A (K, M), B (K, N) row-major    (AT = true, BKN = true)
 //
-// C is (M, N). Used by K2 (qkv and output projections), K3 and K8 (fc1,
-// fc2), K5 (patch-merge reduction), K6 (the backward's do = g Wproj, dx =
-// dqkv Wqkv, and the weight gradients g^T o and dqkv^T x, whose reduction
-// runs over all B*nW*T rows) and K7 (fc1 recomputed, dh = g W2, dln = dh0 W1
-// and the weight gradients g^T h and dh0^T ln). bf16 inputs run on the tensor cores through
+// C is (M, N). Used by K8 (fc1, fc2), K5 (patch-merge reduction), K6 (the
+// backward's do = g Wproj, dx = dqkv Wqkv, and the weight gradients g^T o
+// and dqkv^T x, whose reduction runs over all B*nW*T rows) and K7 (fc1
+// recomputed, dh = g W2, dln = dh0 W1 and the weight gradients g^T h and
+// dh0^T ln). K2's projections, K6's qkv recompute and K3's products run on
+// gemm_mma.cuh. bf16 inputs run on the tensor cores through
 // nvcuda::wmma (m16n16k16, float32 accumulate); float32 inputs run a SIMT
 // FMA loop so the float32 path keeps full float32 precision (no TF32).
 //
@@ -25,7 +26,6 @@
 //
 // Epilogues, in the JAX reference's rounding order (models/layers.py
 // TorchLinear, ops/pallas/ffn.py :132-146):
-//   EPI_BIAS       out = rnd(rnd(acc) + b[n])
 //   EPI_BIAS_GELU  h = rnd(rnd(acc) + b[n]); out = 0.5 h (1 + erf(h / sqrt 2))
 //   EPI_NONE       out = rnd(acc)
 //   EPI_F32        out = acc, float32 (the split-K partials)
@@ -45,7 +45,6 @@
 namespace flair {
 
 enum {
-  EPI_BIAS = 0,
   EPI_BIAS_GELU = 1,
   EPI_NONE = 3,
   EPI_F32 = 4,
@@ -228,7 +227,7 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__
     } else {
       const float h = rnd<T>(rnd<T>(v) + to_f<T>(bias[gn]));
       if constexpr (EPI == EPI_BIAS_GELU_AUX) reinterpret_cast<T*>(aux)[idx] = from_f<T>(h);
-      o = (EPI == EPI_BIAS) ? h : gelu_f(h);
+      o = gelu_f(h);
     }
     reinterpret_cast<T*>(Cout)[idx] = from_f<T>(o);
   }

@@ -1,5 +1,7 @@
 // Tensor-core GEMM with a cp.async pipeline and an epilogue straight from
-// the accumulator registers, for K3's two products (ffn.cu):
+// the accumulator registers, for K3's two products (ffn.cu), K2's qkv and
+// output projections (window_attn.cu) and K6's qkv recompute
+// (window_attn_bwd.cu):
 //
 //   C = A W^T   A (M, K) row-major, W (N, K) row-major (the nn.Linear layout)
 //
@@ -46,7 +48,9 @@
 //   - Epilogues read the accumulators where they lie: each quad of lanes
 //     transposes its four n8 tiles of a row by shuffles, so that a lane
 //     holds 8 neighbouring columns and every load and store is 16 bytes of
-//     whole sectors. In ffn.py's rounding order (gemm.cuh's):
+//     whole sectors. In the reference's rounding order (a float32 dot
+//     rounded to the compute dtype, then the bias added there):
+//       MMA_BIAS   out = rnd(rnd(acc) + b[n])       (K2's qkv and proj, K6's qkv)
 //       MMA_GELU   h = rnd(rnd(acc) + b[n]); out = GELU(h)     (fc1)
 //       MMA_RESID  out = (rnd(x + a) + b[n]) + acc            (fc2)
 //       MMA_PART   out = acc, float32, at part + z M N: block z of the grid
@@ -63,7 +67,7 @@
 
 namespace flair {
 
-enum { MMA_GELU = 0, MMA_RESID = 1, MMA_PART = 2 };
+enum { MMA_GELU = 0, MMA_RESID = 1, MMA_PART = 2, MMA_BIAS = 3 };
 
 constexpr int MMA_THREADS = 256;
 
@@ -374,7 +378,8 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
   // eight neighbouring columns 8 t .. 8 t + 7 of the 32 the quad spans:
   // 16-byte loads and stores of whole sectors
   const int g = lane >> 2, t = lane & 3;
-  // this lane's eight bias values of each quad span (fc1, fc2)
+  // this lane's eight bias values of each quad span (every epilogue but
+  // MMA_PART's)
   float bq[NT / 4][8];
 #pragma unroll
   for (int q = 0; q < NT / 4; ++q) {
@@ -413,6 +418,9 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
           float o[8];
           if constexpr (EPI == MMA_RESID) {
             resid8<T>(rx + idx, ra + idx, bq[q], v, o);
+          } else if constexpr (EPI == MMA_BIAS) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) o[e] = rnd<T>(rnd<T>(v[e]) + bq[q][e]);
           } else {
 #pragma unroll
             for (int e = 0; e < 8; ++e) o[e] = gelu_f(rnd<T>(rnd<T>(v[e]) + bq[q][e]));
@@ -463,6 +471,33 @@ int launch_gemm_mma(const T* A, const T* W, void* out, int M, int N, int K, int 
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, nz);
   kernel<<<grid, MMA_THREADS, smem, stream>>>(A, W, out, M, N, K, k_chunk, bias, rx, ra);
   return 0;
+}
+
+// The tile codes of ops/mma_plan.py MMA_TILES: one product with the tile
+// that `tile` names (see launch_gemm_mma). Each .cu file that calls it
+// instantiates the kernels it names.
+template <typename T, int EPI>
+int gemm_tile(int tile, const T* A, const T* W, void* out, int M, int N, int K, int k_chunk,
+              int nz, const T* bias, const T* rx, const T* ra, cudaStream_t s, int* info) {
+  switch (tile) {
+    case 0:  // bf16 only: float32's would hold one block an SM
+      if constexpr (!mma_f32<T>())
+        return launch_gemm_mma<T, 128, 128, EPI>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra,
+                                                 s, info);
+      break;
+    case 1:
+      return launch_gemm_mma<T, 64, 128, EPI>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra, s,
+                                              info);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// C = A W^T + b[n] (MMA_BIAS) over the full K with the tile `tile`; with
+// `info`, nothing launches and info[0..3] receive the kernel's resources
+template <typename T>
+int gemm_bias(int tile, const T* A, const T* W, const T* bias, T* out, int M, int N, int K,
+              cudaStream_t s, int* info = nullptr) {
+  return gemm_tile<T, MMA_BIAS>(tile, A, W, out, M, N, K, K, 1, bias, nullptr, nullptr, s, info);
 }
 
 template <typename T>

@@ -14,10 +14,14 @@
 //     per-row max, e = exp(s - max) in the compute dtype, denominator the
 //     float32 sum rounded to the compute dtype, deferred normalisation.
 //
-// Three launches: the qkv GEMM and the proj GEMM (tensor-core GEMMs with a
-// fused bias epilogue, gemm.cuh) around the attention core. The (B*nW, T, 3C)
-// qkv tensor and the pre-projection output round-trip device memory between
-// them (kept in VMEM by the TPU kernel; re-fusing them is later work).
+// Three launches: the qkv GEMM and the proj GEMM around the attention core.
+// Both projections are gemm_mma.cuh's tensor-core GEMM (mma.sync fed by a
+// cp.async ring; bf16, or float32 as 3xTF32) with its MMA_BIAS epilogue,
+// out = rnd(rnd(x W^T) + b), straight from the accumulators; each
+// product's tile comes from ops/mma_plan.py (the largest that gives every
+// SM a block). The (B*nW, T, 3C) qkv tensor and the pre-projection output
+// round-trip device memory between them (kept in VMEM by the TPU kernel;
+// re-fusing them is later work).
 //
 // The bf16 core (attn_core_bf16_kernel). At T = 144, head dim 32, one
 // (window, head) reads 27 KB of q, k, v, writes 9 KB of o and does 2.7 MFLOP
@@ -58,7 +62,7 @@
 
 #include "common.cuh"
 #include "core_util.cuh"
-#include "gemm.cuh"
+#include "gemm_mma.cuh"
 
 namespace flair {
 
@@ -307,33 +311,43 @@ template <typename T>
 int window_attn_impl(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
                      const void* bproj, const void* bias, void* qkv, void* o, void* out,
                      int bnw, int t, int c, int nh, int ws, int ss, int nwh, int nww,
-                     int attn_f32, cudaStream_t s) {
+                     int attn_f32, int tile_qkv, int tile_proj, cudaStream_t s) {
   const int m = bnw * t;
-  launch_gemm<T, EPI_BIAS>((const T*)x, (const T*)wqkv, (T*)qkv, m, 3 * c, c,
-                           (const T*)bqkv, nullptr, s);
-  const int rc =
-      attn_core<T>((const T*)qkv, bias, (T*)o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, s);
-  if (rc) return rc;
-  launch_gemm<T, EPI_BIAS>((const T*)o, (const T*)wproj, (T*)out, m, c, c, (const T*)bproj,
-                           nullptr, s);
-  return (int)cudaGetLastError();
+  int rc = gemm_bias<T>(tile_qkv, (const T*)x, (const T*)wqkv, (const T*)bqkv, (T*)qkv, m, 3 * c,
+                        c, s);
+  if (!rc)
+    rc = attn_core<T>((const T*)qkv, bias, (T*)o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, s);
+  if (!rc)
+    rc = gemm_bias<T>(tile_proj, (const T*)o, (const T*)wproj, (const T*)bproj, (T*)out, m, c, c,
+                      s);
+  return rc ? rc : (int)cudaGetLastError();
 }
 
 }  // namespace flair
 
 using namespace flair;
 
+// tile_qkv, tile_proj: the projections' tile codes (ops/mma_plan.py)
 extern "C" int window_attn_fwd(const void* x, const void* wqkv, const void* bqkv,
                                const void* wproj, const void* bproj, const void* bias,
                                void* qkv, void* o, void* out, int bnw, int t, int c, int nh,
-                               int ws, int ss, int nwh, int nww, int attn_f32, int dtype,
-                               void* stream) {
+                               int ws, int ss, int nwh, int nww, int attn_f32, int tile_qkv,
+                               int tile_proj, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return window_attn_impl<float>(x, wqkv, bqkv, wproj, bproj, bias, qkv, o, out, bnw, t, c,
-                                   nh, ws, ss, nwh, nww, attn_f32, s);
+                                   nh, ws, ss, nwh, nww, attn_f32, tile_qkv, tile_proj, s);
   return window_attn_impl<bf16>(x, wqkv, bqkv, wproj, bproj, bias, qkv, o, out, bnw, t, c, nh,
-                                ws, ss, nwh, nww, attn_f32, s);
+                                ws, ss, nwh, nww, attn_f32, tile_qkv, tile_proj, s);
+}
+
+// the resources of the projections' GEMM kernel (gemm_mma.cuh, MMA_BIAS)
+// with tile code `tile` in `dtype`: out = int[4] registers, local bytes,
+// shared bytes, blocks per SM (K6's qkv recompute instantiates the same
+// kernel in window_attn_bwd.cu)
+extern "C" int window_attn_gemm_info(int dtype, int tile, int* out) {
+  return dtype == 0 ? gemm_bias<float>(tile, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, out)
+                    : gemm_bias<bf16>(tile, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, out);
 }
 
 // the attention core alone: qkv (bnw * t, 3c) -> o (bnw * t, c)

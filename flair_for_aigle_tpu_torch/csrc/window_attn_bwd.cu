@@ -9,7 +9,8 @@
 //
 // Given the forward's raw inputs (x, Wqkv, bqkv, Wproj, bias) and the
 // output gradient g, flash-style (nothing but the inputs was saved):
-//   1. qkv = rnd(rnd(x Wqkv^T) + bqkv)          (gemm.cuh, A @ W^T)
+//   1. qkv = rnd(rnd(x Wqkv^T) + bqkv)          (gemm_mma.cuh, MMA_BIAS, with
+//      the tile K2's forward takes at the same M: the qkv K2 computed)
 //   2. do  = rnd(g Wproj)                       (gemm.cuh, A @ B)
 //   3. core, one block per (window group, head), walking the group's
 //      windows: recompute s and p, then o = pc v, dp = do v^T, ds = p (dp -
@@ -81,6 +82,7 @@
 #include "common.cuh"
 #include "core_util.cuh"
 #include "gemm.cuh"
+#include "gemm_mma.cuh"
 #include "window_attn_bwd.cuh"
 
 namespace flair {
@@ -644,12 +646,14 @@ int window_attn_bwd_impl(const void* x, const void* g, const void* wqkv, const v
                          void* dqkv, void* dbias_part, void* dbqkv_part, void* wpart, void* dx,
                          void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dbias,
                          int bnw, int t, int c, int nh, int ws, int ss, int nwh, int nww,
-                         int attn_f32, int n_groups, int k_chunk, cudaStream_t s) {
+                         int attn_f32, int n_groups, int k_chunk, int tile_qkv,
+                         cudaStream_t s) {
   const int m = bnw * t;
   const int n_split = (m + k_chunk - 1) / k_chunk;
   float* part = (float*)wpart;
-  launch_gemm<T, EPI_BIAS>((const T*)x, (const T*)wqkv, qkv, m, 3 * c, c, (const T*)bqkv,
-                           nullptr, s);
+  const int e = gemm_bias<T>(tile_qkv, (const T*)x, (const T*)wqkv, (const T*)bqkv, (T*)qkv, m,
+                             3 * c, c, s);
+  if (e) return e;
   launch_gemm<T, EPI_NONE, false, true>((const T*)g, (const T*)wproj, dout, m, c, c, nullptr,
                                         nullptr, s);
   const int rc = bwd_core<T>((const T*)qkv, (const T*)dout, (const float*)bias, (T*)o, (T*)dqkv,
@@ -684,17 +688,17 @@ extern "C" int window_attn_bwd(const void* x, const void* g, const void* wqkv, c
                                void* wpart, void* dx, void* dwqkv, void* dbqkv, void* dwproj,
                                void* dbproj, void* dbias, int bnw, int t, int c, int nh, int ws,
                                int ss, int nwh, int nww, int attn_f32, int n_groups, int k_chunk,
-                               int dtype, void* stream) {
+                               int tile_qkv, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return window_attn_bwd_impl<float>(x, g, wqkv, bqkv, wproj, bias, qkv, dout, o, dqkv,
                                        dbias_part, dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj,
                                        dbproj, dbias, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32,
-                                       n_groups, k_chunk, s);
+                                       n_groups, k_chunk, tile_qkv, s);
   return window_attn_bwd_impl<bf16>(x, g, wqkv, bqkv, wproj, bias, qkv, dout, o, dqkv,
                                     dbias_part, dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj,
                                     dbproj, dbias, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32,
-                                    n_groups, k_chunk, s);
+                                    n_groups, k_chunk, tile_qkv, s);
 }
 
 // the core alone: qkv (bnw * t, 3c), do (bnw * t, c) -> o, dqkv, and dbias

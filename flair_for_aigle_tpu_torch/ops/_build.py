@@ -38,8 +38,12 @@ _SIGNATURES = {
     # x, scale, bias, out, b, h, w, c, ws, ss, eps, dtype, stream
     "prep_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     # x, wqkv, bqkv, wproj, bproj, bias, qkv, o, out,
-    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, dtype, stream
-    "window_attn_fwd": [_P] * 9 + [_I] * 10 + [_P],
+    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, tile_qkv, tile_proj, dtype,
+    # stream
+    "window_attn_fwd": [_P] * 9 + [_I] * 12 + [_P],
+    # dtype, tile, out (int[4]: registers, local bytes, shared bytes,
+    # blocks per SM)
+    "window_attn_gemm_info": [_I] * 2 + [_P],
     # qkv, bias, o, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, dtype, stream
     "window_attn_core": [_P] * 3 + [_I] * 10 + [_P],
     # t, attn_f32, dtype, out (int[4]: registers, local bytes, shared
@@ -59,9 +63,9 @@ _SIGNATURES = {
     "merge_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
     # x, g, wqkv, bqkv, wproj, bias, qkv, do, o, dqkv, dbias_part,
     # dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj, dbproj, dbias,
-    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, k_chunk, dtype,
-    # stream
-    "window_attn_bwd": [_P] * 19 + [_I] * 12 + [_P],
+    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, k_chunk, tile_qkv,
+    # dtype, stream
+    "window_attn_bwd": [_P] * 19 + [_I] * 13 + [_P],
     # qkv, do, bias, o, dqkv, dbias_part, dbqkv_part, dbias, dbqkv,
     # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, dtype, stream
     "window_attn_bwd_core": [_P] * 9 + [_I] * 11 + [_P],
@@ -166,6 +170,18 @@ def lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = so
         return _lib
+
+
+def aligned(t):
+    """t itself where its data starts on a 16-byte boundary, else a fresh
+    contiguous copy (which does). The kernels read and write their tensors
+    16 bytes at a time (``cp.async`` copies, ``uint4`` / ``float4`` loads and
+    stores); a view at an offset into a larger buffer, which
+    ``.contiguous()`` returns unchanged, would fault on the card as a
+    misaligned address. Fresh allocations pass through untouched."""
+    import torch
+
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 
 def check(rc: int, name: str) -> None:

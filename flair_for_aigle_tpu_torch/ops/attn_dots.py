@@ -74,6 +74,7 @@ def _launch(fn, q, k, v, num_heads: int, bw: int) -> torch.Tensor:
     if t != T or c != HEAD_DIM * num_heads:
         raise ValueError(f"attn_dots kernel: takes T={T} and head dim {HEAD_DIM}, got T={t}, "
                          f"C={c}, num_heads={num_heads}")
+    q, k, v = (_build.aligned(u) for u in (q, k, v))  # 16-byte cp.async copies
     out = torch.empty_like(q)
     name = fn.__name__
     rc = getattr(_build.lib(), name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -7,8 +7,10 @@ Replaces ``flair_for_aigle_tpu/ops/pallas/ffn.py:481 fused_ln_mlp_residual``
 mma.sync tensor-core GEMMs (``csrc/gemm_mma.cuh``: bf16, or float32 as
 3xTF32) whose epilogues apply bias + exact GELU (fc1) and the float32
 residual (fc2, recomputing x + attn); the LayerNorm is one bandwidth-bound
-pass. ``ffn_gemm_plan`` picks each product's tile and fc2's split of K;
-``ffn_info`` reports the GEMM kernels' resources. See the CUDA sources for
+pass. ``ops/mma_plan.py gemm_plan`` picks each product's tile and fc2's
+split of K; ``ffn_info`` reports the GEMM kernels' resources. Every tensor
+the kernels read goes through ``_build.aligned`` (a view off a 16-byte
+boundary is copied). See the CUDA sources for
 the bounds.
 
 Weights use the ``nn.Linear`` layout: ``w1`` (hidden, C), ``w2`` (C, hidden).
@@ -29,6 +31,7 @@ import torch
 
 from flair_for_aigle_tpu_torch.ops import _build
 from flair_for_aigle_tpu_torch.ops._vjp import plain_vjp
+from flair_for_aigle_tpu_torch.ops.mma_plan import MMA_TILES, PLAN_TILES, gemm_plan, n_sm
 
 
 def gelu_exact(h: torch.Tensor) -> torch.Tensor:
@@ -60,58 +63,6 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-#: K3's GEMM tiles (rows of A, rows of W a block); a tile's index is its
-#: code in csrc/ffn.cu
-FFN_TILES = ((128, 128), (64, 128))
-#: the tiles each dtype's plan picks from, largest first: float32's 128 x
-#: 128 would hold one block an SM, and 64 x 128 ran faster at every
-#: swin-base stage on the H100
-PLAN_TILES = {torch.bfloat16: (0, 1), torch.float32: (1,)}
-#: elements of K one pipeline step stages: 128 bytes of a bf16 row, 64 of
-#: a float32 row
-K_STEP = {torch.float32: 16, torch.bfloat16: 64}
-#: fewest pipeline steps a split-K chunk keeps
-MIN_STEPS = 8
-
-
-def ffn_gemm_plan(m: int, n: int, k: int, n_sm: int, dtype,
-                  split: bool = False) -> tuple[int, int, int]:
-    """(tile code, k_chunk, partials) of one of K3's products, C (m, n) =
-    A (m, k) W^T, in ``dtype`` on a card of ``n_sm`` SMs: the largest tile
-    of ``PLAN_TILES[dtype]`` that gives every SM a block, at the full K.
-    Where even the smallest tile does not and ``split`` is set (fc2), K is
-    cut into the fewest chunks of whole pipeline steps (``K_STEP[dtype]``
-    elements, at least ``MIN_STEPS`` of them a chunk) that do: block z of
-    the grid sums K range [z k_chunk, (z + 1) k_chunk), and the partials
-    are added in the order z = 0, 1, ... (a fixed order: two calls give
-    the same bits)."""
-    for code in PLAN_TILES[dtype]:
-        bm, bn = FFN_TILES[code]
-        tiles = _ceil(m, bm) * _ceil(n, bn)
-        if tiles >= n_sm:
-            return code, k, 1
-    if not split:
-        return code, k, 1
-    step = K_STEP[dtype]
-    parts = max(1, min(_ceil(n_sm, tiles), k // (MIN_STEPS * step)))
-    k_chunk = _ceil(_ceil(k, parts), step) * step
-    return code, k_chunk, _ceil(k, k_chunk)
-
-
-def _n_sm(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _require_aligned(**tensors) -> None:
-    """The GEMMs stage A and W with 16-byte ``cp.async`` copies and their
-    epilogues read x, attn, b1 and b2 16 bytes at a time: a tensor whose
-    data starts off a 16-byte boundary (a view at an odd offset) raises
-    here rather than as a misaligned address on the card."""
-    for name, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"ffn kernel: {name} does not start on a 16-byte boundary")
-
-
 def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
     """The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
@@ -129,21 +80,20 @@ def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
         raise ValueError("ffn kernel: x and attn shapes differ")
     if c > 1024 or c % 8 or hidden % 8:
         raise ValueError(f"ffn kernel: unsupported C={c}, hidden={hidden}")
-    x = x.contiguous()
-    attn = attn.to(x.device, dt).contiguous()
-    lns, lnb = (p.detach().to(x.device, torch.float32).contiguous()
+    x = _build.aligned(x.contiguous())
+    attn = _build.aligned(attn.to(x.device, dt).contiguous())
+    lns, lnb = (_build.aligned(p.detach().to(x.device, torch.float32).contiguous())
                 for p in (ln_scale, ln_bias))
-    w1, b1, w2, b2 = (p.detach().to(x.device, dt).contiguous()
+    w1, b1, w2, b2 = (_build.aligned(p.detach().to(x.device, dt).contiguous())
                       for p in (w1, b1, w2, b2))
     if (w1.shape != (hidden, c) or b1.shape != (hidden,)
             or w2.shape != (c, hidden) or b2.shape != (c,)
             or lns.shape != (c,) or lnb.shape != (c,)):
         raise ValueError("ffn kernel: parameter shapes do not match x")
-    _require_aligned(x=x, attn=attn, w1=w1, b1=b1, w2=w2, b2=b2)
     n = x.numel() // c
-    n_sm = _n_sm(x.device)
-    tile1, _, _ = ffn_gemm_plan(n, hidden, c, n_sm, dt)
-    tile2, k_chunk2, nz2 = ffn_gemm_plan(n, c, hidden, n_sm, dt, split=True)
+    sms = n_sm(x.device)
+    tile1, _, _ = gemm_plan(n, hidden, c, sms, dt)
+    tile2, k_chunk2, nz2 = gemm_plan(n, c, hidden, sms, dt, split=True)
     ln = torch.empty((n, c), dtype=dt, device=x.device)
     h = torch.empty((n, hidden), dtype=dt, device=x.device)
     part = (torch.empty((nz2, n, c), dtype=torch.float32, device=x.device)
@@ -212,16 +162,16 @@ def ffn_info(c: int, hidden: int, dtype=torch.bfloat16, n: int | None = None) ->
     if n is None:
         kernels = [(e, t) for e in _EPILOGUES for t in PLAN_TILES[dtype]]
     else:
-        n_sm = _n_sm(torch.device("cuda", torch.cuda.current_device()))
-        tile1, _, _ = ffn_gemm_plan(n, hidden, c, n_sm, dtype)
-        tile2, _, nz2 = ffn_gemm_plan(n, c, hidden, n_sm, dtype, split=True)
+        sms = n_sm(torch.device("cuda", torch.cuda.current_device()))
+        tile1, _, _ = gemm_plan(n, hidden, c, sms, dtype)
+        tile2, _, nz2 = gemm_plan(n, c, hidden, sms, dtype, split=True)
         kernels = [("fc1", tile1), ("fc2 split" if nz2 > 1 else "fc2", tile2)]
     info = {}
     for epi, tile in kernels:
         out = (ctypes.c_int * 4)()
         rc = _build.lib().ffn_gemm_info(code, tile, _EPILOGUES[epi], ctypes.addressof(out))
         _build.check(rc, "ffn_gemm_info")
-        bm, bn = FFN_TILES[tile]
+        bm, bn = MMA_TILES[tile]
         info[f"{epi} {bm}x{bn}"] = dict(
             zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
     return info
@@ -308,18 +258,18 @@ def fused_ln_mlp_residual_backward(g, x, attn, ln_scale, ln_bias, w1, b1, w2,
         raise ValueError(f"{what}: x, attn and g shapes differ")
     if c > 1024 or c % 8 or hidden % 8:
         raise ValueError(f"{what}: unsupported C={c}, hidden={hidden}")
-    xc = x.contiguous()
-    ac = attn.to(dev, dt).contiguous()
-    gc = g.to(dev, dt).contiguous()
-    lns, lnb = (p.detach().to(dev, torch.float32).contiguous()
+    xc = _build.aligned(x.contiguous())
+    ac = _build.aligned(attn.to(dev, dt).contiguous())
+    gc = _build.aligned(g.to(dev, dt).contiguous())
+    lns, lnb = (_build.aligned(p.detach().to(dev, torch.float32).contiguous())
                 for p in (ln_scale, ln_bias))
-    w1c, b1c, w2c = (p.detach().to(dev, dt).contiguous() for p in (w1, b1, w2))
+    w1c, b1c, w2c = (_build.aligned(p.detach().to(dev, dt).contiguous())
+                     for p in (w1, b1, w2))
     if (w1c.shape != (hidden, c) or b1c.shape != (hidden,)
             or w2c.shape != (c, hidden) or lns.shape != (c,) or lnb.shape != (c,)):
         raise ValueError(f"{what}: parameter shapes do not match x")
     n = x.numel() // c
-    k_chunk, rows = _bwd_plan(
-        n, c, hidden, torch.cuda.get_device_properties(dev).multi_processor_count)
+    k_chunk, rows = _bwd_plan(n, c, hidden, n_sm(dev))
 
     def f32(*s):
         return torch.empty(s, dtype=torch.float32, device=dev)

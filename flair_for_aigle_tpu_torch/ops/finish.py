@@ -65,10 +65,12 @@ def _launch(win, x, ln_scale, ln_bias, w1, b1, w2, b2, ws: int, ss: int,
     if win.shape != (n_win, ws * ws, c):
         raise ValueError(f"{what}: windows {tuple(win.shape)} do not tile "
                          f"x {tuple(x.shape)} with ws={ws}")
-    win = win.to(x.device, dt).contiguous()
-    lns, lnb = (p.detach().to(x.device, torch.float32).contiguous()
+    # the GEMMs read their operands 16 bytes at a time
+    x = _build.aligned(x)
+    win = _build.aligned(win.to(x.device, dt).contiguous())
+    lns, lnb = (_build.aligned(p.detach().to(x.device, torch.float32).contiguous())
                 for p in (ln_scale, ln_bias))
-    w1, b1, w2, b2 = (p.detach().to(x.device, dt).contiguous()
+    w1, b1, w2, b2 = (_build.aligned(p.detach().to(x.device, dt).contiguous())
                       for p in (w1, b1, w2, b2))
     if (w1.shape != (hidden, c) or b1.shape != (hidden,)
             or w2.shape != (c, hidden) or b2.shape != (c,)

@@ -56,9 +56,11 @@ def _launch(x: torch.Tensor, ln_scale, ln_bias, w_red, eps: float) -> torch.Tens
     if h % 2 or w % 2 or c % 8 or 4 * c > MAX_4C:
         raise ValueError(f"merge kernel: unsupported H={h}, W={w}, C={c} "
                          f"(needs even H and W, C % 8 == 0, 4C <= {MAX_4C})")
-    lns, lnb = (p.detach().to(x.device, torch.float32).contiguous()
+    # the reduction GEMM reads its operands 16 bytes at a time
+    x = _build.aligned(x)
+    lns, lnb = (_build.aligned(p.detach().to(x.device, torch.float32).contiguous())
                 for p in (ln_scale, ln_bias))
-    wr = w_red.detach().to(x.device, dt).contiguous()
+    wr = _build.aligned(w_red.detach().to(x.device, dt).contiguous())
     out_c = wr.shape[0]
     if lns.shape != (4 * c,) or lnb.shape != (4 * c,) or wr.shape != (out_c, 4 * c):
         raise ValueError("merge kernel: parameter shapes do not match x")

@@ -1,0 +1,59 @@
+"""The tile plan of ``csrc/gemm_mma.cuh``'s tensor-core GEMM, C (m, n) =
+A (m, k) W^T, shared by its callers: K3's fc1 and fc2 (``ops/ffn.py``) and
+K2's and K6's qkv and output projections (``ops/window_attn.py``).
+
+A tile's index in ``MMA_TILES`` is its code in ``gemm_mma.cuh gemm_tile``.
+The plan is a function of the shapes, the dtype and the SM count alone, so
+K6's qkv recompute takes the tile K2's forward took at the same rows and
+computes the same qkv.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: the GEMM's tiles (rows of A, rows of W a block), by tile code
+MMA_TILES = ((128, 128), (64, 128))
+#: the tiles each dtype's plan picks from, largest first: float32's 128 x
+#: 128 would hold one block an SM, and 64 x 128 ran faster at every
+#: swin-base stage on the H100
+PLAN_TILES = {torch.bfloat16: (0, 1), torch.float32: (1,)}
+#: elements of K one pipeline step stages: 128 bytes of a bf16 row, 64 of
+#: a float32 row
+K_STEP = {torch.float32: 16, torch.bfloat16: 64}
+#: fewest pipeline steps a split-K chunk keeps
+MIN_STEPS = 8
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_plan(m: int, n: int, k: int, n_sm: int, dtype,
+              split: bool = False) -> tuple[int, int, int]:
+    """(tile code, k_chunk, partials) of one product C (m, n) = A (m, k)
+    W^T in ``dtype`` on a card of ``n_sm`` SMs: the largest tile of
+    ``PLAN_TILES[dtype]`` that gives every SM a block, at the full K.
+    Where even the smallest tile does not and ``split`` is set (K3's fc2),
+    K is cut into the fewest chunks of whole pipeline steps
+    (``K_STEP[dtype]`` elements, at least ``MIN_STEPS`` of them a chunk)
+    that do: block z of the grid sums K range [z k_chunk, (z + 1) k_chunk),
+    and the partials are added in the order z = 0, 1, ... (a fixed order:
+    two calls give the same bits). Without ``split`` the smallest tile
+    runs at the full K."""
+    for code in PLAN_TILES[dtype]:
+        bm, bn = MMA_TILES[code]
+        tiles = _ceil(m, bm) * _ceil(n, bn)
+        if tiles >= n_sm:
+            return code, k, 1
+    if not split:
+        return code, k, 1
+    step = K_STEP[dtype]
+    parts = max(1, min(_ceil(n_sm, tiles), k // (MIN_STEPS * step)))
+    k_chunk = _ceil(_ceil(k, parts), step) * step
+    return code, k_chunk, _ceil(k, k_chunk)
+
+
+def n_sm(device) -> int:
+    """The SM count of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -4,12 +4,15 @@ with their plain PyTorch versions.
 
 Replaces ``flair_for_aigle_tpu/ops/pallas/window_attn.py:973
 fused_window_attention`` (forward; body ``_kernel_body`` :173). On the card
-the two projections are tensor-core GEMMs with a fused bias epilogue and the
-attention core runs one block per (window, head), one warp per 16 query
-rows, with the scores and probabilities in mma.sync registers (bf16 on
-m16n8k16; float32 as 3xTF32 on m16n8k8, ``csrc/window_attn_f32.cu``), so
-the (B*nW, nh, T, T) scores never leave the SM. See the CUDA sources for
-the bounds.
+the two projections run ``csrc/gemm_mma.cuh``'s tensor-core GEMM (bf16, or
+float32 as 3xTF32) with its bias epilogue, each with the tile that
+``attn_gemm_tiles`` plans (``ops/mma_plan.py``), and the attention core
+runs one block per (window, head), one warp per 16 query rows, with the
+scores and probabilities in mma.sync registers (bf16 on m16n8k16; float32
+as 3xTF32 on m16n8k8, ``csrc/window_attn_f32.cu``), so the (B*nW, nh, T, T)
+scores never leave the SM. See the CUDA sources for the bounds. Every
+tensor a kernel reads goes through ``_build.aligned`` (a view off a
+16-byte boundary is copied).
 
 Weights use the ``nn.Linear`` layout: ``wqkv`` (3C, C), ``wproj`` (C, C).
 The softmax follows the Pallas body: ``attn_f32=True`` is the float32
@@ -22,7 +25,8 @@ backward is ``fused_window_attention_backward`` (K6 on the card; on the CPU
 autograd through the plain forward), as the reference's ``custom_vjp``
 (``window_attn.py:941-970``). K6 replaces both TPU backward kernels, the
 monolithic one (``:534``) and the head-chunked one (``:751``): the chunked
-grid only fitted the TPU's VMEM at C = 512 / 1024.
+grid only fitted the TPU's VMEM at C = 512 / 1024. K6 recomputes qkv with
+the kernel and tile K2's forward used at the same rows.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from flair_for_aigle_tpu_torch.ops import _build
 from flair_for_aigle_tpu_torch.ops._vjp import plain_vjp
+from flair_for_aigle_tpu_torch.ops.mma_plan import MMA_TILES, PLAN_TILES, gemm_plan, n_sm
 
 #: static softmax shift and overflow clamp of the attn_f32 form
 SHIFT = 30.0
@@ -195,17 +200,25 @@ def _check(x, num_heads: int, window_size: int, grid_hw, what: str,
 
 def _params(x, wqkv, bqkv, wproj, bproj, bias, nh: int, bias_dtype, what: str):
     """The weights in the compute dtype and the bias in ``bias_dtype``, on
-    x's device, contiguous, shape-checked."""
+    x's device, contiguous, on a 16-byte boundary, shape-checked."""
     _, t, c = x.shape
     dt = x.dtype
-    wqkv, bqkv, wproj, bproj = (p.detach().to(x.device, dt).contiguous()
+    wqkv, bqkv, wproj, bproj = (_build.aligned(p.detach().to(x.device, dt).contiguous())
                                 for p in (wqkv, bqkv, wproj, bproj))
-    bias = bias.detach().to(x.device, bias_dtype).contiguous()
+    bias = _build.aligned(bias.detach().to(x.device, bias_dtype).contiguous())
     if (wqkv.shape != (3 * c, c) or bqkv.shape != (3 * c,)
             or wproj.shape != (c, c) or bproj.shape != (c,)
             or bias.shape != (nh, t, t)):
         raise ValueError(f"{what}: parameter shapes do not match x")
     return wqkv, bqkv, wproj, bproj, bias
+
+
+def attn_gemm_tiles(m: int, c: int, sms: int, dtype) -> tuple[int, int]:
+    """Tile codes (``ops/mma_plan.py MMA_TILES``) of the qkv (m, 3C) and
+    output (m, C) projections at m = B*nW*T rows on a card of ``sms`` SMs:
+    the largest tile that gives every SM a block, K never split. K6's qkv
+    recompute takes the qkv tile, so it repeats K2's product."""
+    return gemm_plan(m, 3 * c, c, sms, dtype)[0], gemm_plan(m, c, c, sms, dtype)[0]
 
 
 def _launch(x, wqkv, bqkv, wproj, bproj, bias, *, num_heads: int,
@@ -219,12 +232,14 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, *, num_heads: int,
             attn_f32=attn_f32)
     what = "window attention kernel"
     _check(x, num_heads, window_size, grid_hw, what)
+    x = _build.aligned(x)
     bnw, t, c = x.shape
     dt = x.dtype
     wqkv, bqkv, wproj, bproj, bias = _params(
         x, wqkv, bqkv, wproj, bproj, bias, num_heads,
         torch.float32 if attn_f32 else dt, what)
     nwh, nww = grid_hw
+    tile_qkv, tile_proj = attn_gemm_tiles(bnw * t, c, n_sm(x.device), dt)
     qkv = torch.empty((bnw * t, 3 * c), dtype=dt, device=x.device)
     o = torch.empty((bnw * t, c), dtype=dt, device=x.device)
     out = torch.empty((bnw, t, c), dtype=dt, device=x.device)
@@ -232,7 +247,8 @@ def _launch(x, wqkv, bqkv, wproj, bproj, bias, *, num_heads: int,
         x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
         bproj.data_ptr(), bias.data_ptr(), qkv.data_ptr(), o.data_ptr(),
         out.data_ptr(), bnw, t, c, num_heads, window_size, shift_size, nwh,
-        nww, int(bool(attn_f32)), _build.dtype_code(x), _build.stream_ptr(x))
+        nww, int(bool(attn_f32)), tile_qkv, tile_proj, _build.dtype_code(x),
+        _build.stream_ptr(x))
     _build.check(rc, "window_attn_fwd")
     fused_window_attention.launches += 1
     return out
@@ -290,8 +306,9 @@ def window_attention_core(qkv, bias, *, num_heads: int, window_size: int,
     m, c = qkv.shape[0], qkv.shape[1] // 3
     bnw = m // t
     _check(qkv, num_heads, window_size, grid_hw, what, shape=(bnw, t, c))
+    qkv = _build.aligned(qkv)
     bias = bias.detach().to(qkv.device, torch.float32 if attn_f32 else qkv.dtype)
-    bias = bias.contiguous()
+    bias = _build.aligned(bias.contiguous())
     if bias.shape != (num_heads, t, t):
         raise ValueError(f"{what}: bias must be ({num_heads}, {t}, {t})")
     o = torch.empty((m, c), dtype=qkv.dtype, device=qkv.device)
@@ -319,6 +336,32 @@ def window_attention_core_info(t: int, attn_f32: bool,
         ctypes.addressof(out))
     _build.check(rc, "window_attn_core_info")
     return dict(zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
+
+
+def window_attention_gemm_info(dtype=torch.bfloat16, m: int | None = None,
+                               c: int | None = None) -> dict:
+    """The resources of the projections' GEMM kernel (``gemm_mma.cuh``,
+    bias epilogue) in ``dtype`` on the current card, as the CUDA runtime
+    reports them: registers per thread, local (spill) bytes per thread,
+    shared bytes per block and resident blocks per SM, keyed ``"qkv
+    64x128"``, .... Without ``m`` and ``c``, every tile of the dtype's plan
+    (keyed ``"bias 128x128"``, ...); with them, the tiles that K2 takes for
+    m = B*nW*T rows of C."""
+    code = 0 if dtype == torch.float32 else 1
+    if m is None:
+        kernels = [("bias", t) for t in PLAN_TILES[dtype]]
+    else:
+        sms = n_sm(torch.device("cuda", torch.cuda.current_device()))
+        kernels = list(zip(("qkv", "proj"), attn_gemm_tiles(m, c, sms, dtype)))
+    info = {}
+    for name, tile in kernels:
+        out = (ctypes.c_int * 4)()
+        rc = _build.lib().window_attn_gemm_info(code, tile, ctypes.addressof(out))
+        _build.check(rc, "window_attn_gemm_info")
+        bm, bn = MMA_TILES[tile]
+        info[f"{name} {bm}x{bn}"] = dict(
+            zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
+    return info
 
 
 def fused_window_attention_backward_reference(g, x, wqkv, bqkv, wproj, bproj,
@@ -421,13 +464,14 @@ def window_attention_core_backward(qkv, do, bias, *, num_heads: int,
     _check(qkv, nh, window_size, grid_hw, what, shape=(bnw, t, c))
     if do.shape != (m, c):
         raise ValueError(f"{what}: do must be ({m}, {c}), got {tuple(do.shape)}")
-    do = do.to(qkv.device, qkv.dtype).contiguous()
-    bias = bias.detach().to(qkv.device, torch.float32).contiguous()
+    qkv = _build.aligned(qkv)
+    do = _build.aligned(do.to(qkv.device, qkv.dtype).contiguous())
+    bias = _build.aligned(bias.detach().to(qkv.device, torch.float32).contiguous())
     if bias.shape != (nh, t, t):
         raise ValueError(f"{what}: bias must be ({nh}, {t}, {t})")
     dev = qkv.device
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = _core_groups(bnw, nh, _core_slots(t, bool(attn_f32), qkv.dtype, n_sm))
+    sms = n_sm(dev)
+    groups = _core_groups(bnw, nh, _core_slots(t, bool(attn_f32), qkv.dtype, sms))
     o = torch.empty((m, c), dtype=qkv.dtype, device=dev)
     dqkv = torch.empty((m, 3 * c), dtype=qkv.dtype, device=dev)
     dbias_part, dbqkv_part, dbias, dbqkv = (
@@ -485,13 +529,14 @@ def fused_window_attention_backward(g, x, wqkv, bqkv, wproj, bproj, bias, *,
     dev = x.device
     if g.shape != x.shape:
         raise ValueError(f"{what}: g and x shapes differ")
-    g = g.to(dev, dt).contiguous()
+    x = _build.aligned(x)
+    g = _build.aligned(g.to(dev, dt).contiguous())
     wq, bq, wp, _, b32 = _params(x, wqkv, bqkv, wproj, bproj, bias, nh,
                                  torch.float32, what)
     m = bnw * t
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups, k_chunk = _bwd_plan(bnw, nh, m, c, n_sm,
-                                _core_slots(t, bool(attn_f32), dt, n_sm))
+    sms = n_sm(dev)
+    groups, k_chunk = _bwd_plan(bnw, nh, m, c, sms, _core_slots(t, bool(attn_f32), dt, sms))
+    tile_qkv, _ = attn_gemm_tiles(m, c, sms, dt)
     n_split = _ceil(m, k_chunk)
 
     def f32(*shape):
@@ -514,7 +559,7 @@ def fused_window_attention_backward(g, x, wqkv, bqkv, wproj, bproj, bias, *,
         wpart.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(),
         dwproj.data_ptr(), dbproj.data_ptr(), dbias.data_ptr(), bnw, t, c, nh,
         window_size, shift_size, nwh, nww, int(bool(attn_f32)), groups,
-        k_chunk, _build.dtype_code(x), _build.stream_ptr(x))
+        k_chunk, tile_qkv, _build.dtype_code(x), _build.stream_ptr(x))
     _build.check(rc, "window_attn_bwd")
     fused_window_attention_backward.launches += 1
     return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype),

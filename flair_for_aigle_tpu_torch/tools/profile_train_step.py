@@ -13,11 +13,14 @@ then, from ``torch.profiler`` over another ``--steps`` steps,
 ``device_busy_ms_per_step`` (the summed time of the card's kernels and
 copies, one stream, so no overlap), ``wall_ms_per_step`` (the host clock
 under the profiler), ``kernels``: the 15 largest by device time as
-[name, ms per step, calls per step], and ``cores``: the attention cores of
+[name, ms per step, calls per step], ``cores``: the attention cores of
 K2 and K6 (``attn_core_*``, ``attn_bwd_core_*``) as {name: [ms per step,
-calls per step]}, however small, and ``ffn_gemms``: K3's two products
-(``gemm_mma_kernel``, with ``resid_sum_kernel`` where fc2 splits K) the
-same way. ``FLAIR_FFN_BWD`` and
+calls per step]}, however small; ``ffn_gemms``: K3's two products
+(``gemm_mma_kernel`` with the GELU, residual or split-K epilogue, and
+``resid_sum_kernel`` where fc2 splits K) the same way; and
+``attn_gemms``: ``gemm_mma_kernel`` with the bias epilogue, K2's qkv and
+output projections and K6's qkv recompute (``gemm_tallies`` splits them
+by the kernel's epilogue template argument). ``FLAIR_FFN_BWD`` and
 ``FLAIR_SWIN_FINISH`` are read as in training. Runs on the card unless
 ``--device cpu`` asks for the CPU (the plain versions; no device lines).
 """
@@ -27,6 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -65,6 +69,36 @@ def random_batch(cfg: dict, batch: int, px: int, seed: int = 0) -> dict:
     labels = rng.integers(0, k, (batch, px, px))
     return {"AERIAL_RGBI": rng.standard_normal((batch, channels, px, px), np.float32),
             task: np.moveaxis(np.eye(k, dtype=np.float32)[labels], -1, 1)}
+
+
+#: gemm_mma.cuh's epilogue codes (its template argument EPI): K3's
+#: MMA_GELU, MMA_RESID and MMA_PART; MMA_BIAS, K2's and K6's projections
+K3_EPILOGUES = {0, 1, 2}
+BIAS_EPILOGUE = 3
+_MMA_EPI = re.compile(r"gemm_mma_kernel<[^>]*?(\d+)\s*>")
+
+
+def gemm_tallies(rows) -> dict:
+    """``rows``: (kernel name, ms per step, calls per step) of the device
+    kernels. Returns {"ffn_gemms": K3's products, "attn_gemms": K2's and K6's
+    bias products}, each {name[:90]: [ms, calls]}: ``gemm_mma_kernel`` by its
+    epilogue template argument, ``resid_sum_kernel`` (fc2's split-K sum) to
+    K3."""
+    out: dict = {"ffn_gemms": {}, "attn_gemms": {}}
+    for name, ms, calls in rows:
+        if "resid_sum_kernel" in name:
+            key = "ffn_gemms"
+        else:
+            m = _MMA_EPI.search(name)
+            if m is None:
+                continue
+            epi = int(m.group(1))
+            key = ("ffn_gemms" if epi in K3_EPILOGUES
+                   else "attn_gemms" if epi == BIAS_EPILOGUE else None)
+            if key is None:
+                raise ValueError(f"gemm_mma_kernel with an unknown epilogue {epi}: {name}")
+        out[key][name[:90]] = [ms, calls]
+    return out
 
 
 def device_line(device: torch.device) -> str:
@@ -118,10 +152,8 @@ def main(argv=None) -> None:
         "cores": {e.key[:90]: [e.self_device_time_total / 1e3 / args.steps,
                                e.count / args.steps]
                   for e in events if "attn_core" in e.key or "attn_bwd_core" in e.key},
-        "ffn_gemms": {e.key[:90]: [e.self_device_time_total / 1e3 / args.steps,
-                                   e.count / args.steps]
-                      for e in events
-                      if "gemm_mma_kernel" in e.key or "resid_sum_kernel" in e.key}}),
+        **gemm_tallies((e.key, e.self_device_time_total / 1e3 / args.steps,
+                        e.count / args.steps) for e in events)}),
           flush=True)
 
 

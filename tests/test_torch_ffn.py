@@ -17,7 +17,7 @@ import torch
 
 from flair_for_aigle_tpu.ops.pallas.ffn import _xla_forward
 from flair_for_aigle_tpu.ops.pallas.ffn import fused_ln_mlp_residual as jffn
-from flair_for_aigle_tpu_torch.ops import ffn
+from flair_for_aigle_tpu_torch.ops import _build, ffn
 
 
 def _bf16_ulp(v: np.ndarray) -> np.ndarray:
@@ -99,15 +99,29 @@ def test_ffn_gradient_matches_jax_vjp():
 @pytest.mark.parametrize("name", ["x", "attn", "w1", "b1", "w2", "b2"])
 def test_ffn_kernel_refuses_a_tensor_off_a_16_byte_boundary(name):
     """The kernel's 16-byte copies and loads need every tensor it reads as
-    a block to start on a 16-byte boundary: a view one float32 element
-    into a larger buffer raises before any launch; fresh tensors pass."""
+    a block to start on a 16-byte boundary. A view one float32 element
+    into a larger buffer is no longer refused: ``_build.aligned``, which
+    the wrapper applies to each, returns an aligned copy equal to it (and
+    fresh tensors as they are), and the wrapper computes the plain
+    version's result on it."""
     c, hidden = 96, 384
     shapes = {"x": (5, c), "attn": (5, c), "w1": (hidden, c), "b1": (hidden,),
               "w2": (c, hidden), "b2": (c,)}
-    fresh = {k: torch.zeros(s) for k, s in shapes.items()}
-    ffn._require_aligned(**fresh)
+    rng = np.random.default_rng(3)
+    fresh = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.1)
+             for k, s in shapes.items()}
+    for t in fresh.values():
+        assert _build.aligned(t) is t
     numel = int(np.prod(shapes[name]))
-    off = dict(fresh, **{name: torch.zeros(numel + 1)[1:].view(shapes[name])})
-    assert off[name].is_contiguous() and off[name].data_ptr() % 16 == 4
-    with pytest.raises(ValueError, match=f"{name} does not start on a 16-byte boundary"):
-        ffn._require_aligned(**off)
+    off = torch.zeros(numel + 1)[1:].view(shapes[name])
+    off.copy_(fresh[name])
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    copy = _build.aligned(off)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, off)
+    args = dict(fresh, **{name: off})
+    lns, lnb = torch.ones(c), torch.zeros(c)
+    order = ("w1", "b1", "w2", "b2")
+    got = ffn.fused_ln_mlp_residual(args["x"], args["attn"], lns, lnb, *(args[k] for k in order))
+    want = ffn.fused_ln_mlp_residual_reference(fresh["x"], fresh["attn"], lns, lnb,
+                                               *(fresh[k] for k in order))
+    assert torch.equal(got, want)

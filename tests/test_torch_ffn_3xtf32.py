@@ -11,7 +11,7 @@ Pallas kernel takes row counts in multiples of 8 only, so an odd count
 runs it on the next multiple of 8 and compares the leading rows (every
 output row depends on its own input row alone).
 
-``ffn_gemm_plan`` (the tile and fc2's split of K) is Python, so its
+``ops/mma_plan.py gemm_plan`` (the tile and fc2's split of K) is Python, so its
 promises are checked here: every SM gets a block at the shapes the system
 runs, the tile is the largest that does, and a split cuts K into whole
 pipeline steps, in order, with nothing left over.
@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from flair_for_aigle_tpu.ops.pallas.ffn import fused_ln_mlp_residual as jffn
-from flair_for_aigle_tpu_torch.ops import ffn
+from flair_for_aigle_tpu_torch.ops import ffn, mma_plan
 from tests._tf32 import matmul_3xtf32
 
 # swin-base@512's stages: (H = W, C); hidden = 4 C
@@ -77,7 +77,7 @@ def test_wrapper_takes_the_plain_version_on_cpu_tensors():
 
 
 def _tiles(m, n, code):
-    bm, bn = ffn.FFN_TILES[code]
+    bm, bn = mma_plan.MMA_TILES[code]
     return -(-m // bm) * -(-n // bn)
 
 
@@ -93,9 +93,9 @@ def _products(batch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("batch", [2, 5, 16])  # zonal pairs, training, zonal batch
 def test_plan_gives_every_sm_a_block_with_the_largest_tile(batch, dtype):
-    tiles = ffn.PLAN_TILES[dtype]
+    tiles = mma_plan.PLAN_TILES[dtype]
     for m, n, k, split in _products(batch):
-        code, k_chunk, nz = ffn.ffn_gemm_plan(m, n, k, H100_SMS, dtype, split=split)
+        code, k_chunk, nz = mma_plan.gemm_plan(m, n, k, H100_SMS, dtype, split=split)
         assert code in tiles
         assert _tiles(m, n, code) * nz >= H100_SMS, (m, n, k)
         # no larger tile of the dtype's gives every SM a block at the full K
@@ -111,7 +111,7 @@ def test_plan_gives_every_sm_a_block_with_the_largest_tile(batch, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_plan_splits_fc2_at_batch_2_stages_3_and_4_only(dtype):
     splits = {(b, m, n, k) for b in (2, 5, 16) for m, n, k, split in _products(b)
-              if ffn.ffn_gemm_plan(m, n, k, H100_SMS, dtype, split=split)[2] > 1}
+              if mma_plan.gemm_plan(m, n, k, H100_SMS, dtype, split=split)[2] > 1}
     assert splits == {(2, 2048, 512, 2048), (2, 512, 1024, 4096)}
 
 
@@ -124,25 +124,25 @@ def test_split_cuts_k_into_whole_steps_in_order(k, n_sm, dtype):
     (the last may end at K), at least MIN_STEPS of them where K is split;
     the grid fills the SMs it is given where K allows."""
     m, n = 64, 128  # one smallest tile: the most a split has to make up
-    k_step = ffn.K_STEP[dtype]
-    code, k_chunk, nz = ffn.ffn_gemm_plan(m, n, k, n_sm, dtype, split=True)
+    k_step = mma_plan.K_STEP[dtype]
+    code, k_chunk, nz = mma_plan.gemm_plan(m, n, k, n_sm, dtype, split=True)
     assert k_chunk % k_step == 0 or nz == 1
     ranges = [(z * k_chunk, min(k, (z + 1) * k_chunk)) for z in range(nz)]
     assert ranges[0][0] == 0 and ranges[-1][1] == k
     assert all(lo < hi for lo, hi in ranges)
     assert all(ranges[z][1] == ranges[z + 1][0] for z in range(nz - 1))
     if nz > 1:
-        assert k_chunk >= ffn.MIN_STEPS * k_step
+        assert k_chunk >= mma_plan.MIN_STEPS * k_step
     steps = k // k_step
-    assert _tiles(m, n, code) * nz >= min(n_sm, max(1, steps // ffn.MIN_STEPS))
+    assert _tiles(m, n, code) * nz >= min(n_sm, max(1, steps // mma_plan.MIN_STEPS))
     # the plan is a function of its arguments: two calls agree
-    assert ffn.ffn_gemm_plan(m, n, k, n_sm, dtype, split=True) == (code, k_chunk, nz)
+    assert mma_plan.gemm_plan(m, n, k, n_sm, dtype, split=True) == (code, k_chunk, nz)
 
 
 def test_fc1_never_splits():
     for k in (64, 1024, 4096):
         for dtype in (torch.bfloat16, torch.float32):
-            assert ffn.ffn_gemm_plan(8, 64, k, H100_SMS, dtype)[1:] == (k, 1)
+            assert mma_plan.gemm_plan(8, 64, k, H100_SMS, dtype)[1:] == (k, 1)
 
 
 def test_ffn_info_rejects_what_the_kernel_does_not_take():

@@ -20,7 +20,12 @@ The fused finish (K8) has K3's bounds (after its gather it computes K3's
 function), the ffn backward (K7) K6's, at the four swin-base@512 stages at
 batch 2 and at an odd shape. The A/B tool's two attention-product kernels:
 one bfloat16 unit in the last place at the largest magnitude against their
-plain version, bit-identical to each other and from call to call.
+plain version, bit-identical to each other and from call to call. Every
+wrapper on views off a 16-byte boundary launches its kernel on aligned
+copies and returns bit for bit what it returns on fresh tensors
+(tests/_offset_views.py's cases). K2, whose projections run gemm_mma.cuh's
+bias epilogue, twice bit-identical; that epilogue's tiles without spill at
+two blocks per SM.
 """
 
 import pytest
@@ -35,6 +40,9 @@ from flair_for_aigle_tpu_torch.ops import (
     prep,
     window_attn,
 )
+# by its module name (pytest puts tests/ on the path): the card machine has
+# another package named tests
+from _offset_views import WRAPPERS, offset_view, outputs, wrapper_case
 
 pytestmark = pytest.mark.cuda
 
@@ -168,9 +176,10 @@ def test_ffn_kernel(dev, dtype, n, c):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ffn_kernel_refuses_offset_views(dev, dtype):
-    """x one element into a larger buffer, and in float32 b1 likewise (a
-    bf16 call converts the float32 parameters into fresh tensors), raise
-    ValueError before the launch; the card then runs K3 as before."""
+    """x one element into a larger buffer, and b1 likewise, are no longer
+    refused: the wrapper hands K3 aligned copies of them, so the card runs
+    K3 on the same values as with fresh tensors, bit for bit, and matches
+    the plain version."""
     n, c = 37, 96
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((n, c), generator=g, device=dev).to(dtype)
@@ -183,19 +192,71 @@ def test_ffn_kernel_refuses_offset_views(dev, dtype):
          torch.randn(c, generator=g, device=dev) * 0.02]
     x_off = torch.empty(n * c + 1, dtype=dtype, device=dev)[1:].view(n, c)
     x_off.copy_(x)
-    with pytest.raises(ValueError, match="x does not start on a 16-byte boundary"):
-        ffn.fused_ln_mlp_residual(x_off, a, *p)
     b1_off = torch.empty(4 * c + 1, device=dev)[1:]
     b1_off.copy_(p[3])
+    assert x_off.data_ptr() % 16 and b1_off.data_ptr() % 16
     q = [*p[:3], b1_off, *p[4:]]
-    if dtype == torch.float32:
-        with pytest.raises(ValueError, match="b1 does not start on a 16-byte boundary"):
-            ffn.fused_ln_mlp_residual(x, a, *q)
-    else:
-        assert torch.equal(ffn.fused_ln_mlp_residual(x, a, *q), ffn.fused_ln_mlp_residual(x, a, *p))
-    got = ffn.fused_ln_mlp_residual(x, a, *p)
+    ffn.fused_ln_mlp_residual.launches = 0
+    got = ffn.fused_ln_mlp_residual(x_off, a, *q)
+    fresh = ffn.fused_ln_mlp_residual(x, a, *p)
     torch.cuda.synchronize()
+    assert ffn.fused_ln_mlp_residual.launches == 2
+    assert torch.equal(got, fresh)
     _assert_close(got, ffn.fused_ln_mlp_residual_reference(x, a, *p), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_offset_views_launch_the_kernel_on_aligned_copies(dev, name, dtype):
+    """Every tensor argument a view off a 16-byte boundary: the wrapper
+    launches its kernel (no misaligned address) on aligned copies and gets
+    bit for bit what it gets on fresh tensors, which the card suite holds
+    against the plain versions (attn_dots takes bf16 in both cases)."""
+    fn, _, args, kw = wrapper_case(name, dtype, dev)
+    fn.launches = 0
+    got = outputs(fn(*(offset_view(a) for a in args), **kw))
+    fresh = outputs(fn(*args, **kw))
+    torch.cuda.synchronize()
+    assert fn.launches == 2
+    for a, b in zip(got, fresh):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("attn_f32", [True, False])
+@pytest.mark.parametrize("ws,ss,grid,c,nh", BWD_GEOMS)
+def test_window_attn_kernel_repeats_exactly(dev, dtype, attn_f32, ws, ss, grid, c, nh):
+    """K2, its projections on gemm_mma.cuh's tiles with the bias epilogue:
+    two calls bit-identical, one launch each (T = 49: ragged rows)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    t = ws * ws
+    bnw = 3 * grid[0] * grid[1]
+    x = torch.randn((bnw, t, c), generator=g, device=dev).to(dtype)
+    p = (torch.randn((3 * c, c), generator=g, device=dev) * c ** -0.5,
+         torch.randn(3 * c, generator=g, device=dev) * 0.02,
+         torch.randn((c, c), generator=g, device=dev) * c ** -0.5,
+         torch.randn(c, generator=g, device=dev) * 0.02,
+         torch.randn((nh, t, t), generator=g, device=dev) * 0.5)
+    kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=attn_f32)
+    window_attn.fused_window_attention.launches = 0
+    got = window_attn.fused_window_attention(x, *p, **kw)
+    again = window_attn.fused_window_attention(x, *p, **kw)
+    want = window_attn.fused_window_attention_reference(x, *p, **kw)
+    torch.cuda.synchronize()
+    assert window_attn.fused_window_attention.launches == 2
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_attn_gemm_resources(dev, dtype):
+    """No tile of K2's projections (gemm_mma.cuh, bias epilogue; K6's qkv
+    recompute instantiates the same kernel) spills, and every one holds two
+    blocks per SM."""
+    info = window_attn.window_attention_gemm_info(dtype)
+    assert len(info) == (1 if dtype == torch.float32 else 2), info
+    for name, i in info.items():
+        assert i["spill_bytes"] == 0 and i["blocks_per_sm"] >= 2, (name, i)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
