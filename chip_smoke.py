@@ -42,8 +42,15 @@ Phases, one printed line each (any failure raises and exits non-zero):
    fused), float32 also bounded at
    3xTF32's rate; K2 the same way (two calls bit-identical, CUDA events
    and device time, its two projections alone through cuBLAS as device
-   time); then the tensor-core GEMM kernels' resources at each stage, K3's
-   and K2's projections' (no spill; at least 2 blocks per SM);
+   time); K6 in the training configuration's mode also as device time,
+   beside its four products alone (do, dx, dWproj, dWqkv on
+   ``gemm_mma.cuh``, ``window_attn.backward_gemm``), the weights'
+   transposed copies it makes, and the same four products through cuBLAS
+   (``torch.matmul``, same dtype, TF32 off: a yardstick); then the
+   tensor-core GEMM kernels' resources at each stage, K3's and K2's
+   projections', and K6's products' at every tile (no spill; at least 2
+   blocks per SM), and both A/B kernels' (no spill; per head at least 3
+   blocks per SM, grouped 2);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -882,6 +889,65 @@ def ffn_info_lines(stats) -> None:
     stats["window_attn"]["info"] = worst["window_attn"]
 
 
+def bwd_product_times(x, gy, ap) -> dict:
+    """K6's four products alone as K6 launches them
+    (``window_attn.backward_gemm``: do = g Wproj and dx = dqkv Wqkv on the
+    weights' transposed copies, dWproj = g^T o and dWqkv = dqkv^T x), as
+    device time, on the operands ``tools/time_window_attn.py
+    backward_times`` gives its cuBLAS yardstick; and the two transposed
+    copies K6 makes, as device time."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+    from flair_for_aigle_tpu_torch.tools.timing import device_ms
+
+    c = x.shape[-1]
+    xm, g = x.reshape(-1, c), gy.reshape(-1, c)
+    wq, wp = ap[0].to(x.dtype), ap[2].to(x.dtype)
+    o, dqkv = xm, torch.cat([g, xm, g], 1)
+    wq_t, wp_t = wq.t().contiguous(), wp.t().contiguous()
+    bg = window_attn.backward_gemm
+    return {"gemm_products_device_ms": device_ms(lambda: (
+                bg(g, wp_t, wgrad=False), bg(g, o, wgrad=True), bg(dqkv, xm, wgrad=True),
+                bg(dqkv, wq_t, wgrad=False))),
+            "weight_transpose_device_ms": device_ms(
+                lambda: (wq.t().contiguous(), wp.t().contiguous()))}
+
+
+def bwd_gemm_info_lines(stats) -> None:
+    """K6's product kernels (gemm_mma.cuh's rounding and weight-gradient
+    epilogues) at every tile of each dtype's plan: registers, spill bytes,
+    shared bytes and resident blocks per SM; raises on a spill or on fewer
+    than the design's 2 blocks per SM. The worst go into K6's stats."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    worst = {"gemm_spill_bytes": 0, "gemm_max_regs": 0, "gemm_min_blocks_per_sm": 99}
+    for dtype in (torch.bfloat16, torch.float32):
+        dts = "bf16" if dtype == torch.bfloat16 else "f32"
+        for kname, i in window_attn.window_attention_backward_gemm_info(dtype).items():
+            _resource_line(f"window_attn_bwd GEMM {dts} {kname}", i, worst)
+    stats["window_attn_bwd"]["gemm_info"] = worst
+
+
+def attn_dots_info_lines(stats) -> None:
+    """Both A/B kernels' registers, spill bytes, shared bytes and resident
+    blocks per SM at T = 144; raises on a spill or below the design's
+    residency (per head three blocks per SM, grouped two)."""
+    from flair_for_aigle_tpu_torch.ops import attn_dots
+
+    for name, grouped, blocks in (("attn_dots_per_head", False, 3),
+                                  ("attn_dots_grouped", True, 2)):
+        i = attn_dots.attn_dots_info(grouped)
+        say("kernel", f"{name}: {i['regs']} registers, {i['spill_bytes']} spill bytes, "
+            f"{i['shared_bytes']} shared bytes per block, {i['blocks_per_sm']} blocks per SM "
+            f"(bound: 0 spill bytes, >= {blocks} blocks per SM)")
+        if i["spill_bytes"] > 0 or i["blocks_per_sm"] < blocks:
+            raise AssertionError(f"{name} spills or misses its residency: {i}")
+        stats[name]["info"] = i
+
+
 def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None, note=""):
     import torch
 
@@ -899,7 +965,8 @@ def _compare(name, case, got, want, bound, t_k, t_p, stats, cost, t_lib=None, no
     torch.cuda.synchronize()
 
 
-def _compare_grads(name, grad_names, case, got, want, f32: bool, t_k, t_p, stats, cost):
+def _compare_grads(name, grad_names, case, got, want, f32: bool, t_k, t_p, stats, cost,
+                   note=""):
     """A backward kernel against its plain version, per gradient: float32
     elementwise |a - b| <= 2e-3 + 2e-3 |b|; bf16 median relative error <
     0.04 (tests/test_window_attn_kernel.py's and tests/test_ffn_kernel.py's
@@ -924,7 +991,7 @@ def _compare_grads(name, grad_names, case, got, want, f32: bool, t_k, t_p, stats
     say("kernel", f"{name} {case}: {'; '.join(parts)} "
         f"bound {'2e-3 + 2e-3|ref|' if f32 else 'median rel < 0.04'} "
         f"{'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"{_bound_text(cost)}")
+        f"{_bound_text(cost)}{note}")
     if not ok:
         raise AssertionError(f"{name} {case}: outside the bound")
     torch.cuda.synchronize()
@@ -938,6 +1005,7 @@ def phase_kernels() -> dict:
     default geometry, with the library call's time)."""
     import torch
 
+    from flair_for_aigle_tpu_torch.tools.time_window_attn import backward_times
     from flair_for_aigle_tpu_torch.tools.timing import cuda_ms
     from flair_for_aigle_tpu_torch.ops import (
         attn_dots,
@@ -1089,14 +1157,33 @@ def phase_kernels() -> dict:
                            grid_hw=(nwh, nwh), attn_f32=attn_f32)
                 got = window_attn.fused_window_attention_backward(gy, x, *ap, **akw)
                 want = window_attn.fused_window_attention_backward_reference(gy, x, *ap, **akw)
-                t_k = cuda_ms(lambda: window_attn.fused_window_attention_backward(gy, x, *ap, **akw))
-                t_p = cuda_ms(lambda: window_attn.fused_window_attention_backward_reference(
-                    gy, x, *ap, **akw))
+                note = ""
+                if attn_f32:  # by both timings, with its products alone beside cuBLAS's
+                    t = {**backward_times(gy, x, ap, akw), **bwd_product_times(x, gy, ap)}
+                    t_k, t_p = t["bwd_ms"], t["bwd_plain_ms"]
+                    note = (f"; device time kernel {t['bwd_device_ms']:.4f} ms, plain "
+                            f"{t['bwd_plain_device_ms']:.4f} ms; its four products "
+                            f"(gemm_mma.cuh) {t['gemm_products_device_ms']:.4f} ms and the "
+                            f"weights' transposed copies {t['weight_transpose_device_ms']:.4f} "
+                            f"ms, cuBLAS products (torch.matmul x4, {dts}) "
+                            f"{t['bwd_cublas_device_ms']:.4f} ms")
+                else:
+                    t_k = cuda_ms(lambda: window_attn.fused_window_attention_backward(
+                        gy, x, *ap, **akw))
+                    t_p = cuda_ms(lambda: window_attn.fused_window_attention_backward_reference(
+                        gy, x, *ap, **akw))
                 _compare_grads("window_attn_bwd", ["dx", "dwqkv", "dbqkv", "dwproj", "dbproj",
                                                    "dbias"], tag, got, want, dtype == f32,
-                               t_k, t_p, stats, cost)
+                               t_k, t_p, stats, cost, note=note)
                 if dtype == f32 and attn_f32:
                     _add_time(stats, "window_attn_bwd", t_k, t_p, cost)
+                    st = stats["window_attn_bwd"]
+                    for key, tkey in (("device_ms", "bwd_device_ms"),
+                                      ("plain_device_ms", "bwd_plain_device_ms"),
+                                      ("gemm_products_device_ms", "gemm_products_device_ms"),
+                                      ("weight_transpose_device_ms", "weight_transpose_device_ms"),
+                                      ("cublas_device_ms", "bwd_cublas_device_ms")):
+                        st[key] = st.get(key, 0.0) + t[tkey]
             bwd_core_lines(stats, f"B2 {hw}x{hw}x{c}", x.shape[0], c, nh, nwh, randn, dtype)
 
     # K4: epilogue at (2, 19, 128, 128), margin 40, both output types
@@ -1156,6 +1243,8 @@ def phase_kernels() -> dict:
     core_info(stats)
     bwd_core_info(stats)
     ffn_info_lines(stats)
+    bwd_gemm_info_lines(stats)
+    attn_dots_info_lines(stats)
     for name, st in stats.items():
         lib = "" if st["library_ms"] is None else f"library {st['library_ms']:.4f} ms, "
         if "device_ms" in st:
@@ -1720,6 +1809,17 @@ def main() -> int:
         extra["ffn"].update({f"{key}_{k}": st[k]
                              for k in ("ms", "plain_ms", "bound_ms", *dev)})
     extra["ffn"]["f32_bound_3xtf32_ms"] = stats["ffn_f32"]["bound_3xtf32_ms"]
+    # K6 (float32, attn_f32 True) also as device time, its four products
+    # alone (gemm_mma.cuh) with the weights' transposed copies, the same
+    # products through cuBLAS (a yardstick), and its GEMMs' worst resources;
+    # the A/B kernels' resources
+    st = stats["window_attn_bwd"]
+    extra["window_attn_bwd"].update({
+        **{k: st[k] for k in ("device_ms", "plain_device_ms", "gemm_products_device_ms",
+                              "weight_transpose_device_ms", "cublas_device_ms")},
+        **st["gemm_info"]})
+    for name in ("attn_dots_per_head", "attn_dots_grouped"):
+        extra[name] = dict(stats[name]["info"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs.values()),

@@ -42,4 +42,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// out[i] = sum_z part[z * n + i] for z in [0, nz), in order: the split-K
+// and per-block partials of the GEMMs and of K6's core, summed in a fixed
+// order, so that a result repeats exactly from run to run (no atomics)
+static __global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                           long long n, int nz) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < nz; ++z) s += part[(long long)z * n + i];
+  out[i] = s;
+}
+
+static inline void launch_sum_partials(const float* part, float* out, long long n, int nz,
+                                       cudaStream_t stream) {
+  sum_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, out, n, nz);
+}
+
 }  // namespace flair

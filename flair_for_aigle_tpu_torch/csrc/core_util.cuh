@@ -3,8 +3,9 @@
 // window_attn_bwd.cu and window_attn_bwd_f32.cu): cp.async copies, ldmatrix
 // and mma.sync.m16n8k16 fragments, bf16 pair arithmetic with explicit
 // rounding, read-only loads, 3xTF32 products on mma.sync.m16n8k8 with
-// their split fragments, the float32 cores' scores, and a kernel's
-// resources.
+// their split fragments, the float32 cores' scores, a quad's 4 x 4
+// transpose (16-byte epilogue stores), and a kernel's resources. Also used
+// by gemm_mma.cuh and the A/B tool's attn_dots.cu.
 #pragma once
 
 #include "common.cuh"
@@ -255,6 +256,37 @@ constexpr int F_LD = 36;
 __device__ __forceinline__ void load_strip(TF32A (&a)[4], const float* rows, int lane) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) ld_a_tf32(a[kk], rows + 8 * kk, F_LD, lane);
+}
+
+// 4 x 4 transpose of 32-bit values within each quad of lanes (t = lane %
+// 4): lane t's v[u] becomes lane u's v[t]. Two butterfly rounds: swap the
+// off-diagonal 2 x 2 blocks (lanes t, t ^ 2), then the off-diagonal values
+// of each block (lanes t, t ^ 1)
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
+  {
+    const bool up = t & 2;
+    const uint32_t s0 = __shfl_xor_sync(0xffffffffu, up ? v[0] : v[2], 2);
+    const uint32_t s1 = __shfl_xor_sync(0xffffffffu, up ? v[1] : v[3], 2);
+    if (up) {
+      v[0] = s0;
+      v[1] = s1;
+    } else {
+      v[2] = s0;
+      v[3] = s1;
+    }
+  }
+  {
+    const bool odd = t & 1;
+    const uint32_t s0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+    const uint32_t s1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+    if (odd) {
+      v[0] = s0;
+      v[2] = s1;
+    } else {
+      v[1] = s0;
+      v[3] = s1;
+    }
+  }
 }
 
 __device__ __forceinline__ float quad_sum(float v) {

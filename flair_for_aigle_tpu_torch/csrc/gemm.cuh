@@ -4,12 +4,13 @@
 //   A @ B     A (M, K), B (K, N) row-major              (BKN = true)
 //   A^T @ B   A (K, M), B (K, N) row-major    (AT = true, BKN = true)
 //
-// C is (M, N). Used by K8 (fc1, fc2), K5 (patch-merge reduction), K6 (the
-// backward's do = g Wproj, dx = dqkv Wqkv, and the weight gradients g^T o
-// and dqkv^T x, whose reduction runs over all B*nW*T rows) and K7 (fc1
-// recomputed, dh = g W2, dln = dh0 W1 and the weight gradients g^T h and
-// dh0^T ln). K2's projections, K6's qkv recompute and K3's products run on
-// gemm_mma.cuh. bf16 inputs run on the tensor cores through
+// C is (M, N). Used by K8 (fc1, fc2), K5 (patch-merge reduction) and K7
+// (fc1 recomputed, dh = g W2, dln = dh0 W1 and the weight gradients g^T h
+// and dh0^T ln, whose reduction runs over all rows). K3's products, K2's
+// projections and all of K6's products (its qkv recompute, do, dx and
+// weight gradients) run on gemm_mma.cuh, which takes K7's layouts too:
+// A^T @ B as MMA_WGRAD, A @ B as A W^T on the weight's transposed copy (as
+// K6's do and dx). bf16 inputs run on the tensor cores through
 // nvcuda::wmma (m16n16k16, float32 accumulate); float32 inputs run a SIMT
 // FMA loop so the float32 path keeps full float32 precision (no TF32).
 //
@@ -21,8 +22,8 @@
 //
 // Split-K (EPI_F32 only): block z of the grid reduces rows
 // [z * k_chunk, (z + 1) * k_chunk) of K and writes its own float32 partial
-// C_z at Cout + z * M * N; sum_partials_kernel adds them in a fixed order,
-// so the result repeats exactly from run to run (no atomics).
+// C_z at Cout + z * M * N; sum_partials_kernel (common.cuh) adds them in a
+// fixed order, so the result repeats exactly from run to run (no atomics).
 //
 // Epilogues, in the JAX reference's rounding order (models/layers.py
 // TorchLinear, ops/pallas/ffn.py :132-146):
@@ -241,21 +242,6 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__
       reinterpret_cast<float*>(aux)[(long long)blockIdx.y * N + gn] = s;
     }
   }
-}
-
-// out[i] = sum_z part[z * n + i] for z in [0, nz), in order.
-static __global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    long long n, int nz) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int z = 0; z < nz; ++z) s += part[(long long)z * n + i];
-  out[i] = s;
-}
-
-static inline void launch_sum_partials(const float* part, float* out, long long n, int nz,
-                                cudaStream_t stream) {
-  sum_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, out, n, nz);
 }
 
 // Launch C = A op B with the chosen epilogue on `stream`. For EPI_F32 with

@@ -1,9 +1,12 @@
 // Tensor-core GEMM with a cp.async pipeline and an epilogue straight from
 // the accumulator registers, for K3's two products (ffn.cu), K2's qkv and
-// output projections (window_attn.cu) and K6's qkv recompute
-// (window_attn_bwd.cu):
+// output projections (window_attn.cu), and K6's qkv recompute
+// (window_attn_bwd.cu) and its do, dx and weight-gradient products
+// (window_attn_bwd_gemm.cu), in two operand layouts:
 //
 //   C = A W^T   A (M, K) row-major, W (N, K) row-major (the nn.Linear layout)
+//   C = A^T B   A (K, M) row-major, B (K, N) row-major (MMA_WGRAD: the
+//               weight gradients, reduced over K = every window row)
 //
 // bf16 runs mma.sync.m16n8k16 (float32 accumulate). float32 runs the same
 // skeleton as 3xTF32 on mma.sync.m16n8k8 (core_util.cuh: each operand
@@ -45,6 +48,16 @@
 //     steps apart) is rewritten only after every warp has passed the
 //     barrier that follows its last read; a float32 raw slot is read only
 //     by the thread that filled it.
+//   - C = A^T B stages each k step as K_STEP rows of k (bf16 64, float32
+//     16), each the block's BM columns of A then its BN columns of B,
+//     padded by 16 bytes (ldmatrix conflict-free again). bf16 takes both
+//     fragments by ldmatrix.trans. float32: ldmatrix cannot transpose
+//     32-bit words, so the split step writes its chunk transposed into the
+//     same split buffers as above (row = column of A or B, word = k): the
+//     fragment loads stay as they are. Its lanes run along k (16 rows, 2
+//     chunks), so that the four 4-byte writes of each value of a chunk hit
+//     32 distinct banks. Rows past K are zero-filled, so K needs no other
+//     multiple than 1.
 //   - Epilogues read the accumulators where they lie: each quad of lanes
 //     transposes its four n8 tiles of a row by shuffles, so that a lane
 //     holds 8 neighbouring columns and every load and store is 16 bytes of
@@ -58,6 +71,10 @@
 //                  partials of fc2, which resid_sum_kernel adds in the order
 //                  z = 0, 1, ... before it applies MMA_RESID's epilogue (no
 //                  atomics: two calls give the same bits)
+//       MMA_ROUND  out = rnd(acc)                   (K6's do = g Wproj and
+//                  dx = dqkv Wqkv, W the weight's transposed copy)
+//       MMA_WGRAD  C = A^T B, out = acc as MMA_PART (K6's dWproj = g^T o and
+//                  dWqkv = dqkv^T x; sum_partials_kernel adds them in order)
 #pragma once
 
 #include <type_traits>
@@ -67,7 +84,10 @@
 
 namespace flair {
 
-enum { MMA_GELU = 0, MMA_RESID = 1, MMA_PART = 2, MMA_BIAS = 3 };
+enum { MMA_GELU = 0, MMA_RESID = 1, MMA_PART = 2, MMA_BIAS = 3, MMA_ROUND = 4, MMA_WGRAD = 5 };
+
+// whether the epilogue's product is C = A^T B (else C = A W^T)
+template <int EPI> __host__ __device__ constexpr bool mma_tn() { return EPI == MMA_WGRAD; }
 
 constexpr int MMA_THREADS = 256;
 
@@ -85,11 +105,21 @@ constexpr int MMA_STAGES = 3;
 // thread at most)
 constexpr int MMA_MIN_BLOCKS = 2;
 
-// bf16: S stages of rows padded by 16 bytes for ldmatrix; float32: S raw
-// stages, then two buffers of split rows (hi and lo), padded
-template <typename T, int BM, int BN> __host__ __device__ constexpr size_t mma_smem_bytes() {
+// bytes of one staged k row of C = A^T B: BM + BN values and 16 of padding
+template <typename T, int BM, int BN> __host__ __device__ constexpr int mma_krow() {
+  return (BM + BN) * (int)sizeof(T) + 16;
+}
+
+// C = A W^T: bf16, S stages of rows padded by 16 bytes for ldmatrix;
+// float32, S raw stages, then two buffers of split rows (hi and lo),
+// padded. C = A^T B (TN): S stages of K_STEP k rows, then (float32) the
+// same split buffers.
+template <typename T, int BM, int BN, bool TN = false>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
   constexpr int raw = mma_raw<T>(), row = raw + 16, s = MMA_STAGES;
-  return mma_f32<T>() ? (size_t)(BM + BN) * (s * raw + 4 * row) : (size_t)(BM + BN) * s * row;
+  constexpr size_t split = mma_f32<T>() ? (size_t)(BM + BN) * 4 * row : 0;
+  if (TN) return s * (size_t)(raw / sizeof(T)) * mma_krow<T, BM, BN>() + split;
+  return mma_f32<T>() ? (size_t)(BM + BN) * s * raw + split : (size_t)(BM + BN) * s * row;
 }
 
 namespace {
@@ -104,6 +134,13 @@ __device__ __forceinline__ void cp_async16_zfill(uint32_t smem, const void* gmem
 // ldmatrix x4 at a shared address (core_util.cuh ldsm_x4 takes a pointer)
 __device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
@@ -159,37 +196,6 @@ __device__ __forceinline__ void resid8(const T* x, const T* a, const float (&b)[
   for (int c = 0; c < 8; ++c) o[c] = (rnd<T>(xv[c] + av[c]) + b[c]) + acc[c];
 }
 
-// 4 x 4 transpose of 32-bit values within each quad of lanes (t = lane %
-// 4): lane t's v[u] becomes lane u's v[t]. Two butterfly rounds: swap the
-// off-diagonal 2 x 2 blocks (lanes t, t ^ 2), then the off-diagonal values
-// of each block (lanes t, t ^ 1)
-__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int t) {
-  {
-    const bool up = t & 2;
-    const uint32_t s0 = __shfl_xor_sync(0xffffffffu, up ? v[0] : v[2], 2);
-    const uint32_t s1 = __shfl_xor_sync(0xffffffffu, up ? v[1] : v[3], 2);
-    if (up) {
-      v[0] = s0;
-      v[1] = s1;
-    } else {
-      v[2] = s0;
-      v[3] = s1;
-    }
-  }
-  {
-    const bool odd = t & 1;
-    const uint32_t s0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
-    const uint32_t s1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
-    if (odd) {
-      v[0] = s0;
-      v[2] = s1;
-    } else {
-      v[1] = s0;
-      v[3] = s1;
-    }
-  }
-}
-
 }  // namespace
 
 template <typename T, int BM, int BN, int EPI>
@@ -208,7 +214,15 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
   constexpr int SUBS = RAW / 32;                  // half steps of 32 bytes: k16 bf16, k8 float32
   constexpr int WM = BM / 2, WN = BN / 4, MT = WM / 16, NT = WN / 8;
   static_assert(BM % 64 == 0 && BN % 64 == 0 && MT >= 1 && NT % 4 == 0, "tile");
-  constexpr int STAGE = ROWS * (F32 ? RAW : ROW);
+  // C = A^T B: a stage of EPR k rows of KR bytes, each CC 16-byte chunks
+  // (A's CA, then B's); TCH of them a thread; bf16 fragments by
+  // ldmatrix.trans from those rows (TRANS), float32 from the split buffers
+  constexpr bool TN = mma_tn<EPI>(), TRANS = TN && !F32;
+  constexpr int VEC = 16 / (int)sizeof(T);        // elements of a 16-byte chunk
+  constexpr int KR = mma_krow<T, BM, BN>(), CA = BM / VEC, CC = ROWS / VEC;
+  constexpr int TCH = EPR * CC / MMA_THREADS;
+  static_assert(!TN || (F32 ? EPR == 16 && CC % 16 == 0 : EPR * CC % MMA_THREADS == 0), "tn");
+  constexpr int STAGE = TN ? EPR * KR : ROWS * (F32 ? RAW : ROW);
   constexpr int SPLIT = 2 * ROWS * ROW;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* split = smem + S * STAGE;
@@ -227,8 +241,35 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
   const T* a_src = A + (long long)(m0 + r0) * K + ch * (16 / (int)sizeof(T));
   const T* w_src = W + (long long)(n0 + r0) * K + ch * (16 / (int)sizeof(T));
   const int a_left = M - m0 - r0, w_left = N - n0 - r0;  // rows from r0 on
+  // C = A^T B: chunk r of this thread's step, k row kr of the stage and
+  // chunk column cc. float32: lanes along k (16 rows) and two neighbouring
+  // chunks, for the split's transposed writes; bf16: along the rows
+  auto tn_chunk = [&](int r, int& kr, int& cc) {
+    if constexpr (F32) {
+      kr = lane & 15;
+      cc = 2 * (warp + 8 * r) + (lane >> 4);
+    } else {
+      const int i = tid + MMA_THREADS * r;
+      kr = i / CC;
+      cc = i % CC;
+    }
+  };
   auto load = [&](int ks) {
     const int k = kb + ks * EPR;
+    if constexpr (TN) {
+      const uint32_t base = smem_at + (ks % S) * STAGE;
+#pragma unroll
+      for (int r = 0; r < TCH; ++r) {
+        int kr, cc;
+        tn_chunk(r, kr, cc);
+        const bool is_a = cc < CA;
+        const int col = is_a ? m0 + cc * VEC : n0 + (cc - CA) * VEC;
+        const bool full = k + kr < ke && col < (is_a ? M : N);
+        const T* src = is_a ? A + (long long)(k + kr) * M + col : W + (long long)(k + kr) * N + col;
+        cp_async16_zfill(base + kr * KR + cc * 16, full ? src : A, full);
+      }
+      return;
+    }
     const uint32_t dst = smem_at + (ks % S) * STAGE + ch * 16 + r0 * (F32 ? RAW : ROW);
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -247,6 +288,27 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
   // float32: split this thread's own chunks of step ks (raw slot ks % S)
   // into tf32 hi and lo, in split buffer ks & 1
   auto split_step = [&](int ks) {
+    if constexpr (TN) {  // value j of chunk (kr, cc) to split row 4 cc + j, word kr
+      const unsigned char* raw = smem + (ks % S) * STAGE;
+      uint32_t* hi = reinterpret_cast<uint32_t*>(split + (ks & 1) * SPLIT);
+      uint32_t* lo = hi + ROWS * ROW / 4;
+#pragma unroll
+      for (int r = 0; r < TCH; ++r) {
+        int kr, cc;
+        tn_chunk(r, kr, cc);
+        const float4 v = *reinterpret_cast<const float4*>(raw + kr * KR + cc * 16);
+        const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int at = (4 * cc + j) * (ROW / 4) + kr;
+          uint32_t h, l;
+          split_tf32(x[j], h, l);
+          hi[at] = h;
+          lo[at] = l;
+        }
+      }
+      return;
+    }
     const unsigned char* raw = smem + (ks % S) * STAGE + ch * 16 + r0 * RAW;
     unsigned char* hi = split + (ks & 1) * SPLIT + ch * 16 + r0 * ROW;
 #pragma unroll
@@ -271,29 +333,40 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
   // fragment addresses within a tile of ROW-byte rows: A's m16 tiles
   // (lanes 0-15 rows 0-15 at bytes 0-15, lanes 16-31 at 16-31), W's n8
   // pairs (lanes 8q..8q+7: rows 8 (q >> 1).., bytes 16 (q & 1)..); half
-  // step `sub` is 32 sub bytes along the rows
-  const int a_off = (wm * WM + (lane & 15)) * ROW + (lane >> 4) * 16;
+  // step `sub` is 32 sub bytes along the rows. TRANS: in k rows of KR
+  // bytes, matrix q of an x4 at k rows 8 (q >> 1) (A) or 8 (q & 1) (B),
+  // columns 8 (q & 1) (A) or 8 (q >> 1) (B); half step `sub` is 16 k rows
+  const int q8 = lane >> 3;
+  const int a_off = TRANS ? ((lane & 7) + 8 * (q8 >> 1)) * KR + (wm * WM + 8 * (q8 & 1)) * 2
+                          : (wm * WM + (lane & 15)) * ROW + (lane >> 4) * 16;
   const int b_off =
-      (BM + wn * WN + ((lane >> 4) << 3) + (lane & 7)) * ROW + ((lane >> 3) & 1) * 16;
+      TRANS ? ((lane & 7) + 8 * (q8 & 1)) * KR + (BM + wn * WN + 8 * (q8 >> 1)) * 2
+            : (BM + wn * WN + ((lane >> 4) << 3) + (lane & 7)) * ROW + ((lane >> 3) & 1) * 16;
+  constexpr int SUB_BYTES = TRANS ? 16 * KR : 32;
   using Frags = MmaFrags<F32, MT, NT>;
   auto load_a = [&](Frags& f, uint32_t tile, int sub) {
-    const uint32_t pa = tile + a_off + sub * 32;
+    const uint32_t pa = tile + a_off + sub * SUB_BYTES;
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       if constexpr (F32) {
         ldsm_x4_at(f.a[i].hi, pa + i * 16 * ROW);
         ldsm_x4_at(f.a[i].lo, pa + ROWS * ROW + i * 16 * ROW);
+      } else if constexpr (TRANS) {
+        ldsm_x4_trans_at(f.a[i], pa + i * 32);
       } else {
         ldsm_x4_at(f.a[i], pa + i * 16 * ROW);
       }
     }
   };
   auto load_b = [&](Frags& f, uint32_t tile, int sub) {
-    const uint32_t pb = tile + b_off + sub * 32;
+    const uint32_t pb = tile + b_off + sub * SUB_BYTES;
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
       uint32_t h[4];
-      ldsm_x4_at(h, pb + j * 8 * ROW);
+      if constexpr (TRANS)
+        ldsm_x4_trans_at(h, pb + j * 16);
+      else
+        ldsm_x4_at(h, pb + j * 8 * ROW);
       if constexpr (F32) {
         uint32_t l[4];
         ldsm_x4_at(l, pb + ROWS * ROW + j * 8 * ROW);
@@ -378,15 +451,17 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
   // eight neighbouring columns 8 t .. 8 t + 7 of the 32 the quad spans:
   // 16-byte loads and stores of whole sectors
   const int g = lane >> 2, t = lane & 3;
-  // this lane's eight bias values of each quad span (every epilogue but
-  // MMA_PART's)
+  // this lane's eight bias values of each quad span (the epilogues that
+  // add a bias)
+  constexpr bool BIAS = EPI == MMA_GELU || EPI == MMA_RESID || EPI == MMA_BIAS;
+  constexpr bool PART = EPI == MMA_PART || EPI == MMA_WGRAD;
   float bq[NT / 4][8];
 #pragma unroll
   for (int q = 0; q < NT / 4; ++q) {
     const int n = n0 + wn * WN + 32 * q + 8 * t;
 #pragma unroll
     for (int c = 0; c < 8; ++c) bq[q][c] = 0.f;
-    if (EPI != MMA_PART && n < N) ld8<T>(bias + n, bq[q]);
+    if (BIAS && n < N) ld8<T>(bias + n, bq[q]);
   }
 #pragma unroll
   for (int i = 0; i < MT; ++i)
@@ -412,7 +487,7 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
         const int n = n0 + wn * WN + 32 * q + 8 * t;
         if (m >= M || n >= N) continue;
         const long long idx = (long long)m * N + n;
-        if constexpr (EPI == MMA_PART) {
+        if constexpr (PART) {
           st8<float>(reinterpret_cast<float*>(out) + (long long)blockIdx.z * M * N + idx, v);
         } else {
           float o[8];
@@ -421,6 +496,9 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
           } else if constexpr (EPI == MMA_BIAS) {
 #pragma unroll
             for (int e = 0; e < 8; ++e) o[e] = rnd<T>(rnd<T>(v[e]) + bq[q][e]);
+          } else if constexpr (EPI == MMA_ROUND) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) o[e] = v[e];  // st8 rounds
           } else {
 #pragma unroll
             for (int e = 0; e < 8; ++e) o[e] = gelu_f(rnd<T>(rnd<T>(v[e]) + bq[q][e]));
@@ -453,14 +531,14 @@ __global__ void __launch_bounds__(256)
 }
 
 // Launch one product with tile BM x BN: grid (N / BN, M / BM, nz), block z
-// over K range [z k_chunk, (z + 1) k_chunk). With `info` set, launch
-// nothing and write the kernel's resources there (core_util.cuh
-// kernel_info).
+// over K range [z k_chunk, (z + 1) k_chunk); MMA_WGRAD's A is (K, M) and W
+// its B (K, N). With `info` set, launch nothing and write the kernel's
+// resources there (core_util.cuh kernel_info).
 template <typename T, int BM, int BN, int EPI>
 int launch_gemm_mma(const T* A, const T* W, void* out, int M, int N, int K, int k_chunk, int nz,
                     const T* bias, const T* rx, const T* ra, cudaStream_t stream, int* info) {
   const auto kernel = gemm_mma_kernel<T, BM, BN, EPI>;
-  const size_t smem = mma_smem_bytes<T, BM, BN>();
+  const size_t smem = mma_smem_bytes<T, BM, BN, mma_tn<EPI>()>();
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
@@ -480,8 +558,9 @@ template <typename T, int EPI>
 int gemm_tile(int tile, const T* A, const T* W, void* out, int M, int N, int K, int k_chunk,
               int nz, const T* bias, const T* rx, const T* ra, cudaStream_t s, int* info) {
   switch (tile) {
-    case 0:  // bf16 only: float32's would hold one block an SM
-      if constexpr (!mma_f32<T>())
+    case 0:  // bf16 C = A W^T only: float32's would hold one block an SM,
+             // and bf16 C = A^T B's address arithmetic spills at 128 registers
+      if constexpr (!mma_f32<T>() && !mma_tn<EPI>())
         return launch_gemm_mma<T, 128, 128, EPI>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra,
                                                  s, info);
       break;
@@ -498,6 +577,29 @@ template <typename T>
 int gemm_bias(int tile, const T* A, const T* W, const T* bias, T* out, int M, int N, int K,
               cudaStream_t s, int* info = nullptr) {
   return gemm_tile<T, MMA_BIAS>(tile, A, W, out, M, N, K, K, 1, bias, nullptr, nullptr, s, info);
+}
+
+// out = rnd(A W^T) (MMA_ROUND) over the full K with the tile `tile`
+template <typename T>
+int gemm_round(int tile, const T* A, const T* W, T* out, int M, int N, int K, cudaStream_t s,
+               int* info = nullptr) {
+  return gemm_tile<T, MMA_ROUND>(tile, A, W, out, M, N, K, K, 1, nullptr, nullptr, nullptr, s,
+                                 info);
+}
+
+// out = A^T B in float32 (MMA_WGRAD), A (K, M), B (K, N): ceil(K / k_chunk)
+// partials of M x N at `part` (block z over K range [z k_chunk, (z + 1)
+// k_chunk)), then summed into `out` in the order z = 0, 1, ... (two calls
+// give the same bits)
+template <typename T>
+int gemm_wgrad(int tile, const T* A, const T* B, float* part, float* out, int M, int N, int K,
+               int k_chunk, cudaStream_t s, int* info = nullptr) {
+  const int nz = (K + k_chunk - 1) / k_chunk;
+  const int e = gemm_tile<T, MMA_WGRAD>(tile, A, B, part, M, N, K, k_chunk, nz, nullptr, nullptr,
+                                        nullptr, s, info);
+  if (e || info) return e;
+  launch_sum_partials(part, out, (long long)M * N, nz, s);
+  return 0;
 }
 
 template <typename T>

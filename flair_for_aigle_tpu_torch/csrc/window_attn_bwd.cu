@@ -11,16 +11,19 @@
 // output gradient g, flash-style (nothing but the inputs was saved):
 //   1. qkv = rnd(rnd(x Wqkv^T) + bqkv)          (gemm_mma.cuh, MMA_BIAS, with
 //      the tile K2's forward takes at the same M: the qkv K2 computed)
-//   2. do  = rnd(g Wproj)                       (gemm.cuh, A @ B)
+//   2. do  = rnd(g Wproj)                       (gemm_mma.cuh, MMA_ROUND on
+//      Wproj's transposed copy, with the tile K2's output projection takes)
 //   3. core, one block per (window group, head), walking the group's
 //      windows: recompute s and p, then o = pc v, dp = do v^T, ds = p (dp -
 //      sum(dp p)), dq = scale ds k, dk = scale ds^T q, dv = pc^T do; ds
 //      accumulates over the group's windows into the (group, head)'s dbias
 //      partial, and the float32 column sums of dq, dk, dv into the group's
 //      dbqkv partial. Writes o and dqkv (compute dtype).
-//   4. dWproj = g^T o and dWqkv = dqkv^T x      (gemm.cuh, A^T @ B, split-K
-//      over the B*nW*T rows into float32 partials)
-//   5. dx = rnd(dqkv Wqkv)                      (gemm.cuh, A @ B)
+//   4. dWproj = g^T o and dWqkv = dqkv^T x      (gemm_mma.cuh, MMA_WGRAD:
+//      C = A^T B, split-K over the B*nW*T rows into float32 partials)
+//   5. dx = rnd(dqkv Wqkv)                      (gemm_mma.cuh, MMA_ROUND on
+//      Wqkv's transposed copy)
+//   (steps 2, 4 and 5: window_attn_bwd_gemm.cu; float32 as 3xTF32)
 //   6. dbproj = column sums of g; the partials of steps 3-4 are summed in a
 //      fixed order, so a result repeats exactly from run to run (no atomics).
 // Rounding points follow _bwd_kernel_body: do rounded to the compute dtype
@@ -36,8 +39,7 @@
 // T x T x 32 products per (window, head) on 74 KB of bf16 q, k, v, do, o and
 // dqkv: bound by its bytes as long as the (B*nW, nh, T, T) scores,
 // probabilities and ds never reach device memory. The qkv, do, o and dqkv
-// tensors round-trip device memory between the launches, and the weight-
-// gradient GEMMs are SIMT in float32 (perf_opt work: ROADMAP).
+// tensors round-trip device memory between the launches.
 //
 // The bf16 core (attn_bwd_core_bf16_kernel): TP / 16 warps (T padded to
 // TP = 16 ceil(T / 16)), each owning 16 rows of the (window, head); q, k,
@@ -81,7 +83,6 @@
 
 #include "common.cuh"
 #include "core_util.cuh"
-#include "gemm.cuh"
 #include "gemm_mma.cuh"
 #include "window_attn_bwd.cuh"
 
@@ -642,35 +643,36 @@ int bwd_core(const T* qkv, const T* dout, const float* bias, T* o, T* dqkv, floa
 
 template <typename T>
 int window_attn_bwd_impl(const void* x, const void* g, const void* wqkv, const void* bqkv,
-                         const void* wproj, const void* bias, void* qkv, void* dout, void* o,
-                         void* dqkv, void* dbias_part, void* dbqkv_part, void* wpart, void* dx,
-                         void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dbias,
-                         int bnw, int t, int c, int nh, int ws, int ss, int nwh, int nww,
-                         int attn_f32, int n_groups, int k_chunk, int tile_qkv,
+                         const void* wqkv_t, const void* wproj_t, const void* bias, void* qkv,
+                         void* dout, void* o, void* dqkv, void* dbias_part, void* dbqkv_part,
+                         void* wpart, void* dx, void* dwqkv, void* dbqkv, void* dwproj,
+                         void* dbproj, void* dbias, int bnw, int t, int c, int nh, int ws, int ss,
+                         int nwh, int nww, int attn_f32, int n_groups, int tile_qkv,
+                         int tile_proj, int tile_w, int k_chunk_proj, int k_chunk_qkv,
                          cudaStream_t s) {
   const int m = bnw * t;
-  const int n_split = (m + k_chunk - 1) / k_chunk;
+  const int n_split = (m + k_chunk_proj - 1) / k_chunk_proj;
   float* part = (float*)wpart;
-  const int e = gemm_bias<T>(tile_qkv, (const T*)x, (const T*)wqkv, (const T*)bqkv, (T*)qkv, m,
-                             3 * c, c, s);
-  if (e) return e;
-  launch_gemm<T, EPI_NONE, false, true>((const T*)g, (const T*)wproj, dout, m, c, c, nullptr,
-                                        nullptr, s);
-  const int rc = bwd_core<T>((const T*)qkv, (const T*)dout, (const float*)bias, (T*)o, (T*)dqkv,
-                            (float*)dbias_part, (float*)dbqkv_part, bnw, t, c, nh, ws, ss, nwh,
-                            nww, attn_f32, n_groups, s);
-  if (rc) return rc;
+  int rc = gemm_bias<T>(tile_qkv, (const T*)x, (const T*)wqkv, (const T*)bqkv, (T*)qkv, m, 3 * c,
+                        c, s);
+  if (!rc)
+    rc = bwd_gemm_round<T>(tile_proj, (const T*)g, (const T*)wproj_t, (T*)dout, m, c, c, s);
+  if (!rc)
+    rc = bwd_core<T>((const T*)qkv, (const T*)dout, (const float*)bias, (T*)o, (T*)dqkv,
+                     (float*)dbias_part, (float*)dbqkv_part, bnw, t, c, nh, ws, ss, nwh, nww,
+                     attn_f32, n_groups, s);
   // weight gradients in the nn.Linear layout: dWproj = g^T o, dWqkv = dqkv^T x
-  launch_gemm<T, EPI_F32, true, true>((const T*)g, (const T*)o, part, c, c, m, nullptr, nullptr,
-                                      s, k_chunk);
-  launch_sum_partials(part, (float*)dwproj, (long long)c * c, n_split, s);
-  launch_gemm<T, EPI_F32, true, true>((const T*)dqkv, (const T*)x, part, 3 * c, c, m, nullptr,
-                                      nullptr, s, k_chunk);
-  launch_sum_partials(part, (float*)dwqkv, 3ll * c * c, n_split, s);
-  launch_gemm<T, EPI_NONE, false, true>((const T*)dqkv, (const T*)wqkv, dx, m, c, 3 * c, nullptr,
-                                        nullptr, s);
+  if (!rc)
+    rc = bwd_gemm_wgrad<T>(tile_w, (const T*)g, (const T*)o, part, (float*)dwproj, c, c, m,
+                           k_chunk_proj, s);
+  if (!rc)
+    rc = bwd_gemm_wgrad<T>(tile_w, (const T*)dqkv, (const T*)x, part, (float*)dwqkv, 3 * c, c, m,
+                           k_chunk_qkv, s);
+  if (!rc)
+    rc = bwd_gemm_round<T>(tile_proj, (const T*)dqkv, (const T*)wqkv_t, (T*)dx, m, c, 3 * c, s);
+  if (rc) return rc;
   colsum_partial_kernel<T><<<dim3(n_split, (c + 255) / 256), 256, 0, s>>>((const T*)g, part, m,
-                                                                           c, k_chunk);
+                                                                           c, k_chunk_proj);
   launch_sum_partials(part, (float*)dbproj, c, n_split, s);
   launch_sum_partials((const float*)dbqkv_part, (float*)dbqkv, 3ll * c, n_groups, s);
   launch_sum_partials((const float*)dbias_part, (float*)dbias, (long long)nh * t * t, n_groups,
@@ -682,23 +684,29 @@ int window_attn_bwd_impl(const void* x, const void* g, const void* wqkv, const v
 
 using namespace flair;
 
+// wqkv_t (C, 3C) and wproj_t (C, C): the weights' transposed copies (do
+// and dx); tile_qkv: K2's qkv tile (the recompute), tile_proj: K2's proj
+// tile (do, dx), tile_w and k_chunk_*: the weight gradients' plan
 extern "C" int window_attn_bwd(const void* x, const void* g, const void* wqkv, const void* bqkv,
-                               const void* wproj, const void* bias, void* qkv, void* dout,
-                               void* o, void* dqkv, void* dbias_part, void* dbqkv_part,
-                               void* wpart, void* dx, void* dwqkv, void* dbqkv, void* dwproj,
-                               void* dbproj, void* dbias, int bnw, int t, int c, int nh, int ws,
-                               int ss, int nwh, int nww, int attn_f32, int n_groups, int k_chunk,
-                               int tile_qkv, int dtype, void* stream) {
+                               const void* wqkv_t, const void* wproj_t, const void* bias,
+                               void* qkv, void* dout, void* o, void* dqkv, void* dbias_part,
+                               void* dbqkv_part, void* wpart, void* dx, void* dwqkv, void* dbqkv,
+                               void* dwproj, void* dbproj, void* dbias, int bnw, int t, int c,
+                               int nh, int ws, int ss, int nwh, int nww, int attn_f32,
+                               int n_groups, int tile_qkv, int tile_proj, int tile_w,
+                               int k_chunk_proj, int k_chunk_qkv, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return window_attn_bwd_impl<float>(x, g, wqkv, bqkv, wproj, bias, qkv, dout, o, dqkv,
-                                       dbias_part, dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj,
-                                       dbproj, dbias, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32,
-                                       n_groups, k_chunk, tile_qkv, s);
-  return window_attn_bwd_impl<bf16>(x, g, wqkv, bqkv, wproj, bias, qkv, dout, o, dqkv,
+    return window_attn_bwd_impl<float>(x, g, wqkv, bqkv, wqkv_t, wproj_t, bias, qkv, dout, o,
+                                       dqkv, dbias_part, dbqkv_part, wpart, dx, dwqkv, dbqkv,
+                                       dwproj, dbproj, dbias, bnw, t, c, nh, ws, ss, nwh, nww,
+                                       attn_f32, n_groups, tile_qkv, tile_proj, tile_w,
+                                       k_chunk_proj, k_chunk_qkv, s);
+  return window_attn_bwd_impl<bf16>(x, g, wqkv, bqkv, wqkv_t, wproj_t, bias, qkv, dout, o, dqkv,
                                     dbias_part, dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj,
                                     dbproj, dbias, bnw, t, c, nh, ws, ss, nwh, nww, attn_f32,
-                                    n_groups, k_chunk, tile_qkv, s);
+                                    n_groups, tile_qkv, tile_proj, tile_w, k_chunk_proj,
+                                    k_chunk_qkv, s);
 }
 
 // the core alone: qkv (bnw * t, 3c), do (bnw * t, c) -> o, dqkv, and dbias

@@ -3,7 +3,9 @@
 // (window_attn_bwd_f32.cu). Both take one block per (window group, head),
 // one warp per 16 rows, the bias and dbias tiles staged per warp by
 // cp.async, and the same score and probability arithmetic (the score
-// functions in core_util.cuh, shared with K2's float32 core).
+// functions in core_util.cuh, shared with K2's float32 core). Also the
+// host entries of K6's sources compiled apart: the float32 core and the
+// products of window_attn_bwd_gemm.cu.
 #pragma once
 
 #include "common.cuh"
@@ -88,5 +90,17 @@ __device__ __forceinline__ float div_r(float a, float b, float r) {
 int bwd_core_f32(const float* qkv, const float* dout, const float* bias, float* o, float* dqkv,
                  float* dbias_part, float* dbqkv_part, int bnw, int t, int c, int nh, int ws,
                  int ss, int nwh, int nww, int attn_f32, int n_groups, cudaStream_t s, int* info);
+
+// K6's products on gemm_mma.cuh (window_attn_bwd_gemm.cu), for T = float
+// and bf16: out = rnd(a wt^T) with a (m, k), wt (n, k) (do, dx); out (m,
+// n) float32 = a^T b with a (k, m), b (k, n), through the split-K partials
+// `part` of k_chunk rows each, summed in order (dWproj, dWqkv). With
+// `info`, nothing launches and info[0..3] receive the kernel's resources.
+template <typename T>
+int bwd_gemm_round(int tile, const T* a, const T* wt, T* out, int m, int n, int k,
+                   cudaStream_t s, int* info = nullptr);
+template <typename T>
+int bwd_gemm_wgrad(int tile, const T* a, const T* b, float* part, float* out, int m, int n, int k,
+                   int k_chunk, cudaStream_t s, int* info = nullptr);
 
 }  // namespace flair

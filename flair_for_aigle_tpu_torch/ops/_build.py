@@ -61,11 +61,16 @@ _SIGNATURES = {
     # x, ln_scale, ln_bias, w_red, ln, out, b, h, w, c, out_c, eps, dtype,
     # stream
     "merge_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
-    # x, g, wqkv, bqkv, wproj, bias, qkv, do, o, dqkv, dbias_part,
+    # x, g, wqkv, bqkv, wqkv_t, wproj_t, bias, qkv, do, o, dqkv, dbias_part,
     # dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj, dbproj, dbias,
-    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, k_chunk, tile_qkv,
-    # dtype, stream
-    "window_attn_bwd": [_P] * 19 + [_I] * 13 + [_P],
+    # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, tile_qkv,
+    # tile_proj, tile_w, k_chunk_proj, k_chunk_qkv, dtype, stream
+    "window_attn_bwd": [_P] * 20 + [_I] * 16 + [_P],
+    # a, w, out, part, m, n, k, k_chunk, tile, wgrad, dtype, stream
+    "window_attn_bwd_gemm": [_P] * 4 + [_I] * 7 + [_P],
+    # dtype, tile, wgrad, out (int[4]: registers, local bytes, shared
+    # bytes, blocks per SM)
+    "window_attn_bwd_gemm_info": [_I] * 3 + [_P],
     # qkv, do, bias, o, dqkv, dbias_part, dbqkv_part, dbias, dbqkv,
     # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, dtype, stream
     "window_attn_bwd_core": [_P] * 9 + [_I] * 11 + [_P],
@@ -82,6 +87,9 @@ _SIGNATURES = {
     # q, k, v, out, bnw, t, c, nh, bw, stream
     "attn_dots_per_head": [_P] * 4 + [_I] * 5 + [_P],
     "attn_dots_grouped": [_P] * 4 + [_I] * 5 + [_P],
+    # grouped, out (int[4]: registers, local bytes, shared bytes, blocks
+    # per SM)
+    "attn_dots_info": [_I, _P],
 }
 
 _lock = threading.Lock()

@@ -10,12 +10,17 @@ S = Q_h K_h^T accumulated in float32 and rounded to bf16 (no softmax), then
 O_h = S V_h accumulated in float32 and rounded to bf16, written at the
 head's channels of a bf16 (BNW, T, C) output. Both variants compute the
 same function; they differ in what one block of the card loads and runs
-(see the CUDA source). ``bw`` windows go to one block, as ``BW`` windows go
-to one grid step of the TPU tool; BNW must be a multiple of ``bw`` (the TPU
-tool's ``N_INST = BNW // BW`` leaves the remaining windows unwritten).
+(see the CUDA source: each warp streams its 16 query rows over the keys
+16 at a time with the scores in mma.sync registers; per head prefetches
+the next window, grouped holds two blocks an SM). ``bw`` windows go to
+one block, as ``BW`` windows go to one grid step of the TPU tool; BNW
+must be a multiple of ``bw`` (the TPU tool's ``N_INST = BNW // BW``
+leaves the remaining windows unwritten).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -74,6 +79,9 @@ def _launch(fn, q, k, v, num_heads: int, bw: int) -> torch.Tensor:
     if t != T or c != HEAD_DIM * num_heads:
         raise ValueError(f"attn_dots kernel: takes T={T} and head dim {HEAD_DIM}, got T={t}, "
                          f"C={c}, num_heads={num_heads}")
+    if bnw // bw > 65535:
+        raise ValueError(f"attn_dots kernel: {bnw // bw} window groups exceed the grid's 65535 "
+                         f"rows; raise bw")
     q, k, v = (_build.aligned(u) for u in (q, k, v))  # 16-byte cp.async copies
     out = torch.empty_like(q)
     name = fn.__name__
@@ -106,3 +114,13 @@ def attn_dots_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 attn_dots_per_head.launches = 0
 attn_dots_grouped.launches = 0
+
+
+def attn_dots_info(grouped: bool) -> dict:
+    """The kernel's resources on the current card at T = 144, as the CUDA
+    runtime reports them: registers per thread, local (spill) bytes per
+    thread, shared bytes per block and resident blocks per SM."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.lib().attn_dots_info(int(bool(grouped)), ctypes.addressof(out))
+    _build.check(rc, "attn_dots_info")
+    return dict(zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))

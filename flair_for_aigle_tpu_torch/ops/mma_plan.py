@@ -1,6 +1,8 @@
-"""The tile plan of ``csrc/gemm_mma.cuh``'s tensor-core GEMM, C (m, n) =
-A (m, k) W^T, shared by its callers: K3's fc1 and fc2 (``ops/ffn.py``) and
-K2's and K6's qkv and output projections (``ops/window_attn.py``).
+"""The tile plans of ``csrc/gemm_mma.cuh``'s tensor-core GEMM, shared by
+its callers: C (m, n) = A (m, k) W^T (``gemm_plan``) for K3's fc1 and fc2
+(``ops/ffn.py``), K2's and K6's qkv and output projections and K6's do and
+dx (``ops/window_attn.py``); and the weight gradients C (m, n) = A^T B
+over k rows (``wgrad_plan``), K6's dWproj and dWqkv.
 
 A tile's index in ``MMA_TILES`` is its code in ``gemm_mma.cuh gemm_tile``.
 The plan is a function of the shapes, the dtype and the SM count alone, so
@@ -18,11 +20,18 @@ MMA_TILES = ((128, 128), (64, 128))
 #: 128 would hold one block an SM, and 64 x 128 ran faster at every
 #: swin-base stage on the H100
 PLAN_TILES = {torch.bfloat16: (0, 1), torch.float32: (1,)}
+#: the tile of the weight gradients C = A^T B in either dtype: 64 x 128
+#: (bf16's 128 x 128 spills in that layout: its copies' addresses need
+#: more than the 128 registers of two blocks an SM)
+WGRAD_TILE = 1
 #: elements of K one pipeline step stages: 128 bytes of a bf16 row, 64 of
 #: a float32 row
 K_STEP = {torch.float32: 16, torch.bfloat16: 64}
-#: fewest pipeline steps a split-K chunk keeps
+#: fewest pipeline steps a split-K chunk of ``gemm_plan`` keeps
 MIN_STEPS = 8
+#: resident blocks per SM the GEMM kernel promises (``__launch_bounds__``
+#: in gemm_mma.cuh: MMA_MIN_BLOCKS)
+RESIDENT = 2
 
 
 def _ceil(a: int, b: int) -> int:
@@ -51,6 +60,26 @@ def gemm_plan(m: int, n: int, k: int, n_sm: int, dtype,
     step = K_STEP[dtype]
     parts = max(1, min(_ceil(n_sm, tiles), k // (MIN_STEPS * step)))
     k_chunk = _ceil(_ceil(k, parts), step) * step
+    return code, k_chunk, _ceil(k, k_chunk)
+
+
+def wgrad_plan(m: int, n: int, k: int, n_sm: int, dtype) -> tuple[int, int, int]:
+    """(tile code, k_chunk, partials) of one weight gradient C (m, n) = A^T
+    B, A (k, m) and B (k, n), in ``dtype`` on a card of ``n_sm`` SMs. The
+    output is small (C x C or 3C x C) and k large (every window row), so
+    the tile ``WGRAD_TILE`` runs and K is cut into chunks of whole
+    pipeline steps (``K_STEP[dtype]`` elements) until the blocks fill one
+    wave of the kernel's ``RESIDENT`` blocks an SM: at most that many, and
+    every SM a block. Block z of the grid sums K range [z k_chunk, (z + 1)
+    k_chunk); the partials are added in the order z = 0, 1, ... (two calls
+    give the same bits)."""
+    code = WGRAD_TILE
+    bm, bn = MMA_TILES[code]
+    tiles = _ceil(m, bm) * _ceil(n, bn)
+    step = K_STEP[dtype]
+    steps = _ceil(k, step)
+    parts = max(1, min(steps, RESIDENT * n_sm // tiles))
+    k_chunk = _ceil(steps, parts) * step
     return code, k_chunk, _ceil(k, k_chunk)
 
 

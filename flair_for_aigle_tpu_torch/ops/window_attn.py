@@ -26,20 +26,33 @@ autograd through the plain forward), as the reference's ``custom_vjp``
 (``window_attn.py:941-970``). K6 replaces both TPU backward kernels, the
 monolithic one (``:534``) and the head-chunked one (``:751``): the chunked
 grid only fitted the TPU's VMEM at C = 512 / 1024. K6 recomputes qkv with
-the kernel and tile K2's forward used at the same rows.
+the kernel and tile K2's forward used at the same rows, and runs its do,
+dx and weight-gradient products on the same GEMM (``csrc/
+window_attn_bwd_gemm.cu``): do and dx on the weights' transposed copies
+with K2's output-projection tile, the weight gradients as C = A^T B in
+float32 split-K partials (``ops/mma_plan.py wgrad_plan``);
+``backward_gemm`` runs one of them alone.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from flair_for_aigle_tpu_torch.ops import _build
 from flair_for_aigle_tpu_torch.ops._vjp import plain_vjp
-from flair_for_aigle_tpu_torch.ops.mma_plan import MMA_TILES, PLAN_TILES, gemm_plan, n_sm
+from flair_for_aigle_tpu_torch.ops.mma_plan import (
+    MMA_TILES,
+    PLAN_TILES,
+    WGRAD_TILE,
+    gemm_plan,
+    n_sm,
+    wgrad_plan,
+)
 
 #: static softmax shift and overflow clamp of the attn_f32 form
 SHIFT = 30.0
@@ -430,15 +443,29 @@ def _core_slots(t: int, attn_f32: bool, dtype: torch.dtype, n_sm: int) -> int:
     return n_sm * window_attention_core_backward_info(t, attn_f32, dtype)["blocks_per_sm"]
 
 
-def _bwd_plan(bnw: int, nh: int, m: int, c: int, n_sm: int,
-              slots: int) -> tuple[int, int]:
-    """(window groups of the core launch, for its ``slots`` resident
-    blocks; k_chunk of the weight-gradient GEMMs: about two blocks per SM)."""
-    want = 2 * n_sm
-    groups = _core_groups(bnw, nh, slots)
-    tiles = _ceil(c, 128) * _ceil(c, 64)
-    n_split = max(1, min(_ceil(want, tiles), _ceil(m, 256)))
-    return groups, _ceil(_ceil(m, n_split), 32) * 32
+class BwdPlan(NamedTuple):
+    """K6's launch plan at B*nW windows of T tokens and C channels."""
+    groups: int        # window groups of the core launch
+    tile_qkv: int      # the qkv recompute's tile: K2's qkv tile
+    tile_proj: int     # do's and dx's tile: K2's output-projection tile
+    tile_w: int        # the weight gradients' tile
+    k_chunk_proj: int  # rows of each dWproj partial (and of dbproj's)
+    k_chunk_qkv: int   # rows of each dWqkv partial
+    wpart: int         # float32 elements of the partials' buffer
+
+
+def _bwd_plan(bnw: int, nh: int, t: int, c: int, n_sm: int, slots: int, dtype) -> BwdPlan:
+    """K6's plan: the core's window groups for its ``slots`` resident
+    blocks, K2's projection tiles at the same rows, and the weight
+    gradients' ``wgrad_plan`` (dWproj (C, C) and dWqkv (3C, C) over the
+    B*nW*T rows), whose partials size the buffer they share with dbproj's
+    column sums (a partial of C per dWproj chunk)."""
+    m = bnw * t
+    tile_qkv, tile_proj = attn_gemm_tiles(m, c, n_sm, dtype)
+    tile_w, k_proj, n_proj = wgrad_plan(c, c, m, n_sm, dtype)
+    _, k_qkv, n_qkv = wgrad_plan(3 * c, c, m, n_sm, dtype)
+    return BwdPlan(_core_groups(bnw, nh, slots), tile_qkv, tile_proj, tile_w, k_proj, k_qkv,
+                   max(n_proj * c * c, n_qkv * 3 * c * c))
 
 
 def window_attention_core_backward(qkv, do, bias, *, num_heads: int,
@@ -533,11 +560,11 @@ def fused_window_attention_backward(g, x, wqkv, bqkv, wproj, bproj, bias, *,
     g = _build.aligned(g.to(dev, dt).contiguous())
     wq, bq, wp, _, b32 = _params(x, wqkv, bqkv, wproj, bproj, bias, nh,
                                  torch.float32, what)
+    # do = g Wproj and dx = dqkv Wqkv as C = A W^T on the transposed copies
+    wq_t, wp_t = (_build.aligned(w.t().contiguous()) for w in (wq, wp))
     m = bnw * t
     sms = n_sm(dev)
-    groups, k_chunk = _bwd_plan(bnw, nh, m, c, sms, _core_slots(t, bool(attn_f32), dt, sms))
-    tile_qkv, _ = attn_gemm_tiles(m, c, sms, dt)
-    n_split = _ceil(m, k_chunk)
+    plan = _bwd_plan(bnw, nh, t, c, sms, _core_slots(t, bool(attn_f32), dt, sms), dt)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -546,20 +573,21 @@ def fused_window_attention_backward(g, x, wqkv, bqkv, wproj, bproj, bias, *,
         return torch.empty(shape, dtype=dt, device=dev)
 
     qkv, do, o, dqkv = cdt(m, 3 * c), cdt(m, c), cdt(m, c), cdt(m, 3 * c)
-    dbias_part, dbqkv_part = f32(groups, nh, t, t), f32(groups, 3 * c)
-    wpart = f32(n_split * 3 * c * c)
+    dbias_part, dbqkv_part = f32(plan.groups, nh, t, t), f32(plan.groups, 3 * c)
+    wpart = f32(plan.wpart)
     dx = cdt(bnw, t, c)
     dwqkv, dbqkv, dwproj, dbproj, dbias = (f32(3 * c, c), f32(3 * c), f32(c, c),
                                            f32(c), f32(nh, t, t))
     nwh, nww = grid_hw
     rc = _build.lib().window_attn_bwd(
-        x.data_ptr(), g.data_ptr(), wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
-        b32.data_ptr(), qkv.data_ptr(), do.data_ptr(), o.data_ptr(),
+        x.data_ptr(), g.data_ptr(), wq.data_ptr(), bq.data_ptr(), wq_t.data_ptr(),
+        wp_t.data_ptr(), b32.data_ptr(), qkv.data_ptr(), do.data_ptr(), o.data_ptr(),
         dqkv.data_ptr(), dbias_part.data_ptr(), dbqkv_part.data_ptr(),
         wpart.data_ptr(), dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(),
         dwproj.data_ptr(), dbproj.data_ptr(), dbias.data_ptr(), bnw, t, c, nh,
-        window_size, shift_size, nwh, nww, int(bool(attn_f32)), groups,
-        k_chunk, tile_qkv, _build.dtype_code(x), _build.stream_ptr(x))
+        window_size, shift_size, nwh, nww, int(bool(attn_f32)), plan.groups,
+        plan.tile_qkv, plan.tile_proj, plan.tile_w, plan.k_chunk_proj, plan.k_chunk_qkv,
+        _build.dtype_code(x), _build.stream_ptr(x))
     _build.check(rc, "window_attn_bwd")
     fused_window_attention_backward.launches += 1
     return (dx, dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype),
@@ -567,3 +595,78 @@ def fused_window_attention_backward(g, x, wqkv, bqkv, wproj, bproj, bias, *,
 
 
 fused_window_attention_backward.launches = 0
+
+
+def backward_gemm_reference(a, b, *, wgrad: bool) -> torch.Tensor:
+    """Plain version of ``backward_gemm``: the float32 product, rounded to
+    a's dtype (do and dx) or kept in float32 (the weight gradients)."""
+    if wgrad:
+        return torch.matmul(a.float().t(), b.float())
+    return torch.matmul(a.float(), b.float().t()).to(a.dtype)
+
+
+def backward_gemm(a, b, *, wgrad: bool) -> torch.Tensor:
+    """One of K6's products alone, as K6 runs it (``csrc/
+    window_attn_bwd_gemm.cu``): ``wgrad=False``, rnd(a b^T) in a's dtype
+    with a (M, K) and b (N, K), K2's output-projection tile at M rows (do =
+    g Wproj and dx = dqkv Wqkv, b the weight's transposed copy);
+    ``wgrad=True``, the float32 a^T b with a (K, M) and b (K, N), K split by
+    ``wgrad_plan`` and the partials summed in order (dWproj = g^T o, dWqkv
+    = dqkv^T x). CPU tensors take the plain version; CUDA tensors (float32,
+    as 3xTF32, or bfloat16; M, N and, for ``wgrad=False``, K multiples of
+    8) launch the kernel or raise."""
+    if a.device.type == "cpu":
+        return backward_gemm_reference(a, b, wgrad=wgrad)
+    what = "window attention backward GEMM"
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{what}: a and b must lie on one CUDA device, got {a.device}, {b.device}")
+    if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
+        raise ValueError(f"{what}: takes float32 or bfloat16 pairs, got {a.dtype}, {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what}: a and b must be contiguous matrices")
+    if wgrad:
+        (k, m), (kb, n) = a.shape, b.shape
+    else:
+        (m, k), (n, kb) = a.shape, b.shape
+    if k != kb or m % 8 or n % 8 or (not wgrad and k % 8):
+        raise ValueError(f"{what}: shapes {tuple(a.shape)}, {tuple(b.shape)} do not fit "
+                         f"(wgrad={wgrad}; M, N and the GEMM's K multiples of 8)")
+    a, b = _build.aligned(a), _build.aligned(b)
+    sms, dt = n_sm(a.device), a.dtype
+    if wgrad:
+        tile, k_chunk, parts = wgrad_plan(m, n, k, sms, dt)
+        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        part = torch.empty(parts * m * n, dtype=torch.float32, device=a.device)
+    else:
+        tile, k_chunk = gemm_plan(m, n, k, sms, dt)[0], k
+        out = torch.empty((m, n), dtype=dt, device=a.device)
+        part = out
+    rc = _build.lib().window_attn_bwd_gemm(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), part.data_ptr(), m, n, k, k_chunk, tile,
+        int(wgrad), _build.dtype_code(a), _build.stream_ptr(a))
+    _build.check(rc, "window_attn_bwd_gemm")
+    backward_gemm.launches += 1
+    return out
+
+
+backward_gemm.launches = 0
+
+
+def window_attention_backward_gemm_info(dtype=torch.bfloat16) -> dict:
+    """The resources of K6's product kernels (``gemm_mma.cuh``) in
+    ``dtype`` on the current card, as the CUDA runtime reports them:
+    registers per thread, local (spill) bytes per thread, shared bytes per
+    block and resident blocks per SM, keyed ``"round 64x128"`` (do and dx,
+    every tile of the dtype's plan) and ``"wgrad 64x128"`` (the weight
+    gradients' tile, ``mma_plan.WGRAD_TILE``)."""
+    code = 0 if dtype == torch.float32 else 1
+    kernels = [("round", t, 0) for t in PLAN_TILES[dtype]] + [("wgrad", WGRAD_TILE, 1)]
+    info = {}
+    for name, tile, wgrad in kernels:
+        out = (ctypes.c_int * 4)()
+        rc = _build.lib().window_attn_bwd_gemm_info(code, tile, wgrad, ctypes.addressof(out))
+        _build.check(rc, "window_attn_bwd_gemm_info")
+        bm, bn = MMA_TILES[tile]
+        info[f"{name} {bm}x{bn}"] = dict(
+            zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
+    return info

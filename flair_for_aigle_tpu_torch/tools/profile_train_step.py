@@ -19,8 +19,11 @@ calls per step]}, however small; ``ffn_gemms``: K3's two products
 (``gemm_mma_kernel`` with the GELU, residual or split-K epilogue, and
 ``resid_sum_kernel`` where fc2 splits K) the same way; and
 ``attn_gemms``: ``gemm_mma_kernel`` with the bias epilogue, K2's qkv and
-output projections and K6's qkv recompute (``gemm_tallies`` splits them
-by the kernel's epilogue template argument). ``FLAIR_FFN_BWD`` and
+output projections and K6's qkv recompute; ``bwd_gemms``: ``gemm_mma_kernel``
+with the rounding and weight-gradient epilogues, K6's do, dx, dWproj and
+dWqkv (``gemm_tallies`` splits them by the kernel's epilogue template
+argument); and ``gemm_cuh_gemms``: every launch of ``csrc/gemm.cuh``'s
+``gemm_kernel`` (K5, and K7 and K8 under their switches). ``FLAIR_FFN_BWD`` and
 ``FLAIR_SWIN_FINISH`` are read as in training. Runs on the card unless
 ``--device cpu`` asks for the CPU (the plain versions; no device lines).
 """
@@ -72,29 +75,35 @@ def random_batch(cfg: dict, batch: int, px: int, seed: int = 0) -> dict:
 
 
 #: gemm_mma.cuh's epilogue codes (its template argument EPI): K3's
-#: MMA_GELU, MMA_RESID and MMA_PART; MMA_BIAS, K2's and K6's projections
+#: MMA_GELU, MMA_RESID and MMA_PART; MMA_BIAS, K2's and K6's projections;
+#: MMA_ROUND and MMA_WGRAD, K6's do and dx and its weight gradients
 K3_EPILOGUES = {0, 1, 2}
 BIAS_EPILOGUE = 3
+K6_EPILOGUES = {4, 5}
 _MMA_EPI = re.compile(r"gemm_mma_kernel<[^>]*?(\d+)\s*>")
 
 
 def gemm_tallies(rows) -> dict:
     """``rows``: (kernel name, ms per step, calls per step) of the device
     kernels. Returns {"ffn_gemms": K3's products, "attn_gemms": K2's and K6's
-    bias products}, each {name[:90]: [ms, calls]}: ``gemm_mma_kernel`` by its
-    epilogue template argument, ``resid_sum_kernel`` (fc2's split-K sum) to
-    K3."""
-    out: dict = {"ffn_gemms": {}, "attn_gemms": {}}
+    bias products, "bwd_gemms": K6's do, dx and weight gradients,
+    "gemm_cuh_gemms": gemm.cuh's kernel}, each {name[:90]: [ms, calls]}:
+    ``gemm_mma_kernel`` by its epilogue template argument,
+    ``resid_sum_kernel`` (fc2's split-K sum) to K3."""
+    out: dict = {"ffn_gemms": {}, "attn_gemms": {}, "bwd_gemms": {}, "gemm_cuh_gemms": {}}
     for name, ms, calls in rows:
         if "resid_sum_kernel" in name:
             key = "ffn_gemms"
+        elif "gemm_kernel<" in name:
+            key = "gemm_cuh_gemms"
         else:
             m = _MMA_EPI.search(name)
             if m is None:
                 continue
             epi = int(m.group(1))
             key = ("ffn_gemms" if epi in K3_EPILOGUES
-                   else "attn_gemms" if epi == BIAS_EPILOGUE else None)
+                   else "attn_gemms" if epi == BIAS_EPILOGUE
+                   else "bwd_gemms" if epi in K6_EPILOGUES else None)
             if key is None:
                 raise ValueError(f"gemm_mma_kernel with an unknown epilogue {epi}: {name}")
         out[key][name[:90]] = [ms, calls]

@@ -13,8 +13,9 @@ slice's), 1 for float32 (the training configuration's). Prints the card's
 line (name and power limit from nvidia-smi), one JSON line per stage
 ``{"hw", "c", "bnw", "ms", "plain_ms", "device_ms", "plain_device_ms",
 "cublas_device_ms"}`` (with ``--backward`` also ``bwd_ms``,
-``bwd_plain_ms``, ``bwd_device_ms``, ``bwd_plain_device_ms``) and a last
-line with the sums over the stages. ``ms`` keys are CUDA events around
+``bwd_plain_ms``, ``bwd_device_ms``, ``bwd_plain_device_ms`` and
+``bwd_cublas_device_ms``, K6's four products alone through cuBLAS) and a
+last line with the sums over the stages. ``ms`` keys are CUDA events around
 each call (``tools/timing.py cuda_ms``), the times of ``chip_smoke.py``'s
 ``kernels`` line; ``*device_ms`` keys are device time (``device_ms``),
 with the host's work hidden. ``chip_smoke.py``'s K2 lines take their times
@@ -65,12 +66,28 @@ def stage_times(win, params, akw) -> dict:
 
 def backward_times(gy, win, params, akw) -> dict:
     """K6 for the output gradient ``gy`` and its plain version (autograd
-    through the plain forward) by both timings."""
+    through the plain forward) by both timings, and as a yardstick K6's
+    four products alone through cuBLAS as device time: do = g Wproj,
+    dWproj = g^T o, dWqkv = dqkv^T x and dx = dqkv Wqkv, ``torch.matmul``
+    in win's dtype with TF32 off (restored after), on operands of their
+    shapes (gy's and win's rows standing in for o and dqkv)."""
     kernel = lambda: window_attn.fused_window_attention_backward(gy, win, *params, **akw)  # noqa: E731
     plain = lambda: window_attn.fused_window_attention_backward_reference(  # noqa: E731
         gy, win, *params, **akw)
+    bnw, t, c = win.shape
+    x, g = win.reshape(bnw * t, c), gy.reshape(bnw * t, c)
+    wqkv, wproj = params[0].to(win.dtype), params[2].to(win.dtype)
+    o, dqkv = x, torch.cat([g, x, g], 1)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t_l = device_ms(lambda: (torch.matmul(g, wproj), torch.matmul(g.t(), o),
+                                 torch.matmul(dqkv.t(), x), torch.matmul(dqkv, wqkv)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return {"bwd_ms": cuda_ms(kernel), "bwd_plain_ms": cuda_ms(plain),
-            "bwd_device_ms": device_ms(kernel), "bwd_plain_device_ms": device_ms(plain)}
+            "bwd_device_ms": device_ms(kernel), "bwd_plain_device_ms": device_ms(plain),
+            "bwd_cublas_device_ms": t_l}
 
 
 def main(argv=None) -> None:

@@ -40,8 +40,8 @@ def _ffn_params(randn, c):
 
 #: the wrappers, by the kernel each launches
 WRAPPERS = ["prep", "window_attn", "window_attn_bwd", "window_attn_core",
-            "window_attn_core_bwd", "ffn", "ffn_bwd", "merge", "finish", "epilogue",
-            "attn_dots_per_head", "attn_dots_grouped"]
+            "window_attn_core_bwd", "window_attn_bwd_gemm", "window_attn_bwd_wgrad", "ffn",
+            "ffn_bwd", "merge", "finish", "epilogue", "attn_dots_per_head", "attn_dots_grouped"]
 
 
 def wrapper_case(name: str, dtype, device, seed: int = 0):
@@ -77,6 +77,14 @@ def wrapper_case(name: str, dtype, device, seed: int = 0):
                 window_attn.window_attention_core_backward_reference,
                 [randn(bnw * t, 3 * c, dt=dtype), randn(bnw * t, c, dt=dtype),
                  randn(nh, t, t, std=0.5)], akw)
+    if name in ("window_attn_bwd_gemm", "window_attn_bwd_wgrad"):
+        # K6's products alone on 200 rows: dx = dqkv Wqkv (a (200, 3C), b
+        # the weight's transposed copy (C, 3C)), dWqkv = dqkv^T x (a (200,
+        # 3C), b (200, C))
+        wgrad = name.endswith("wgrad")
+        b = randn(200, c, dt=dtype) if wgrad else randn(c, 3 * c, std=c ** -0.5, dt=dtype)
+        return (window_attn.backward_gemm, window_attn.backward_gemm_reference,
+                [randn(200, 3 * c, dt=dtype), b], dict(wgrad=wgrad))
     if name == "ffn":
         return (ffn.fused_ln_mlp_residual, ffn.fused_ln_mlp_residual_reference,
                 [randn(37, c, dt=dtype), randn(37, c, std=0.5, dt=dtype), *_ffn_params(randn, c)],

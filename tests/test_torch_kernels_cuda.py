@@ -25,7 +25,12 @@ wrapper on views off a 16-byte boundary launches its kernel on aligned
 copies and returns bit for bit what it returns on fresh tensors
 (tests/_offset_views.py's cases). K2, whose projections run gemm_mma.cuh's
 bias epilogue, twice bit-identical; that epilogue's tiles without spill at
-two blocks per SM.
+two blocks per SM. K6's do, dx and weight-gradient products alone
+(gemm_mma.cuh's rounding epilogue and its C = A^T B layout) against a
+float64 product on ragged shapes, twice bit-identical, their kernels
+without spill at two blocks per SM. The A/B kernels at swin-base's four
+stage geometries at batch 16 (bw 1 and 4), and their residency: no spill,
+three blocks per SM per head, two grouped.
 """
 
 import pytest
@@ -649,3 +654,76 @@ def test_attn_dots_wrappers_raise_on_what_the_kernels_do_not_take(dev):
             fn(y, y, y, num_heads=4)
         with pytest.raises(ValueError):  # 4 windows, 3 per block
             fn(x, x, x, num_heads=4, bw=3)
+
+
+# K6's products alone: (M, K, N) of rnd(a b^T) (do, dx; b the weight's
+# transposed copy), (K, M, N) of a^T b (dWproj, dWqkv), ragged against the
+# tiles; 17000 rows take bf16's 128 x 128 tile
+ROUND_SHAPES = [(392, 384, 128), (1000, 96, 96), (17000, 128, 128), (200, 1024, 512)]
+WGRAD_SHAPES = [(392, 384, 128), (5001, 256, 256), (1152, 1024, 1024), (77, 96, 96)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("wgrad,shape", [(False, s) for s in ROUND_SHAPES]
+                         + [(True, s) for s in WGRAD_SHAPES])
+def test_window_attn_backward_gemm_matches_float64(dev, dtype, wgrad, shape):
+    """One of K6's products on gemm_mma.cuh against the float64 product of
+    the same (rounded) inputs: float32 (3xTF32) and the float32 weight
+    gradients within 1e-4 of the largest magnitude, bf16 do / dx within one
+    bf16 unit there; two calls bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    d0, d1, d2 = shape
+    a = torch.randn((d0, d1), generator=g, device=dev).to(dtype)
+    b = torch.randn((d0, d2) if wgrad else (d2, d1), generator=g, device=dev).to(dtype)
+    window_attn.backward_gemm.launches = 0
+    got = window_attn.backward_gemm(a, b, wgrad=wgrad)
+    again = window_attn.backward_gemm(a, b, wgrad=wgrad)
+    torch.cuda.synchronize()
+    assert window_attn.backward_gemm.launches == 2
+    want = (a.double().t() @ b.double()) if wgrad else (a.double() @ b.double().t())
+    assert got.shape == want.shape
+    assert got.dtype == (torch.float32 if wgrad else dtype)
+    assert torch.equal(got, again)
+    _assert_close(got, want, torch.float32 if wgrad else dtype, bf16_ulps=1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_attn_backward_gemm_resources(dev, dtype):
+    """No kernel of K6's products (the rounding epilogue at every tile of
+    the dtype's plan, the weight gradients at theirs) spills, and every one
+    holds two blocks per SM."""
+    info = window_attn.window_attention_backward_gemm_info(dtype)
+    assert len(info) == (2 if dtype == torch.float32 else 3), info
+    for name, i in info.items():
+        assert i["spill_bytes"] == 0 and i["blocks_per_sm"] >= 2, (name, i)
+
+
+# swin-base@512's stages at batch 16: (windows, C, heads)
+DOTS_STAGES = [(16 * 121, 128, 4), (16 * 36, 256, 8), (16 * 9, 512, 16), (16 * 4, 1024, 32)]
+
+
+@pytest.mark.parametrize("bw", [1, 4])
+@pytest.mark.parametrize("bnw,c,nh", DOTS_STAGES)
+def test_attn_dots_kernels_at_the_stage_geometries(dev, bnw, c, nh, bw):
+    """Both A/B kernels at a stage's geometry against their plain version
+    (one bf16 unit at the largest magnitude), bit-identical to each other
+    and from call to call."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    q, k, v = (torch.randn((bnw, 144, c), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    want = attn_dots.attn_dots_reference(q, k, v, num_heads=nh)
+    got = {}
+    for fn in (attn_dots.attn_dots_per_head, attn_dots.attn_dots_grouped):
+        a = fn(q, k, v, num_heads=nh, bw=bw)
+        assert torch.equal(a, fn(q, k, v, num_heads=nh, bw=bw))
+        _assert_close(a, want, torch.bfloat16, bf16_ulps=1)
+        got[fn.__name__] = a
+    assert torch.equal(got["attn_dots_per_head"], got["attn_dots_grouped"])
+
+
+@pytest.mark.parametrize("grouped,blocks", [(False, 3), (True, 2)])
+def test_attn_dots_resources(dev, grouped, blocks):
+    """No spill; per head (two stages of 69 KB) three blocks per SM,
+    grouped (one stage of 108 KB, swizzled rows) two."""
+    info = attn_dots.attn_dots_info(grouped)
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= blocks, info
