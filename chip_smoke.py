@@ -50,7 +50,17 @@ Phases, one printed line each (any failure raises and exits non-zero):
    tensor-core GEMM kernels' resources at each stage, K3's and K2's
    projections', and K6's products' at every tile (no spill; at least 2
    blocks per SM), and both A/B kernels' (no spill; per head at least 3
-   blocks per SM, grouped 2);
+   blocks per SM, grouped 2); K1 and K5 at batch 2 in both dtypes and at
+   the paths' batches (16 in bf16, the zonal one; 5 in float32, the
+   training one): two calls bit-identical, kernel and plain by CUDA events
+   and as device time (``tools/time_prep_merge.py``), beside a yardstick
+   as device time (K1: ``F.layer_norm`` over the same input; K5: its
+   reduction alone through cuBLAS on ready LN rows, TF32 off), and the
+   host time of a call (CUDA events minus device time); K1's kernel per
+   stage width and K5's GEMM per merge and batch (no spill; K1 at least
+   the blocks per SM its launch bounds promise, K5 2); every
+   ``gemm_mma.cuh`` instantiation of K2, K3 and K6 with the registers it
+   had before K5's producer joined the GEMM's body, and no spill;
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -144,6 +154,7 @@ T = WS * WS  # tokens per window
 # (H = W, C) entering each merge of swin-base@512 (stages 1->2, 2->3, 3->4)
 MERGES = [(128, 128), (64, 256), (32, 512)]
 TRAIN_N = {"train": 20, "val": 5, "test": 5}
+TRAIN_BATCH = 5  # the default training configuration's batch
 TRAIN_PX = 512
 DEVICE = "cuda"
 STEPS_WARM, STEPS_TIMED = 2, 5  # train_step timing: warm-up, then timed
@@ -848,6 +859,132 @@ def window_attn_lines(stats, tag, win, params, nh, nwh, attn_f32, bound) -> None
         s["bound_3xtf32_ms"] = s.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
 
 
+def prep_merge_line(stats, op, batch, hw, c, args, bound) -> None:
+    """K1 (``op`` "prep": x, scale, bias; window 12, shift 6) or K5
+    ("merge": x, scale, bias, reduction) at one stage for ``batch`` tiles
+    against its plain version (K1 one bf16 unit, float32 1e-5 of the
+    largest magnitude; K5 two bf16 units, as its LN rows round to bf16
+    before the product, float32 1e-4), two calls bit-identical, and
+    ``tools/time_prep_merge.py``'s times: kernel and plain by CUDA events
+    and as device time, beside a yardstick as device time (K1:
+    ``F.layer_norm`` over the same input, weights in its dtype; K5: the
+    reduction alone through cuBLAS, ``F.linear`` on ready LN rows, TF32
+    off). Sums: batch 2 in ``stats[op]`` (K1 bf16, K5 float32: the entry's
+    own numbers), batch 2 in the other dtype in ``stats[op + "_f32"]`` or
+    ``["merge_bf16"]``, and the paths' batches in ``stats[op + "_b16"]``
+    (bf16) and ``[op + "_b5"]`` (float32)."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import merge, prep
+    from flair_for_aigle_tpu_torch.tools.time_prep_merge import merge_times, prep_times
+
+    x = args[0]
+    bf = x.dtype == torch.bfloat16
+    dts = "bf16" if bf else "f32"
+    fn, ref, times, kw, cost_fn, ulps, rel, to, yard = {
+        "prep": (prep.fused_ln_shift_partition, prep.fused_ln_shift_partition_reference,
+                 prep_times, dict(ws=WS, ss=SS), cost_prep, 1, 1e-5, "", "F.layer_norm"),
+        "merge": (merge.fused_patch_merge, merge.fused_patch_merge_reference, merge_times, {},
+                  cost_merge, 2, 1e-4, f"->{2 * c}",
+                  "cuBLAS reduction (F.linear on ready LN rows)")}[op]
+    tag = f"B{batch} {hw}x{hw}x{c}{to} {dts}"
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    want = ref(*args, **kw)
+    same = torch.equal(got, again)
+    say("kernel", f"{op} {tag}: repeat {'bit-identical ok' if same else 'DIFFERS FAIL'}")
+    if not same:
+        raise AssertionError(f"{op} {tag}: two calls differ")
+    t = times(*args)
+    cost = (*cost_fn(batch, hw, c, 2 if bf else 4), dts)
+    note = (f"; device time kernel {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} "
+            f"ms, {yard} {t['library_device_ms']:.4f} ms; host time of a call (CUDA events "
+            f"minus device time) {t['ms'] - t['device_ms']:.4f} ms")
+    _compare(op, tag, got, want, bound(want, x.dtype, ulps, rel), t["ms"], t["plain_ms"], stats,
+             cost, note=note)
+    # batch 2 in the entry's own dtype (K1 bf16, K5 float32) or the other
+    name = f"{op}_b{batch}" if batch != 2 else op if bf == (op == "prep") else f"{op}_{dts}"
+    _add_time(stats, name, t["ms"], t["plain_ms"], cost)
+    st = stats[name]
+    for key in ("device_ms", "plain_device_ms", "library_device_ms"):
+        st[key] = st.get(key, 0.0) + t[key]
+
+
+def prep_merge_info_lines(stats) -> None:
+    """K1's kernel at each stage's C (registers, spill bytes, shared bytes,
+    blocks per SM; raises on a spill or below the blocks per SM its launch
+    bounds promise) and K5's GEMM kernel at each merge and batch, as
+    ``fused_patch_merge`` launches it (raises on a spill or below 2 blocks
+    per SM); the worst into each kernel's stats."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import merge, prep
+
+    worst = {"gemm_spill_bytes": 0, "gemm_max_regs": 0, "gemm_min_blocks_per_sm": 99}
+    pworst = {"spill_bytes": 0, "max_regs": 0, "min_blocks_per_sm": 99}
+    for dtype in (torch.bfloat16, torch.float32):
+        dts = "bf16" if dtype == torch.bfloat16 else "f32"
+        for (_, c, _) in STAGES:
+            i = prep.prep_info(c, dtype)
+            say("kernel", f"prep C{c} {dts} ({i['g']} lanes a token, {i['v']} x 16 bytes a lane): "
+                f"{i['regs']} registers, {i['spill_bytes']} spill bytes, {i['shared_bytes']} "
+                f"shared bytes per block, {i['blocks_per_sm']} blocks per SM (bound: 0 spill "
+                f"bytes, >= {i['min_blocks']} blocks per SM)")
+            if i["spill_bytes"] > 0 or i["blocks_per_sm"] < i["min_blocks"]:
+                raise AssertionError(f"prep C{c} {dts} spills or misses its residency: {i}")
+            pworst["spill_bytes"] = max(pworst["spill_bytes"], i["spill_bytes"])
+            pworst["max_regs"] = max(pworst["max_regs"], i["regs"])
+            pworst["min_blocks_per_sm"] = min(pworst["min_blocks_per_sm"], i["blocks_per_sm"])
+        for batch in (2, TRAIN_BATCH, BATCH):
+            for (hw, c) in MERGES:
+                for kname, i in merge.merge_info(dtype, batch * (hw // 2) ** 2, c).items():
+                    _resource_line(f"merge GEMM B{batch} C{c} {dts} {kname}", i, worst)
+    stats["prep"]["info"] = pworst
+    stats["merge"]["info"] = worst
+
+
+# registers of every gemm_mma.cuh instantiation of K3, K2's projections and
+# K6's products as they were built before K5's LayerNorm producer joined
+# the GEMM's body (ffn_info, window_attention_gemm_info and
+# window_attention_backward_gemm_info on an NVIDIA H100 80GB HBM3, nvcc of
+# CUDA 12.8), none spilling
+GEMM_MMA_REGS = {
+    "ffn bf16 fc1 128x128": 128, "ffn bf16 fc1 64x128": 102, "ffn bf16 fc2 128x128": 128,
+    "ffn bf16 fc2 64x128": 102, "ffn bf16 fc2 split 128x128": 128,
+    "ffn bf16 fc2 split 64x128": 102, "attn bf16 bias 128x128": 126,
+    "attn bf16 bias 64x128": 96, "bwd bf16 round 128x128": 128, "bwd bf16 round 64x128": 102,
+    "bwd bf16 wgrad 64x128": 114, "ffn f32 fc1 64x128": 113, "ffn f32 fc2 64x128": 113,
+    "ffn f32 fc2 split 64x128": 113, "attn f32 bias 64x128": 114, "bwd f32 round 64x128": 113,
+    "bwd f32 wgrad 64x128": 112}
+
+
+def gemm_mma_unchanged(stats) -> None:
+    """Every instantiation of ``gemm_mma.cuh`` that K3, K2 and K6 launch
+    keeps the registers it had before K5's producer joined the body
+    (``GEMM_MMA_REGS``) and spills nothing; raises otherwise."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import ffn, window_attn
+
+    now = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dts = "bf16" if dtype == torch.bfloat16 else "f32"
+        for kname, i in ffn.ffn_info(128, 512, dtype).items():
+            now[f"ffn {dts} {kname}"] = i
+        for kname, i in window_attn.window_attention_gemm_info(dtype).items():
+            now[f"attn {dts} {kname}"] = i
+        for kname, i in window_attn.window_attention_backward_gemm_info(dtype).items():
+            now[f"bwd {dts} {kname}"] = i
+    changed = {k: (GEMM_MMA_REGS.get(k), i["regs"], i["spill_bytes"]) for k, i in now.items()
+               if GEMM_MMA_REGS.get(k) != i["regs"] or i["spill_bytes"]}
+    say("kernel", f"gemm_mma instantiations of K2, K3 and K6: {len(now) - len(changed)} of "
+        f"{len(now)} keep their registers with 0 spill bytes "
+        f"({'ok' if not changed else f'CHANGED FAIL {changed}'})")
+    if changed:
+        raise AssertionError(f"gemm_mma instantiations changed: {changed}")
+    stats["ffn"]["gemm_mma_unchanged"] = len(now)
+
+
 def _resource_line(what, i, worst) -> None:
     """One GEMM kernel's resources; raises on a spill or on fewer than the
     design's 2 blocks per SM, and folds them into ``worst``."""
@@ -1001,8 +1138,9 @@ def phase_kernels() -> dict:
     """Every kernel against its plain version; returns per-kernel stats
     (times and bounds summed over the stages, in the dtype of the path each
     kernel serves: bf16 for K1-K4 and K8, the zonal slice's; float32 for K5,
-    K6 and K7, the training configuration's; the A/B kernels' at the tool's
-    default geometry, with the library call's time)."""
+    K6 and K7, the training configuration's; K1 and K5 also in the other
+    dtype and at the paths' batches; the A/B kernels' at the tool's default
+    geometry, with the library call's time)."""
     import torch
 
     from flair_for_aigle_tpu_torch.tools.time_window_attn import backward_times
@@ -1012,7 +1150,6 @@ def phase_kernels() -> dict:
         epilogue,
         ffn,
         finish,
-        merge,
         prep,
         window_attn,
     )
@@ -1049,14 +1186,7 @@ def phase_kernels() -> dict:
             x = randn(2, hw, hw, c, dtype=dtype)
             s, b = randn(c, dtype=f32) * 0.1 + 1, randn(c, dtype=f32) * 0.1
             kw = dict(ws=WS, ss=SS)
-            got = prep.fused_ln_shift_partition(x, s, b, **kw)
-            want = prep.fused_ln_shift_partition_reference(x, s, b, **kw)
-            t_k = cuda_ms(lambda: prep.fused_ln_shift_partition(x, s, b, **kw))
-            t_p = cuda_ms(lambda: prep.fused_ln_shift_partition_reference(x, s, b, **kw))
-            cost = (*cost_prep(2, hw, c, isz), dts)
-            _compare("prep", tag, got, want, bound(want, dtype, 1, 1e-5), t_k, t_p, stats, cost)
-            if dtype == bf:
-                _add_time(stats, "prep", t_k, t_p, cost)
+            prep_merge_line(stats, "prep", 2, hw, c, (x, s, b), bound)
 
             # K2: window attention, both softmax modes
             win = prep.fused_ln_shift_partition(x, s, b, **kw)
@@ -1116,25 +1246,27 @@ def phase_kernels() -> dict:
             if dtype == f32:
                 _add_time(stats, "ffn_bwd", t_k, t_p, cost)
 
-    # K5: patch merge at the three transitions; times summed in float32,
-    # the training configuration's dtype
+    # K5: patch merge at the three transitions, batch 2 in both dtypes
+    # (times summed in float32, the training configuration's dtype)
     for (hw, c) in MERGES:
         for dtype in (bf, f32):
-            dts = "bf16" if dtype == bf else "f32"
-            tag = f"B2 {hw}x{hw}x{c}->{2 * c} {dts}"
             x = randn(2, hw, hw, c, dtype=dtype)
             mp = (randn(4 * c, dtype=f32) * 0.1 + 1, randn(4 * c, dtype=f32) * 0.1,
                   randn(2 * c, 4 * c, dtype=f32, std=(4 * c) ** -0.5))
-            got = merge.fused_patch_merge(x, *mp)
-            want = merge.fused_patch_merge_reference(x, *mp)
-            t_k = cuda_ms(lambda: merge.fused_patch_merge(x, *mp))
-            t_p = cuda_ms(lambda: merge.fused_patch_merge_reference(x, *mp))
-            # bf16: LN rows round to bf16 before the product, so a rounding
-            # flip there moves an output by up to one ulp at its scale
-            cost = (*cost_merge(2, hw, c, 2 if dtype == bf else 4), dts)
-            _compare("merge", tag, got, want, bound(want, dtype, 2, 1e-4), t_k, t_p, stats, cost)
-            if dtype == f32:
-                _add_time(stats, "merge", t_k, t_p, cost)
+            prep_merge_line(stats, "merge", 2, hw, c, (x, *mp), bound)
+    # K1 and K5 at the batches the paths run: the zonal batch in bf16, the
+    # training batch in float32
+    for batch, dtype in ((BATCH, bf), (TRAIN_BATCH, f32)):
+        for op, stages in (("prep", [st[:2] for st in STAGES]), ("merge", MERGES)):
+            for hw, c in stages:
+                x = randn(batch, hw, hw, c, dtype=dtype)
+                if op == "prep":
+                    args = (x, randn(c, dtype=f32) * 0.1 + 1, randn(c, dtype=f32) * 0.1)
+                else:
+                    args = (x, randn(4 * c, dtype=f32) * 0.1 + 1, randn(4 * c, dtype=f32) * 0.1,
+                            randn(2 * c, 4 * c, dtype=f32, std=(4 * c) ** -0.5))
+                prep_merge_line(stats, op, batch, hw, c, args, bound)
+                del x, args
 
     # K6: attention backward at the four stages, both softmax modes, against
     # autograd through the plain forward; times summed over the stages in
@@ -1244,13 +1376,18 @@ def phase_kernels() -> dict:
     bwd_core_info(stats)
     ffn_info_lines(stats)
     bwd_gemm_info_lines(stats)
+    prep_merge_info_lines(stats)
+    gemm_mma_unchanged(stats)
     attn_dots_info_lines(stats)
     for name, st in stats.items():
         lib = "" if st["library_ms"] is None else f"library {st['library_ms']:.4f} ms, "
         if "device_ms" in st:
             lib += (f"device time kernel {st['device_ms']:.4f} ms, plain "
-                    f"{st['plain_device_ms']:.4f} ms, cuBLAS products "
-                    f"{st['cublas_device_ms']:.4f} ms, ")
+                    f"{st['plain_device_ms']:.4f} ms, ")
+            if "cublas_device_ms" in st:
+                lib += f"cuBLAS products {st['cublas_device_ms']:.4f} ms, "
+            if "library_device_ms" in st:
+                lib += f"yardstick {st['library_device_ms']:.4f} ms, "
         x3 = (f", at 3xTF32's rate {st['bound_3xtf32_ms']:.4f} ms" if "bound_3xtf32_ms" in st
               else "")
         say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -1820,6 +1957,20 @@ def main() -> int:
         **st["gemm_info"]})
     for name in ("attn_dots_per_head", "attn_dots_grouped"):
         extra[name] = dict(stats[name]["info"])
+    # K1 (bf16) and K5 (float32) at batch 2 also as device time, beside
+    # their yardstick (K1: F.layer_norm over the same input; K5: the
+    # reduction alone through cuBLAS); at batch 2 in the other dtype; at the
+    # zonal batch (bf16) and the training batch (float32), each by CUDA
+    # events and as device time; their kernels' worst resources
+    for op, yard, other in (("prep", "layer_norm", "f32"), ("merge", "cublas", "bf16")):
+        st = stats[op]
+        extra[op] = {"device_ms": st["device_ms"], "plain_device_ms": st["plain_device_ms"],
+                     f"{yard}_device_ms": st["library_device_ms"], **st["info"]}
+        for pre in (other, f"b{BATCH}", f"b{TRAIN_BATCH}"):
+            st = stats[f"{op}_{pre}"]
+            extra[op].update({f"{pre}_{k}": st[k] for k in (
+                "ms", "plain_ms", "bound_ms", "device_ms", "plain_device_ms")})
+            extra[op][f"{pre}_{yard}_device_ms"] = st["library_device_ms"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs.values()),

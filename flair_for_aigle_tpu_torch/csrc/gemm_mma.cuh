@@ -1,8 +1,10 @@
 // Tensor-core GEMM with a cp.async pipeline and an epilogue straight from
 // the accumulator registers, for K3's two products (ffn.cu), K2's qkv and
-// output projections (window_attn.cu), and K6's qkv recompute
+// output projections (window_attn.cu), K6's qkv recompute
 // (window_attn_bwd.cu) and its do, dx and weight-gradient products
-// (window_attn_bwd_gemm.cu), in two operand layouts:
+// (window_attn_bwd_gemm.cu), and K5's reduction (merge.cu, whose A a
+// producer gathers and normalises as it lands: MmaPlainA below), in two
+// operand layouts:
 //
 //   C = A W^T   A (M, K) row-major, W (N, K) row-major (the nn.Linear layout)
 //   C = A^T B   A (K, M) row-major, B (K, N) row-major (MMA_WGRAD: the
@@ -70,9 +72,10 @@
 //                  sums K range [z k_chunk, (z + 1) k_chunk); the split-K
 //                  partials of fc2, which resid_sum_kernel adds in the order
 //                  z = 0, 1, ... before it applies MMA_RESID's epilogue (no
-//                  atomics: two calls give the same bits)
+//                  atomics: two calls give the same bits), and of K5's
+//                  reduction at few rows (merge.cu sum_round_kernel)
 //       MMA_ROUND  out = rnd(acc)                   (K6's do = g Wproj and
-//                  dx = dqkv Wqkv, W the weight's transposed copy)
+//                  dx = dqkv Wqkv, W the weight's transposed copy; K5)
 //       MMA_WGRAD  C = A^T B, out = acc as MMA_PART (K6's dWproj = g^T o and
 //                  dWqkv = dqkv^T x; sum_partials_kernel adds them in order)
 #pragma once
@@ -198,12 +201,37 @@ __device__ __forceinline__ void resid8(const T* x, const T* a, const float (&b)[
 
 }  // namespace
 
-template <typename T, int BM, int BN, int EPI>
-__global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
-    gemm_mma_kernel(const T* __restrict__ A, const T* __restrict__ W, void* __restrict__ out,
-                    int M, int N, int K, int k_chunk, const T* __restrict__ bias,
-                    const T* __restrict__ rx, const T* __restrict__ ra) {
+// A's producer, the policy of gemm_mma_tile. MmaPlainA: A (M, K)
+// row-major, used as copied (every kernel but K5's). A producer with kLN
+// set (K5's MergeA, merge.cu) gathers A's rows from elsewhere and
+// normalises them:
+//   - a_row(m): locates row m < M, once a row and thread;
+//   - a_src(row, k): the address of the 16-byte chunk at column k of that
+//     row (k a multiple of 8: a 16-byte chunk, and the prologue's 8
+//     values, lie wholly inside one piece of the row);
+//   - scale, bias: the LayerNorm's float32 (K,) parameters, and eps.
+// The block then takes each of its BM rows' float32 mean and rstd over
+// the full K (a warp four rows at a time, two passes over them: the sums,
+// then the squared deviations) into shared memory, and each thread
+// normalises the chunks it copied, once, after its own
+// cp.async.wait_group and before the barrier that precedes every
+// ldmatrix: (v - mean) rstd scale[k] + bias[k], rounded to T (float32:
+// just before the split into tf32 halves). The tensor cores then take
+// exactly the LayerNorm rows in T.
+struct MmaPlainA {
+  static constexpr bool kLN = false;
+};
+
+// one block's tile of the product (see the file's head); the kernels
+// below are this body with a producer
+template <typename T, int BM, int BN, int EPI, class AP>
+__device__ __forceinline__ void gemm_mma_tile(const T* __restrict__ A, const T* __restrict__ W,
+                                              void* __restrict__ out, int M, int N, int K,
+                                              int k_chunk, const T* __restrict__ bias,
+                                              const T* __restrict__ rx, const T* __restrict__ ra,
+                                              const AP& ap) {
   constexpr bool F32 = mma_f32<T>();
+  constexpr bool LN = AP::kLN;
   constexpr int S = MMA_STAGES;
   constexpr int RAW = mma_raw<T>();               // bytes of a row a k step
   constexpr int ROW = RAW + 16;                   // a padded row: ldmatrix conflict-free
@@ -241,6 +269,16 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
   const T* a_src = A + (long long)(m0 + r0) * K + ch * (16 / (int)sizeof(T));
   const T* w_src = W + (long long)(n0 + r0) * K + ch * (16 / (int)sizeof(T));
   const int a_left = M - m0 - r0, w_left = N - n0 - r0;  // rows from r0 on
+  static_assert(!(TN && LN), "an LN producer feeds C = A W^T only");
+  // LN: this thread's A rows r0 + 64 i located once; the block's rows'
+  // mean and rstd after the pipeline's buffers
+  long long a_row[LN ? BM / 64 : 1];
+  if constexpr (LN) {
+#pragma unroll
+    for (int i = 0; i < BM / 64; ++i) a_row[i] = 64 * i < a_left ? ap.a_row(m0 + r0 + 64 * i) : 0;
+  }
+  float* ln_mean = reinterpret_cast<float*>(smem + mma_smem_bytes<T, BM, BN, TN>());
+  float* ln_rstd = ln_mean + BM;
   // C = A^T B: chunk r of this thread's step, k row kr of the stage and
   // chunk column cc. float32: lanes along k (16 rows) and two neighbouring
   // chunks, for the split's transposed writes; bf16: along the rows
@@ -281,7 +319,12 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
       for (int c = 0; c < CPT; ++c) {
         const int kc = c * 64 / (int)sizeof(T);  // 4 chunks further along the row
         const bool full = row_in && k + kc + ch * (16 / (int)sizeof(T)) < ke;
-        cp_async16_zfill(dst + 64 * i * (F32 ? RAW : ROW) + 64 * c, full ? src + kc : A, full);
+        if constexpr (LN) {  // (a separate statement: the plain one compiles as it did)
+          const T* from = is_a ? ap.a_src(a_row[i], k + kc + ch * VEC) : src + kc;
+          cp_async16_zfill(dst + 64 * i * (F32 ? RAW : ROW) + 64 * c, full ? from : A, full);
+        } else {
+          cp_async16_zfill(dst + 64 * i * (F32 ? RAW : ROW) + 64 * c, full ? src + kc : A, full);
+        }
       }
     }
   };
@@ -315,7 +358,20 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(raw + 64 * i * RAW + 64 * c);
+        float4 v = *reinterpret_cast<const float4*>(raw + 64 * i * RAW + 64 * c);
+        if constexpr (LN) {
+          const int kk = kb + ks * EPR + c * 16 + ch * 4;
+          if (64 * i < BM && 64 * i < a_left && kk < ke) {
+            const int rr = r0 + 64 * i;
+            const float4 g = *reinterpret_cast<const float4*>(ap.scale + kk);
+            const float4 b = *reinterpret_cast<const float4*>(ap.bias + kk);
+            const float mean = ln_mean[rr], rstd = ln_rstd[rr];
+            v.x = (v.x - mean) * rstd * g.x + b.x;
+            v.y = (v.y - mean) * rstd * g.y + b.y;
+            v.z = (v.z - mean) * rstd * g.z + b.z;
+            v.w = (v.w - mean) * rstd * g.w + b.w;
+          }
+        }
         uint4 h, l;
         split_tf32(v.x, h.x, l.x);
         split_tf32(v.y, h.y, l.y);
@@ -324,6 +380,37 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
         *reinterpret_cast<uint4*>(hi + 64 * i * ROW + 64 * c) = h;
         *reinterpret_cast<uint4*>(hi + ROWS * ROW + 64 * i * ROW + 64 * c) = l;
       }
+  };
+  // LN, bf16: normalise this thread's own A chunks of step ks in place
+  // (float32 does it in split_step)
+  auto ln_step = [&](int ks) {
+    if constexpr (LN) {
+      const int k = kb + ks * EPR;
+      unsigned char* tile = smem + (ks % S) * STAGE + ch * 16 + r0 * ROW;
+#pragma unroll
+      for (int i = 0; i < BM / 64; ++i) {
+        if (64 * i >= a_left) continue;
+        const float mean = ln_mean[r0 + 64 * i], rstd = ln_rstd[r0 + 64 * i];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const int kk = k + c * 64 / (int)sizeof(T) + ch * VEC;
+          if (kk >= ke) continue;
+          T* p = reinterpret_cast<T*>(tile + 64 * i * ROW + 64 * c);
+          float v[8];
+          ld8<T>(p, v);
+#pragma unroll
+          for (int h = 0; h < 8; h += 4) {  // four parameters at a time: fewer registers
+            const float4 g = *reinterpret_cast<const float4*>(ap.scale + kk + h);
+            const float4 b = *reinterpret_cast<const float4*>(ap.bias + kk + h);
+            v[h] = (v[h] - mean) * rstd * g.x + b.x;
+            v[h + 1] = (v[h + 1] - mean) * rstd * g.y + b.y;
+            v[h + 2] = (v[h + 2] - mean) * rstd * g.z + b.z;
+            v[h + 3] = (v[h + 3] - mean) * rstd * g.w + b.w;
+          }
+          st8<T>(p, v);
+        }
+      }
+    }
   };
   // the tile of step ks that the fragments come from
   auto tile_of = [&](int ks) -> uint32_t {
@@ -417,8 +504,52 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
     if (s < nk) load(s);
     cp_async_commit();
   }
+  if constexpr (LN) {  // while the first stages land: the rows' statistics
+    constexpr int R = 4;  // rows a warp takes at once, their loads in flight together
+    for (int r0w = warp * R; r0w < BM; r0w += MMA_THREADS / 32 * R) {
+      long long row[R];
+      float s[R], q[R], v[R][8];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        row[r] = m0 + r0w + r < M ? ap.a_row(m0 + r0w + r) : -1;
+        s[r] = q[r] = 0.f;
+      }
+#pragma unroll 2
+      for (int k = 8 * lane; k < K; k += 256) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (row[r] >= 0) ld8<T>(ap.a_src(row[r], k), v[r]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[r] += row[r] >= 0 ? v[r][e] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[r] = warp_sum(s[r]) / (float)K;  // the means
+#pragma unroll 2
+      for (int k = 8 * lane; k < K; k += 256) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (row[r] >= 0) ld8<T>(ap.a_src(row[r], k), v[r]);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float d = row[r] >= 0 ? v[r][e] - s[r] : 0.f;
+            q[r] += d * d;
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float rstd = 1.f / sqrtf(warp_sum(q[r]) / (float)K + ap.eps);
+        if (lane == 0) ln_mean[r0w + r] = row[r] >= 0 ? s[r] : 0.f, ln_rstd[r0w + r] = rstd;
+      }
+    }
+    __syncthreads();
+  }
   cp_async_wait<S - 1>();
   if constexpr (F32) split_step(0);
+  else if constexpr (LN) ln_step(0);
   __syncthreads();
   Frags fa[2], fb;
   load_a(fa[0], tile_of(0), 0);
@@ -434,6 +565,7 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
         if (more) {
           cp_async_wait<S - 2>();  // this thread's copies of step ks + 1 have landed
           if constexpr (F32) split_step(ks + 1);
+          else if constexpr (LN) ln_step(ks + 1);
           __syncthreads();  // step ks + 1 visible; every read of slot ks % S done
           if (ks + S < nk) load(ks + S);
           cp_async_commit();
@@ -508,6 +640,22 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
       }
 }
 
+template <typename T, int BM, int BN, int EPI>
+__global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
+    gemm_mma_kernel(const T* __restrict__ A, const T* __restrict__ W, void* __restrict__ out,
+                    int M, int N, int K, int k_chunk, const T* __restrict__ bias,
+                    const T* __restrict__ rx, const T* __restrict__ ra) {
+  gemm_mma_tile<T, BM, BN, EPI>(A, W, out, M, N, K, k_chunk, bias, rx, ra, MmaPlainA{});
+}
+
+// the same with an LN producer of A (K5)
+template <typename T, int BM, int BN, int EPI, class AP>
+__global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
+    gemm_mma_ln_kernel(const T* __restrict__ A, const T* __restrict__ W, void* __restrict__ out,
+                       int M, int N, int K, int k_chunk, const AP ap) {
+  gemm_mma_tile<T, BM, BN, EPI>(A, W, out, M, N, K, k_chunk, nullptr, nullptr, nullptr, ap);
+}
+
 // fc2's split-K reduction and epilogue: out = (rnd(x + a) + b[n]) + sum_z
 // part[z], the partials added in the order z = 0, 1, ..., nz - 1; one
 // thread eight neighbouring columns
@@ -530,15 +678,25 @@ __global__ void __launch_bounds__(256)
   st8<T>(out + e, o);
 }
 
+template <typename T, int BM, int BN, int EPI, class AP> constexpr auto mma_kernel() {
+  if constexpr (AP::kLN)
+    return gemm_mma_ln_kernel<T, BM, BN, EPI, AP>;
+  else
+    return gemm_mma_kernel<T, BM, BN, EPI>;
+}
+
 // Launch one product with tile BM x BN: grid (N / BN, M / BM, nz), block z
 // over K range [z k_chunk, (z + 1) k_chunk); MMA_WGRAD's A is (K, M) and W
-// its B (K, N). With `info` set, launch nothing and write the kernel's
+// its B (K, N); `ap` produces A (an LN producer: A is only a valid
+// address). With `info` set, launch nothing and write the kernel's
 // resources there (core_util.cuh kernel_info).
-template <typename T, int BM, int BN, int EPI>
+template <typename T, int BM, int BN, int EPI, class AP = MmaPlainA>
 int launch_gemm_mma(const T* A, const T* W, void* out, int M, int N, int K, int k_chunk, int nz,
-                    const T* bias, const T* rx, const T* ra, cudaStream_t stream, int* info) {
-  const auto kernel = gemm_mma_kernel<T, BM, BN, EPI>;
-  const size_t smem = mma_smem_bytes<T, BM, BN, mma_tn<EPI>()>();
+                    const T* bias, const T* rx, const T* ra, cudaStream_t stream, int* info,
+                    const AP& ap = AP()) {
+  const auto kernel = mma_kernel<T, BM, BN, EPI, AP>();
+  // an LN producer's row statistics after the pipeline's buffers
+  const size_t smem = mma_smem_bytes<T, BM, BN, mma_tn<EPI>()>() + (AP::kLN ? 8 * BM : 0);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
@@ -547,26 +705,30 @@ int launch_gemm_mma(const T* A, const T* W, void* out, int M, int N, int K, int 
   if (e != cudaSuccess) return (int)e;
   if (info) return kernel_info(kernel, MMA_THREADS, smem, info);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, nz);
-  kernel<<<grid, MMA_THREADS, smem, stream>>>(A, W, out, M, N, K, k_chunk, bias, rx, ra);
+  if constexpr (AP::kLN)
+    kernel<<<grid, MMA_THREADS, smem, stream>>>(A, W, out, M, N, K, k_chunk, ap);
+  else
+    kernel<<<grid, MMA_THREADS, smem, stream>>>(A, W, out, M, N, K, k_chunk, bias, rx, ra);
   return 0;
 }
 
 // The tile codes of ops/mma_plan.py MMA_TILES: one product with the tile
 // that `tile` names (see launch_gemm_mma). Each .cu file that calls it
 // instantiates the kernels it names.
-template <typename T, int EPI>
+template <typename T, int EPI, class AP = MmaPlainA>
 int gemm_tile(int tile, const T* A, const T* W, void* out, int M, int N, int K, int k_chunk,
-              int nz, const T* bias, const T* rx, const T* ra, cudaStream_t s, int* info) {
+              int nz, const T* bias, const T* rx, const T* ra, cudaStream_t s, int* info,
+              const AP& ap = AP()) {
   switch (tile) {
     case 0:  // bf16 C = A W^T only: float32's would hold one block an SM,
              // and bf16 C = A^T B's address arithmetic spills at 128 registers
       if constexpr (!mma_f32<T>() && !mma_tn<EPI>())
-        return launch_gemm_mma<T, 128, 128, EPI>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra,
-                                                 s, info);
+        return launch_gemm_mma<T, 128, 128, EPI, AP>(A, W, out, M, N, K, k_chunk, nz, bias, rx,
+                                                     ra, s, info, ap);
       break;
     case 1:
-      return launch_gemm_mma<T, 64, 128, EPI>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra, s,
-                                              info);
+      return launch_gemm_mma<T, 64, 128, EPI, AP>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra,
+                                                  s, info, ap);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -9,101 +9,128 @@
 // pad stays in the caller, models/swin.py PatchMerging), output
 // (B, H/2, W/2, out_c); the reduction weight is the nn.Linear (out_c, 4C).
 //
-// Bound on the card: the reduction GEMM (2 * 4C * out_c flops per output
-// token) runs on the tensor cores (gemm.cuh, A @ W^T); the gather + LN is
-// bandwidth-bound (one read of the raster, one write of the LN rows).
-// Design: two launches. One block of 128 threads per output token gathers
-// its four input tokens (coalesced along the channels), keeps the 4C values
-// in registers (<= 32 per thread) for the mean and then the two-pass
-// variance (the one-pass E[x^2] - mean^2 form cancels in float32,
-// merge.py:44-49) and writes the LN row in the compute dtype; the GEMM sums
-// the four segments' products in one float32 accumulator (merge.py:51-58
-// sums four float32 partial products; the order of the float32 sum
-// differs). The (B*H/2*W/2, 4C) LN rows round-trip device memory (the TPU
-// kernel kept them in VMEM; fusing the gather into the GEMM's A-tile load
-// is later work).
+// Bound on the card: the reduction, 2 * 4C * out_c operations per output
+// token, against the bytes of one read of x and one write of the output.
+// Design: one GEMM on gemm_mma.cuh (mma.sync tensor-core tiles fed by a
+// 3-stage cp.async ring; float32 as 3xTF32) whose A operand MergeA
+// produces from x, so the (B*H/2*W/2, 4C) LN rows never reach device
+// memory (the TPU kernel kept them in VMEM, merge.py:37-60):
+//   - the gather at copy time: A's 16-byte chunk at column k of row m =
+//     (b, i, j) is x[b, 2i + (s & 1), 2j + (s >> 1), k % C], s = k / C
+//     (C % 8 == 0: a chunk lies inside one segment);
+//   - a block prologue takes each of its rows' float32 mean and rstd over
+//     the full 4C (a warp a row, two passes over x, the second from L1 /
+//     L2), and each thread normalises the chunks it copied in shared
+//     memory before the tensor cores read them, rounded to the compute
+//     dtype: the plain version's LN rows, up to the order of the
+//     statistics' float32 sums;
+//   - the epilogue rounds the float32 accumulator once (MMA_ROUND). Where
+//     ops/mma_plan.py gemm_plan(split=True) cuts K (too few tiles for the
+//     SMs), the blocks write float32 partials (MMA_PART), each taking its
+//     rows' statistics over the full 4C, and sum_round_kernel adds them in
+//     the order z = 0, 1, ... and rounds (two calls give the same bits).
+//     On the H100's 132 SMs at swin-base@512's merges (1->2, 2->3, 3->4):
+//     batch 2 takes 64 x 128 tiles, unsplit, then K cut in 2 and in 3
+//     (bf16 and float32 alike); batch 5 (training, float32) and batch 16
+//     (zonal, bf16) run one launch each, unsplit. The tile is 64 x 128 in
+//     both dtypes (ops/merge.py MERGE_TILES: at 128 x 128 the producer's
+//     bf16 kernel spilled 64 bytes past the 128 registers of two blocks an
+//     SM).
 #include "common.cuh"
-#include "gemm.cuh"
+#include "gemm_mma.cuh"
 
 namespace flair {
 
-constexpr int MERGE_THREADS = 128;
-constexpr int MERGE_MAXV = 32;  // 4C <= 4096
+// A of the merge's reduction: row m = (b, i, j) of the (B, H/2, W/2) grid,
+// the LayerNorm of x's 2x2 neighbourhood, 4C long
+template <typename T> struct MergeA {
+  static constexpr bool kLN = true;
+  const T* x;
+  const float* scale;
+  const float* bias;
+  int H, W, C;
+  float eps;
 
-__device__ __forceinline__ float block_sum_128(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  __syncthreads();  // red is reused between calls
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  return red[0] + red[1] + red[2] + red[3];
+  // element offset of x[b, 2i, 2j, 0]
+  __device__ __forceinline__ long long a_row(int m) const {
+    const int w2 = W / 2, hw2 = (H / 2) * w2;
+    const int b = m / hw2, rem = m - b * hw2;
+    const int i = rem / w2, j = rem - i * w2;
+    return (((long long)b * H + 2 * i) * W + 2 * j) * C;
+  }
+  // segment s of k: [x00, x10, x01, x11] = rows + (s & 1), columns + (s >> 1)
+  __device__ __forceinline__ const T* a_src(long long row, int k) const {
+    const int s = (k >= C) + (k >= 2 * C) + (k >= 3 * C);
+    return x + row + ((long long)(s & 1) * W + (s >> 1)) * C + (k - s * C);
+  }
+};
+
+// out = rnd(sum_z part[z]), the partials added in the order z = 0, 1, ...;
+// one thread eight neighbouring values
+template <typename T>
+__global__ void __launch_bounds__(256)
+    sum_round_kernel(const float* __restrict__ part, int nz, long long mn, T* __restrict__ out) {
+  const long long e = 8 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= mn) return;
+  float s[8], p[8];
+  ld8<float>(part + e, s);
+  for (int z = 1; z < nz; ++z) {
+    ld8<float>(part + z * mn + e, p);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s[c] += p[c];
+  }
+  st8<T>(out + e, s);
 }
+
+namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(MERGE_THREADS)
-merge_ln_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                const float* __restrict__ bias, T* __restrict__ ln, int H, int W, int C,
-                float eps) {
-  __shared__ float red[4];
-  const int h2 = H / 2, w2 = W / 2;
-  const long long tok = blockIdx.x;
-  const long long b = tok / ((long long)h2 * w2);
-  const int rem = (int)(tok % ((long long)h2 * w2));
-  const int i = rem / w2, j = rem % w2;
-  const int C4 = 4 * C;
-  float v[MERGE_MAXV];
-  float sum = 0.f;
-#pragma unroll
-  for (int k = 0; k < MERGE_MAXV; ++k) {
-    const int q = threadIdx.x + MERGE_THREADS * k;
-    v[k] = 0.f;
-    if (q < C4) {
-      const int seg = q / C, ch = q % C;
-      const int r = 2 * i + (seg & 1), c = 2 * j + (seg >> 1);  // [x00, x10, x01, x11]
-      v[k] = to_f<T>(x[((b * H + r) * (long long)W + c) * C + ch]);
-      sum += v[k];
-    }
-  }
-  const float mean = block_sum_128(sum, red) / (float)C4;
-  float sq = 0.f;
-#pragma unroll
-  for (int k = 0; k < MERGE_MAXV; ++k) {
-    const int q = threadIdx.x + MERGE_THREADS * k;
-    if (q < C4) {
-      const float d = v[k] - mean;
-      sq += d * d;
-    }
-  }
-  const float rstd = 1.f / sqrtf(block_sum_128(sq, red) / (float)C4 + eps);
-  T* dst = ln + tok * C4;
-#pragma unroll
-  for (int k = 0; k < MERGE_MAXV; ++k) {
-    const int q = threadIdx.x + MERGE_THREADS * k;
-    if (q < C4) dst[q] = from_f<T>((v[k] - mean) * rstd * scale[q] + bias[q]);
-  }
+int merge_impl(const void* x, const void* lns, const void* lnb, const void* w, void* part,
+               void* out, int b, int h, int wd, int c, int out_c, int tile, int k_chunk, int nz,
+               float eps, cudaStream_t s, int* info) {
+  const int m = b * (h / 2) * (wd / 2);
+  const MergeA<T> ap{(const T*)x, (const float*)lns, (const float*)lnb, h, wd, c, eps};
+  if (nz == 1)
+    return gemm_tile<T, MMA_ROUND>(tile, (const T*)x, (const T*)w, out, m, out_c, 4 * c, 4 * c, 1,
+                                   nullptr, nullptr, nullptr, s, info, ap);
+  const int e = gemm_tile<T, MMA_PART>(tile, (const T*)x, (const T*)w, part, m, out_c, 4 * c,
+                                       k_chunk, nz, nullptr, nullptr, nullptr, s, info, ap);
+  if (e || info) return e;
+  const long long mn = (long long)m * out_c;
+  sum_round_kernel<T><<<(unsigned)((mn / 8 + 255) / 256), 256, 0, s>>>((const float*)part, nz,
+                                                                        mn, (T*)out);
+  return 0;
 }
 
-template <typename T>
-int merge_impl(const void* x, const void* lns, const void* lnb, const void* w, void* ln,
-               void* out, int b, int h, int wd, int c, int out_c, float eps, cudaStream_t s) {
-  const long long m = (long long)b * (h / 2) * (wd / 2);
-  merge_ln_kernel<T><<<(unsigned)m, MERGE_THREADS, 0, s>>>((const T*)x, (const float*)lns,
-                                                           (const float*)lnb, (T*)ln, h, wd, c,
-                                                           eps);
-  launch_gemm<T, EPI_NONE>((const T*)ln, (const T*)w, out, (int)m, out_c, 4 * c, nullptr,
-                           nullptr, s);
-  return (int)cudaGetLastError();
-}
+}  // namespace
 
 }  // namespace flair
 
 using namespace flair;
 
+// tile, k_chunk, nz: ops/mma_plan.py gemm_plan(m, out_c, 4c, split=True);
+// part: the float32 partials (nz x m x out_c) when nz > 1, else unused
 extern "C" int merge_fwd(const void* x, const void* ln_scale, const void* ln_bias,
-                         const void* w_red, void* ln, void* out, int b, int h, int w, int c,
-                         int out_c, float eps, int dtype, void* stream) {
+                         const void* w_red, void* part, void* out, int b, int h, int w, int c,
+                         int out_c, int tile, int k_chunk, int nz, float eps, int dtype,
+                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return merge_impl<float>(x, ln_scale, ln_bias, w_red, ln, out, b, h, w, c, out_c, eps, s);
-  return merge_impl<bf16>(x, ln_scale, ln_bias, w_red, ln, out, b, h, w, c, out_c, eps, s);
+  const int e =
+      dtype == 0
+          ? merge_impl<float>(x, ln_scale, ln_bias, w_red, part, out, b, h, w, c, out_c, tile,
+                              k_chunk, nz, eps, s, nullptr)
+          : merge_impl<bf16>(x, ln_scale, ln_bias, w_red, part, out, b, h, w, c, out_c, tile,
+                             k_chunk, nz, eps, s, nullptr);
+  return e ? e : (int)cudaGetLastError();
+}
+
+// the resources of the merge's GEMM kernel with tile code `tile`, unsplit
+// (split 0: MMA_ROUND) or split (1: MMA_PART), in `dtype`: out = int[4]
+// registers, local bytes, shared bytes, blocks per SM
+extern "C" int merge_info(int dtype, int tile, int split, int* out) {
+  const int nz = split ? 2 : 1;
+  return dtype == 0 ? merge_impl<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0,
+                                        2, 2, 8, 8, tile, 8, nz, 0.f, 0, out)
+                    : merge_impl<bf16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0, 2,
+                                       2, 8, 8, tile, 8, nz, 0.f, 0, out);
 }

@@ -35,8 +35,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: name -> argtypes (all return int = cudaError_t)
 _SIGNATURES = {
-    # x, scale, bias, out, b, h, w, c, ws, ss, eps, dtype, stream
-    "prep_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, scale, bias, out, b, h, w, c, ws, ss, eps, g, v, run, blocks,
+    # dtype, stream
+    "prep_fwd": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # dtype, g, v, out (int[4]: registers, local bytes, shared bytes,
+    # blocks per SM)
+    "prep_info": [_I] * 3 + [_P],
     # x, wqkv, bqkv, wproj, bproj, bias, qkv, o, out,
     # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, tile_qkv, tile_proj, dtype,
     # stream
@@ -58,9 +62,12 @@ _SIGNATURES = {
     # logits, row_lo, row_hi, row_w_lo, row_w_hi, col_lo, col_hi, col_w_lo,
     # col_w_hi, out, b, k, h4, w4, inner, class_prob, dtype, stream
     "epilogue_fwd": [_P] * 10 + [_I] * 7 + [_P],
-    # x, ln_scale, ln_bias, w_red, ln, out, b, h, w, c, out_c, eps, dtype,
-    # stream
-    "merge_fwd": [_P] * 6 + [_I] * 5 + [_F, _I, _P],
+    # x, ln_scale, ln_bias, w_red, part, out, b, h, w, c, out_c, tile,
+    # k_chunk, nz, eps, dtype, stream
+    "merge_fwd": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    # dtype, tile, split, out (int[4]: registers, local bytes, shared
+    # bytes, blocks per SM)
+    "merge_info": [_I] * 3 + [_P],
     # x, g, wqkv, bqkv, wqkv_t, wproj_t, bias, qkv, do, o, dqkv, dbias_part,
     # dbqkv_part, wpart, dx, dwqkv, dbqkv, dwproj, dbproj, dbias,
     # bnw, t, c, nh, ws, ss, nwh, nww, attn_f32, n_groups, tile_qkv,
@@ -190,6 +197,17 @@ def aligned(t):
     import torch
 
     return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+
+
+def param(p, device, dtype):
+    """A kernel's view of a parameter: ``p`` itself where it already lies
+    on ``device`` in ``dtype``, contiguous and 16-byte aligned (the
+    models' parameters, call after call: no copy and no new tensor), else
+    an aligned contiguous copy there."""
+    if (p.device == device and p.dtype == dtype and p.is_contiguous()
+            and p.data_ptr() % 16 == 0):
+        return p
+    return aligned(p.detach().to(device, dtype).contiguous())
 
 
 def check(rc: int, name: str) -> None:

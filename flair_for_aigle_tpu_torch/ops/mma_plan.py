@@ -12,6 +12,8 @@ computes the same qkv.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 #: the GEMM's tiles (rows of A, rows of W a block), by tile code
@@ -39,10 +41,11 @@ def _ceil(a: int, b: int) -> int:
 
 
 def gemm_plan(m: int, n: int, k: int, n_sm: int, dtype,
-              split: bool = False) -> tuple[int, int, int]:
+              split: bool = False, codes=None) -> tuple[int, int, int]:
     """(tile code, k_chunk, partials) of one product C (m, n) = A (m, k)
     W^T in ``dtype`` on a card of ``n_sm`` SMs: the largest tile of
-    ``PLAN_TILES[dtype]`` that gives every SM a block, at the full K.
+    the tile codes ``codes`` (by default ``PLAN_TILES[dtype]``) that gives
+    every SM a block, at the full K.
     Where even the smallest tile does not and ``split`` is set (K3's fc2),
     K is cut into the fewest chunks of whole pipeline steps
     (``K_STEP[dtype]`` elements, at least ``MIN_STEPS`` of them a chunk)
@@ -50,7 +53,7 @@ def gemm_plan(m: int, n: int, k: int, n_sm: int, dtype,
     and the partials are added in the order z = 0, 1, ... (a fixed order:
     two calls give the same bits). Without ``split`` the smallest tile
     runs at the full K."""
-    for code in PLAN_TILES[dtype]:
+    for code in PLAN_TILES[dtype] if codes is None else codes:
         bm, bn = MMA_TILES[code]
         tiles = _ceil(m, bm) * _ceil(n, bn)
         if tiles >= n_sm:
@@ -83,6 +86,7 @@ def wgrad_plan(m: int, n: int, k: int, n_sm: int, dtype) -> tuple[int, int, int]
     return code, k_chunk, _ceil(k, k_chunk)
 
 
+@functools.lru_cache(maxsize=None)
 def n_sm(device) -> int:
-    """The SM count of a CUDA device."""
+    """The SM count of a CUDA device (asked once per device)."""
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -22,8 +22,10 @@ calls per step]}, however small; ``ffn_gemms``: K3's two products
 output projections and K6's qkv recompute; ``bwd_gemms``: ``gemm_mma_kernel``
 with the rounding and weight-gradient epilogues, K6's do, dx, dWproj and
 dWqkv (``gemm_tallies`` splits them by the kernel's epilogue template
-argument); and ``gemm_cuh_gemms``: every launch of ``csrc/gemm.cuh``'s
-``gemm_kernel`` (K5, and K7 and K8 under their switches). ``FLAIR_FFN_BWD`` and
+argument); ``merge_gemms``: K5's ``gemm_mma_ln_kernel`` (the reduction
+with the gathering LayerNorm producer of A, and ``sum_round_kernel`` where
+it cuts K); and ``gemm_cuh_gemms``: every launch of ``csrc/gemm.cuh``'s
+``gemm_kernel`` (K7 and K8 under their switches). ``FLAIR_FFN_BWD`` and
 ``FLAIR_SWIN_FINISH`` are read as in training. Runs on the card unless
 ``--device cpu`` asks for the CPU (the plain versions; no device lines).
 """
@@ -87,13 +89,17 @@ def gemm_tallies(rows) -> dict:
     """``rows``: (kernel name, ms per step, calls per step) of the device
     kernels. Returns {"ffn_gemms": K3's products, "attn_gemms": K2's and K6's
     bias products, "bwd_gemms": K6's do, dx and weight gradients,
-    "gemm_cuh_gemms": gemm.cuh's kernel}, each {name[:90]: [ms, calls]}:
-    ``gemm_mma_kernel`` by its epilogue template argument,
-    ``resid_sum_kernel`` (fc2's split-K sum) to K3."""
-    out: dict = {"ffn_gemms": {}, "attn_gemms": {}, "bwd_gemms": {}, "gemm_cuh_gemms": {}}
+    "merge_gemms": K5's reduction, "gemm_cuh_gemms": gemm.cuh's kernel},
+    each {name[:90]: [ms, calls]}: ``gemm_mma_kernel`` by its epilogue
+    template argument, ``resid_sum_kernel`` (fc2's split-K sum) to K3,
+    ``gemm_mma_ln_kernel`` and ``sum_round_kernel`` to K5."""
+    out: dict = {"ffn_gemms": {}, "attn_gemms": {}, "bwd_gemms": {}, "merge_gemms": {},
+                 "gemm_cuh_gemms": {}}
     for name, ms, calls in rows:
         if "resid_sum_kernel" in name:
             key = "ffn_gemms"
+        elif "gemm_mma_ln_kernel<" in name or "sum_round_kernel<" in name:
+            key = "merge_gemms"
         elif "gemm_kernel<" in name:
             key = "gemm_cuh_gemms"
         else:

@@ -30,7 +30,11 @@ two blocks per SM. K6's do, dx and weight-gradient products alone
 float64 product on ragged shapes, twice bit-identical, their kernels
 without spill at two blocks per SM. The A/B kernels at swin-base's four
 stage geometries at batch 16 (bw 1 and 4), and their residency: no spill,
-three blocks per SM per head, two grouped.
+three blocks per SM per head, two grouped. K1 (16-byte lane groups) and
+K5 (one gemm_mma.cuh launch whose A is gathered and normalised as it
+lands) at swin-base's stage geometries and ragged shapes, twice
+bit-identical; K1's kernel at every swin width and K5's GEMM at every tile
+without spill at the blocks per SM their launch bounds promise.
 """
 
 import pytest
@@ -72,20 +76,39 @@ def _assert_close(got, want, dtype, bf16_ulps=4):
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+# swin-base@512's four stages, then ragged shapes: H and W not multiples of
+# the window, C = 96, no shift, C = 32 (two tokens a warp in float32)
+PREP_GEOMS = [(128, 128, 128, 12, 6), (64, 64, 256, 12, 6), (32, 32, 512, 12, 6),
+              (16, 16, 1024, 12, 6), (20, 28, 128, 12, 6), (8, 8, 256, 8, 0), (6, 6, 96, 4, 2),
+              (13, 17, 96, 12, 0), (7, 5, 32, 4, 3)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("h,w,c,ws,ss", [(20, 28, 128, 12, 6), (8, 8, 256, 8, 0),
-                                         (6, 6, 96, 4, 2)])
+@pytest.mark.parametrize("h,w,c,ws,ss", PREP_GEOMS)
 def test_prep_kernel(dev, dtype, h, w, c, ws, ss):
+    """K1 on an odd batch against its plain version (one bf16 unit; float32
+    1e-4 of the largest magnitude), two calls bit-identical."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn((3, h, w, c), generator=g, device=dev).to(dtype)
     s = torch.randn(c, generator=g, device=dev) * 0.1 + 1
     b = torch.randn(c, generator=g, device=dev) * 0.1
     prep.fused_ln_shift_partition.launches = 0
     got = prep.fused_ln_shift_partition(x, s, b, ws=ws, ss=ss)
+    again = prep.fused_ln_shift_partition(x, s, b, ws=ws, ss=ss)
     want = prep.fused_ln_shift_partition_reference(x, s, b, ws=ws, ss=ss)
     torch.cuda.synchronize()
-    assert prep.fused_ln_shift_partition.launches == 1
+    assert prep.fused_ln_shift_partition.launches == 2
+    assert torch.equal(got, again)
     _assert_close(got, want, dtype, bf16_ulps=1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [32, 96, 128, 192, 256, 384, 512, 768, 1024])
+def test_prep_resources(dev, dtype, c):
+    """K1's kernel at each width spills nothing and keeps at least the
+    blocks per SM its launch bounds promise (the plan's wave)."""
+    info = prep.prep_info(c, dtype)
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= info["min_blocks"], info
 
 
 # (window, shift, window grid, C, heads): T = 144, 64, 16 and 4
@@ -328,10 +351,19 @@ def test_swin_micro_model_on_the_card_matches_cpu(dev):
     _assert_close(got, want, torch.float32)
 
 
+# swin-base@512's three merges on an odd batch, stage 3->4 at batch 2 (the
+# plan cuts K in 3), and ragged shapes (C = 96, rows not a tile multiple)
+MERGE_GEOMS = [((3, 128, 128, 128), 256), ((3, 64, 64, 256), 512), ((3, 32, 32, 512), 1024),
+               ((2, 32, 32, 512), 1024), ((2, 16, 16, 128), 256), ((1, 8, 12, 96), 192),
+               ((3, 6, 6, 512), 1024), ((3, 10, 6, 96), 192)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape,out_c", [((2, 16, 16, 128), 256), ((1, 8, 12, 96), 192),
-                                         ((3, 6, 6, 512), 1024)])
+@pytest.mark.parametrize("shape,out_c", MERGE_GEOMS)
 def test_merge_kernel(dev, dtype, shape, out_c):
+    """K5 (one GEMM whose A is gathered and normalised as it lands, the
+    split-K partials summed in a fixed order) against its plain version,
+    two calls bit-identical."""
     g = torch.Generator(device=dev).manual_seed(4)
     c = shape[-1]
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -340,10 +372,22 @@ def test_merge_kernel(dev, dtype, shape, out_c):
          torch.randn((out_c, 4 * c), generator=g, device=dev) * (4 * c) ** -0.5)
     merge.fused_patch_merge.launches = 0
     got = merge.fused_patch_merge(x, *p)
+    again = merge.fused_patch_merge(x, *p)
     want = merge.fused_patch_merge_reference(x, *p)
     torch.cuda.synchronize()
-    assert merge.fused_patch_merge.launches == 1
+    assert merge.fused_patch_merge.launches == 2
+    assert torch.equal(got, again)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_merge_resources(dev, dtype):
+    """No tile of K5's GEMM (gemm_mma.cuh with the LayerNorm producer),
+    split or not, spills, and every one holds two blocks per SM."""
+    info = merge.merge_info(dtype)
+    assert len(info) == 2 * len(merge.MERGE_TILES), info
+    for name, i in info.items():
+        assert i["spill_bytes"] == 0 and i["blocks_per_sm"] >= 2, (name, i)
 
 
 def _assert_grads_close(got, want, dtype):

@@ -36,8 +36,9 @@ def test_gemm_tallies_split_the_tensor_core_gemm_by_its_epilogue():
     codes 0-2, with resid_sum_kernel), K2's and K6's projections (the bias
     epilogue, code 3) and K6's do, dx and weight gradients (the rounding
     and weight-gradient epilogues, codes 4 and 5): each lands in its own
-    tally, gemm.cuh's gemm_kernel in a fourth; other kernels in none, and
-    an unknown epilogue raises."""
+    tally, K5's gemm_mma_ln_kernel (its LayerNorm producer) in a fourth,
+    gemm.cuh's gemm_kernel in a fifth; other kernels in none, and an
+    unknown epilogue raises."""
     rows = [("void flair::gemm_mma_kernel<float, 64, 128, 0>(float const*, float const*)", 3.0, 24),
             ("void flair::gemm_mma_kernel<float, 64, 128, 1>(float const*, float const*)", 2.0, 20),
             ("void flair::gemm_mma_kernel<__nv_bfloat16, 128, 128, 2>(__nv_bfloat16 const*)",
@@ -48,13 +49,17 @@ def test_gemm_tallies_split_the_tensor_core_gemm_by_its_epilogue():
             ("void flair::gemm_mma_kernel<float, 64, 128, 4>(float const*, float const*)", 7.0, 48),
             ("void flair::gemm_mma_kernel<float, 64, 128, 5>(float const*, float const*)", 6.0, 48),
             ("void flair::attn_core_f32_kernel<9>(float const*)", 1.8, 24),
+            ("void flair::gemm_mma_ln_kernel<float, 64, 128, 4, flair::MergeA<float> >"
+             "(float const*)", 0.5, 3),
             ("void flair::sum_partials_kernel(float const*, float*, long long, int)", 0.4, 96)]
     out = tool.gemm_tallies(rows)
-    assert sorted(out) == ["attn_gemms", "bwd_gemms", "ffn_gemms", "gemm_cuh_gemms"]
+    assert sorted(out) == ["attn_gemms", "bwd_gemms", "ffn_gemms", "gemm_cuh_gemms",
+                           "merge_gemms"]
     assert [k[:40] for k in out["attn_gemms"]] == [rows[4][0][:40]]
     assert list(out["attn_gemms"].values()) == [[9.0, 72]]
     assert sorted(v[1] for v in out["ffn_gemms"].values()) == [4, 4, 20, 24]
     assert list(out["bwd_gemms"].values()) == [[7.0, 48], [6.0, 48]]
     assert list(out["gemm_cuh_gemms"].values()) == [[1.5, 3]]
+    assert list(out["merge_gemms"].values()) == [[0.5, 3]]
     with pytest.raises(ValueError, match="unknown epilogue"):
         tool.gemm_tallies([("void flair::gemm_mma_kernel<float, 64, 128, 7>(float const*)", 1, 1)])
