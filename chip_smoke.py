@@ -8,11 +8,19 @@ Phases, one printed line each (any failure raises and exits non-zero):
 1. environment: the card (name and power limit from nvidia-smi), TF32 off;
 2. build: compile the CUDA kernels under flair_for_aigle_tpu_torch/csrc/;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the swin-base@512 shapes (batch 2): K1-K4 at the zonal path's stages,
-   K5 (patch merge) at the three merge transitions, K6 (attention
-   backward, plain version: autograd through the plain forward), K7 (ffn
-   backward) and K8 (fused finish, with the real shift) at the four stages,
-   in bf16 and float32, both softmax modes; max and median error against
+   the swin-base@512 shapes (batch 2): K1-K3 at the zonal path's stages,
+   K4 (zonal epilogue) on (B, 19, 128, 128) logits at batch 2 and at the
+   zonal batch 16, both output types, K5 (patch merge) at the three merge
+   transitions, K6 (attention backward, plain version: autograd through
+   the plain forward), K7 (ffn backward) and K8 (fused finish, with the
+   real shift) at the four stages, in bf16 and float32, both softmax
+   modes; K4 and K8 twice bit-identical, with their CUDA-event and device
+   times (``tools/time_finish_epilogue.py``) beside yardsticks as device
+   time (K8: K3 on the same shortcut and gathered rows, and its two
+   products through cuBLAS; K4: ``F.interpolate`` of the logits alone),
+   and their kernels' resources (K4's at the zonal geometry, no spill in
+   its argmax kernel; K8's gather pass at each stage's C, no spill, the
+   blocks per SM it promises); max and median error against
    the stated bound, kernel and plain times (CUDA events, median of 20)
    and each kernel's bound (the larger of its bytes over 3.35 TB/s and its
    operations over the peak for its dtype); the A/B tool's two
@@ -910,6 +918,145 @@ def prep_merge_line(stats, op, batch, hw, c, args, bound) -> None:
         st[key] = st.get(key, 0.0) + t[key]
 
 
+def finish_line(stats, hw, c, dtype, randn, bound, ffn_params) -> None:
+    """K8 at one stage for 2 tiles, window 12, shift 6, in ``dtype``:
+    against its plain version (K3's bounds: 4 bf16 units, float32 1e-4 of
+    the largest magnitude), two calls bit-identical, and
+    ``tools/time_finish_epilogue.py``'s ``finish_times``: kernel and plain
+    by CUDA events and as device time, beside K3 on the same shortcut and
+    gathered rows and the two products alone through cuBLAS (``F.linear``
+    twice, same dtype, TF32 off), as device time. Sums: bf16 in
+    ``stats["finish"]``, float32 in ``stats["finish_f32"]``."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import finish
+    from flair_for_aigle_tpu_torch.tools.time_finish_epilogue import finish_times
+
+    bf = dtype == torch.bfloat16
+    dts = "bf16" if bf else "f32"
+    nwh = -(-hw // WS)
+    win = randn(2 * nwh * nwh, T, c, dtype=dtype)
+    x = randn(2, hw, hw, c, dtype=dtype)
+    fp = ffn_params(c)
+    kw = dict(ws=WS, ss=SS)
+    tag = f"B2 {hw}x{hw}x{c} ws{WS} ss{SS} {dts}"
+    got = finish.fused_reverse_ln_mlp_residual(win, x, *fp, **kw)
+    again = finish.fused_reverse_ln_mlp_residual(win, x, *fp, **kw)
+    want = finish.fused_reverse_ln_mlp_residual_reference(win, x, *fp, **kw)
+    same = torch.equal(got, again)
+    say("kernel", f"finish {tag}: repeat {'bit-identical ok' if same else 'DIFFERS FAIL'}")
+    if not same:
+        raise AssertionError(f"finish {tag}: two calls differ")
+    t = finish_times(win, x, fp)
+    cost = (*cost_finish(2, hw, c, 2 if bf else 4), dts)
+    x3 = (*cost[:2], "tf32x3")  # the same work at 3xTF32's effective rate
+    note = (f"; device time kernel {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms, "
+            f"K3 on the gathered rows {t['ffn_device_ms']:.4f} ms, cuBLAS products (F.linear "
+            f"x2, {dts}) {t['cublas_device_ms']:.4f} ms"
+            + ("" if bf else f"; at 3xTF32's 165 TFLOP/s {_bound_text(x3)}"))
+    _compare("finish", tag, got, want, bound(want, dtype, 4, 1e-4), t["ms"], t["plain_ms"], stats,
+             cost, note=note)
+    name = "finish" if bf else "finish_f32"
+    _add_time(stats, name, t["ms"], t["plain_ms"], cost)
+    st = stats[name]
+    for key in ("device_ms", "plain_device_ms", "ffn_device_ms", "cublas_device_ms"):
+        st[key] = st.get(key, 0.0) + t[key]
+    if not bf:
+        st["bound_3xtf32_ms"] = st.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
+
+
+def epilogue_line(stats, lg, output_type) -> None:
+    """K4 on stride-4 logits lg (B, 19, 128, 128), margin 40, against its
+    plain version (argmax: at most 1e-4 of the pixels differ, where the
+    kernel's two-tap sums and the plain matmuls round apart at near-ties;
+    class_prob: one uint8 step), two calls bit-identical, and
+    ``tools/time_finish_epilogue.py``'s ``epilogue_times``: kernel and
+    plain by CUDA events and as device time, beside ``F.interpolate`` of
+    the logits to full resolution (a yardstick: no crop, no conversion) as
+    device time. Sums in bf16: argmax at batch 2 in ``stats["epilogue"]``
+    (the entry's own), at the zonal batch in ``["epilogue_b16"]``;
+    class_prob in ``["epilogue_class_prob"]`` and ``["epilogue_class_prob_b16"]``."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import epilogue
+    from flair_for_aigle_tpu_torch.tools.time_finish_epilogue import MARGIN, epilogue_times
+
+    batch, bf = lg.shape[0], lg.dtype == torch.bfloat16
+    dts = "bf16" if bf else "f32"
+    ekw = dict(margin=MARGIN, scale=4, output_type=output_type)
+    got = epilogue.upsample_crop_convert(lg, **ekw)
+    again = epilogue.upsample_crop_convert(lg, **ekw)
+    want = epilogue.upsample_crop_convert_reference(lg, **ekw)
+    tag = f"({batch},{N_CLASSES},128,128) m{MARGIN} {dts} {output_type}"
+    same = torch.equal(got, again)
+    say("kernel", f"epilogue {tag}: repeat {'bit-identical ok' if same else 'DIFFERS FAIL'}")
+    if not same:
+        raise AssertionError(f"epilogue {tag}: two calls differ")
+    t = epilogue_times(lg, output_type)
+    cost = (*cost_epilogue(batch, N_CLASSES, 128, MARGIN, 2 if bf else 4,
+                           1 if output_type == "argmax" else N_CLASSES), dts)
+    note = (f"; device time kernel {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms, "
+            f"F.interpolate alone {t['interpolate_device_ms']:.4f} ms")
+    if output_type == "argmax":
+        frac = (got != want).float().mean().item()
+        say("kernel", f"epilogue {tag}: differing pixels {frac:.2e} bound 1.0e-04 "
+            f"{'ok' if frac <= 1e-4 else 'FAIL'}; kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, {_bound_text(cost)}{note}")
+        if frac > 1e-4:
+            raise AssertionError(f"epilogue {tag}: {frac} of pixels differ")
+        _stat(stats, "epilogue")
+    else:
+        _compare("epilogue", tag, got.int(), want.int(), 1.0, t["ms"], t["plain_ms"], stats,
+                 cost, note=note)
+    if not bf:
+        return
+    name = "epilogue" + ("" if output_type == "argmax" else "_class_prob") + (
+        "" if batch == 2 else f"_b{batch}")
+    _add_time(stats, name, t["ms"], t["plain_ms"], cost)
+    st = stats[name]
+    for key in ("device_ms", "plain_device_ms", "interpolate_device_ms"):
+        st[key] = st.get(key, 0.0) + t[key]
+
+
+def finish_epilogue_info_lines(stats) -> None:
+    """K4's kernels at the zonal geometry (19 classes, 128 px, margin 40)
+    in both dtypes and output types, and K8's gather pass at each stage's C
+    in both dtypes: registers, spill bytes, shared bytes, blocks per SM.
+    Raises on a spill in K4's argmax kernel or in the gather pass, and on a
+    gather pass below the blocks per SM its launch bounds promise."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import epilogue, finish
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dts = "bf16" if dtype == torch.bfloat16 else "f32"
+        for output_type in ("argmax", "class_prob"):
+            i = epilogue.epilogue_info(N_CLASSES, dtype, output_type)
+            say("kernel", f"epilogue {dts} {output_type} ({i['tr']} rows x {i['gt']} groups of "
+                f"{i['p']} pixels a block): {i['regs']} registers, {i['spill_bytes']} spill "
+                f"bytes, {i['shared_bytes']} shared bytes per block, {i['blocks_per_sm']} "
+                f"blocks per SM (bound: 0 spill bytes in the argmax kernel)")
+            if output_type == "argmax" and i["spill_bytes"] > 0:
+                raise AssertionError(f"epilogue {dts} argmax spills: {i}")
+            if output_type == "argmax" and dtype == torch.bfloat16:
+                stats["epilogue"]["info"] = i
+        worst = {"gather_spill_bytes": 0, "gather_max_regs": 0, "gather_min_blocks_per_sm": 99}
+        for (_, c, _) in STAGES:
+            i = finish.finish_info(c, dtype)
+            say("kernel", f"finish gather C{c} {dts} ({i['g']} lanes a token, {i['v']} x 16 bytes "
+                f"a lane): {i['regs']} registers, {i['spill_bytes']} spill bytes, "
+                f"{i['shared_bytes']} shared bytes per block, {i['blocks_per_sm']} blocks per "
+                f"SM (bound: 0 spill bytes, >= {i['min_blocks']} blocks per SM)")
+            if i["spill_bytes"] > 0 or i["blocks_per_sm"] < i["min_blocks"]:
+                raise AssertionError(f"finish gather C{c} {dts} spills or misses its residency: {i}")
+            worst["gather_spill_bytes"] = max(worst["gather_spill_bytes"], i["spill_bytes"])
+            worst["gather_max_regs"] = max(worst["gather_max_regs"], i["regs"])
+            worst["gather_min_blocks_per_sm"] = min(worst["gather_min_blocks_per_sm"],
+                                                    i["blocks_per_sm"])
+        if dtype == torch.bfloat16:
+            stats["finish"]["info"] = worst
+
+
 def prep_merge_info_lines(stats) -> None:
     """K1's kernel at each stage's C (registers, spill bytes, shared bytes,
     blocks per SM; raises on a spill or below the blocks per SM its launch
@@ -1145,14 +1292,7 @@ def phase_kernels() -> dict:
 
     from flair_for_aigle_tpu_torch.tools.time_window_attn import backward_times
     from flair_for_aigle_tpu_torch.tools.timing import cuda_ms
-    from flair_for_aigle_tpu_torch.ops import (
-        attn_dots,
-        epilogue,
-        ffn,
-        finish,
-        prep,
-        window_attn,
-    )
+    from flair_for_aigle_tpu_torch.ops import attn_dots, ffn, prep, window_attn
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1204,25 +1344,10 @@ def phase_kernels() -> dict:
         ffn_lines(stats, BATCH, hw, c, bf, randn, bound, ffn_params)
 
     # K8: the fused finish at the four stages with the real shift, both
-    # dtypes; K3's bounds (after its gather it computes K3's function); times
-    # summed in bf16, the zonal slice's dtype
+    # dtypes; K3's bounds (after its gather pass it runs K3's products)
     for (hw, c, nh) in STAGES:
-        nwh = -(-hw // WS)
         for dtype in (bf, f32):
-            dts = "bf16" if dtype == bf else "f32"
-            tag = f"B2 {hw}x{hw}x{c} ws{WS} ss{SS} {dts}"
-            win = randn(2 * nwh * nwh, T, c, dtype=dtype)
-            x = randn(2, hw, hw, c, dtype=dtype)
-            fp = ffn_params(c)
-            fkw = dict(ws=WS, ss=SS)
-            got = finish.fused_reverse_ln_mlp_residual(win, x, *fp, **fkw)
-            want = finish.fused_reverse_ln_mlp_residual_reference(win, x, *fp, **fkw)
-            t_k = cuda_ms(lambda: finish.fused_reverse_ln_mlp_residual(win, x, *fp, **fkw))
-            t_p = cuda_ms(lambda: finish.fused_reverse_ln_mlp_residual_reference(win, x, *fp, **fkw))
-            cost = (*cost_finish(2, hw, c, 2 if dtype == bf else 4), dts)
-            _compare("finish", tag, got, want, bound(want, dtype, 4, 1e-4), t_k, t_p, stats, cost)
-            if dtype == bf:
-                _add_time(stats, "finish", t_k, t_p, cost)
+            finish_line(stats, hw, c, dtype, randn, bound, ffn_params)
 
     # K7: the ffn backward at the four stages (N = 2 H W rows), both dtypes,
     # against its plain version; times summed in float32
@@ -1318,33 +1443,14 @@ def phase_kernels() -> dict:
                         st[key] = st.get(key, 0.0) + t[tkey]
             bwd_core_lines(stats, f"B2 {hw}x{hw}x{c}", x.shape[0], c, nh, nwh, randn, dtype)
 
-    # K4: epilogue at (2, 19, 128, 128), margin 40, both output types
-    for dtype in (bf, f32):
-        lg = randn(2, N_CLASSES, 128, 128, dtype=dtype, std=3.0)
-        for output_type in ("argmax", "class_prob"):
-            ekw = dict(margin=40, scale=4, output_type=output_type)
-            got = epilogue.upsample_crop_convert(lg, **ekw)
-            want = epilogue.upsample_crop_convert_reference(lg, **ekw)
-            t_k = cuda_ms(lambda: epilogue.upsample_crop_convert(lg, **ekw))
-            t_p = cuda_ms(lambda: epilogue.upsample_crop_convert_reference(lg, **ekw))
-            dts = "bf16" if dtype == bf else "f32"
-            tag = f"(2,19,128,128) m40 {dts} {output_type}"
-            cost = (*cost_epilogue(2, N_CLASSES, 128, 40, 2 if dtype == bf else 4,
-                                   1 if output_type == "argmax" else N_CLASSES), dts)
-            if output_type == "argmax":
-                # the kernel's two-tap sums and the plain matmuls round apart:
-                # only near-ties may flip; allow 1e-4 of the pixels
-                frac = (got != want).float().mean().item()
-                say("kernel", f"epilogue {tag}: differing pixels {frac:.2e} "
-                    f"bound 1.0e-04 {'ok' if frac <= 1e-4 else 'FAIL'}; kernel "
-                    f"{t_k:.4f} ms, plain {t_p:.4f} ms, {_bound_text(cost)}")
-                if frac > 1e-4:
-                    raise AssertionError(f"epilogue {tag}: {frac} of pixels differ")
-                _stat(stats, "epilogue")
-            else:
-                _compare("epilogue", tag, got.int(), want.int(), 1.0, t_k, t_p, stats, cost)
-            if dtype == bf and output_type == "argmax":
-                _add_time(stats, "epilogue", t_k, t_p, cost)
+    # K4: epilogue at (B, 19, 128, 128), margin 40, at batch 2 and at the
+    # zonal batch, both dtypes, both output types
+    for batch in (2, BATCH):
+        for dtype in (bf, f32):
+            lg = randn(batch, N_CLASSES, 128, 128, dtype=dtype, std=3.0)
+            for output_type in ("argmax", "class_prob"):
+                epilogue_line(stats, lg, output_type)
+            del lg
     # the A/B tool's kernels at the stage geometries, batch 16, bw 1 and 4
     # (stage 1 at bw 4 is the tool's defaults, whose times go into stats)
     # against their plain version, beside the library call
@@ -1377,6 +1483,7 @@ def phase_kernels() -> dict:
     ffn_info_lines(stats)
     bwd_gemm_info_lines(stats)
     prep_merge_info_lines(stats)
+    finish_epilogue_info_lines(stats)
     gemm_mma_unchanged(stats)
     attn_dots_info_lines(stats)
     for name, st in stats.items():
@@ -1971,6 +2078,23 @@ def main() -> int:
             extra[op].update({f"{pre}_{k}": st[k] for k in (
                 "ms", "plain_ms", "bound_ms", "device_ms", "plain_device_ms")})
             extra[op][f"{pre}_{yard}_device_ms"] = st["library_device_ms"]
+    # K8 (bf16, the entry's own) also as device time, beside K3 on the same
+    # rows and its two products through cuBLAS; float32 likewise; its
+    # gather pass's worst resources. K4 (bf16 argmax at batch 2, the
+    # entry's own) also as device time beside F.interpolate alone; at the
+    # zonal batch; class_prob at both; its argmax kernel's resources
+    fin = ("device_ms", "plain_device_ms", "ffn_device_ms", "cublas_device_ms")
+    st = stats["finish_f32"]
+    extra["finish"] = {**{k: stats["finish"][k] for k in fin}, **stats["finish"]["info"],
+                       **{f"f32_{k}": st[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                      "bound_3xtf32_ms", *fin)}}
+    epi = ("ms", "plain_ms", "bound_ms", "device_ms", "plain_device_ms", "interpolate_device_ms")
+    info = stats["epilogue"]["info"]
+    extra["epilogue"] = {**{k: stats["epilogue"][k] for k in epi[3:]},
+                         **{k: info[k] for k in ("regs", "spill_bytes", "blocks_per_sm")}}
+    for pre, name in ((f"b{BATCH}", f"epilogue_b{BATCH}"), ("class_prob", "epilogue_class_prob"),
+                      (f"class_prob_b{BATCH}", f"epilogue_class_prob_b{BATCH}")):
+        extra["epilogue"].update({f"{pre}_{k}": stats[name][k] for k in epi})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs.values()),

@@ -26,7 +26,8 @@
 //     two blocks an SM.
 // Left as it is, and why:
 //   - The LayerNorm launch stays: it is bandwidth-bound, and ln.cuh is
-//     shared with K7 and K8.
+//     shared with K7. The two products are gemm_mma.cuh gemm_mlp, which K8
+//     (finish.cu) runs after its gather pass.
 //   - The hidden h (N, hidden) round-trips device memory in the compute
 //     dtype, as the reference rounds it there. At stage 3 (C = 512, 18 of
 //     swin-base's 24 blocks) and batch 16 that is 16384 x 2048 x 2 B = 67 MB
@@ -48,18 +49,9 @@ int ffn_impl(const T* x, const T* a, const float* lns, const float* lnb, const T
              int c, int hidden, int tile1, int tile2, int k_chunk2, int nz2, float eps,
              cudaStream_t s) {
   launch_ffn_ln<T>(x, a, lns, lnb, ln, n, c, eps, s);
-  int e = gemm_tile<T, MMA_GELU>(tile1, ln, w1, h, n, hidden, c, c, 1, b1, nullptr, nullptr, s,
-                                 nullptr);
-  if (e) return e;
-  if (nz2 == 1) {
-    e = gemm_tile<T, MMA_RESID>(tile2, h, w2, out, n, c, hidden, hidden, 1, b2, x, a, s, nullptr);
-  } else {
-    e = gemm_tile<T, MMA_PART>(tile2, h, w2, part, n, c, hidden, k_chunk2, nz2, nullptr, nullptr,
-                               nullptr, s, nullptr);
-    if (!e) launch_resid_sum<T>(part, nz2, n, c, b2, x, a, out, s);
-  }
-  if (e) return e;
-  return (int)cudaGetLastError();
+  const int e = gemm_mlp<T>(ln, w1, b1, w2, b2, x, a, h, part, out, n, c, hidden, tile1, tile2,
+                            k_chunk2, nz2, s);
+  return e ? e : (int)cudaGetLastError();
 }
 
 template <typename T>

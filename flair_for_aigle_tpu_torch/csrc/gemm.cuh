@@ -4,13 +4,12 @@
 //   A @ B     A (M, K), B (K, N) row-major              (BKN = true)
 //   A^T @ B   A (K, M), B (K, N) row-major    (AT = true, BKN = true)
 //
-// C is (M, N). Used by K8 (fc1, fc2) and K7 (fc1 recomputed, dh = g W2,
-// dln = dh0 W1 and the weight gradients g^T h and dh0^T ln, whose
-// reduction runs over all rows). K3's products, K2's projections, all of
-// K6's products (its qkv recompute, do, dx and weight gradients) and K5's
-// reduction run on gemm_mma.cuh, which takes K7's layouts too: A^T @ B as
-// MMA_WGRAD, A @ B as A W^T on the weight's transposed copy (as K6's do
-// and dx). bf16 inputs run on the tensor cores through
+// C is (M, N). Used by K7 alone (fc1 recomputed, dh = g W2, dln = dh0 W1
+// and the weight gradients g^T h and dh0^T ln, whose reduction runs over
+// all rows). Every other product of the port runs on gemm_mma.cuh, which
+// takes K7's layouts too: A^T @ B as MMA_WGRAD, A @ B as A W^T on the
+// weight's transposed copy (as K6's do and dx); K7's two epilogues below
+// have no counterpart there yet. bf16 inputs run on the tensor cores through
 // nvcuda::wmma (m16n16k16, float32 accumulate); float32 inputs run a SIMT
 // FMA loop so the float32 path keeps full float32 precision (no TF32).
 //
@@ -27,10 +26,9 @@
 //
 // Epilogues, in the JAX reference's rounding order (models/layers.py
 // TorchLinear, ops/pallas/ffn.py :132-146):
-//   EPI_BIAS_GELU  h = rnd(rnd(acc) + b[n]); out = 0.5 h (1 + erf(h / sqrt 2))
 //   EPI_F32        out = acc, float32 (the split-K partials)
-//   EPI_ADD        out = (r[m, n] + b[n]) + acc    (r = ra, float32, then rounded)
-//   EPI_BIAS_GELU_AUX  as EPI_BIAS_GELU, and h (before GELU) to aux (T)
+//   EPI_BIAS_GELU_AUX  h = rnd(rnd(acc) + b[n]); out = 0.5 h (1 + erf(h /
+//                  sqrt 2)); and h (before GELU) to aux (T)
 //   EPI_DGELU      d = acc * gelu'(z), z = ra[m, n]; out = rnd(d); and the
 //                  block's float32 column sums of d to aux[blockIdx.y * N + n]
 //                  (one partial per 128-row tile, summed later in a fixed order)
@@ -44,13 +42,7 @@
 
 namespace flair {
 
-enum {
-  EPI_BIAS_GELU = 1,
-  EPI_F32 = 4,
-  EPI_ADD = 5,
-  EPI_BIAS_GELU_AUX = 6,
-  EPI_DGELU = 7
-};
+enum { EPI_F32 = 4, EPI_BIAS_GELU_AUX = 6, EPI_DGELU = 7 };
 
 // the derivative of the exact GELU (common.cuh gelu_f), Phi(z) + z phi(z),
 // in float32
@@ -216,14 +208,12 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ B, void* __restrict__
       continue;
     }
     float o;
-    if constexpr (EPI == EPI_ADD) {
-      o = (to_f<T>(ra[idx]) + to_f<T>(bias[gn])) + v;
-    } else if constexpr (EPI == EPI_DGELU) {
+    if constexpr (EPI == EPI_DGELU) {
       o = v * gelu_grad_f(to_f<T>(ra[idx]));
       Cs[r * GEMM_LDC + c] = o;  // kept for the column sums below
     } else {
       const float h = rnd<T>(rnd<T>(v) + to_f<T>(bias[gn]));
-      if constexpr (EPI == EPI_BIAS_GELU_AUX) reinterpret_cast<T*>(aux)[idx] = from_f<T>(h);
+      reinterpret_cast<T*>(aux)[idx] = from_f<T>(h);
       o = gelu_f(h);
     }
     reinterpret_cast<T*>(Cout)[idx] = from_f<T>(o);

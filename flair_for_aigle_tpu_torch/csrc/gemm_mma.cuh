@@ -1,10 +1,10 @@
 // Tensor-core GEMM with a cp.async pipeline and an epilogue straight from
-// the accumulator registers, for K3's two products (ffn.cu), K2's qkv and
-// output projections (window_attn.cu), K6's qkv recompute
-// (window_attn_bwd.cu) and its do, dx and weight-gradient products
-// (window_attn_bwd_gemm.cu), and K5's reduction (merge.cu, whose A a
-// producer gathers and normalises as it lands: MmaPlainA below), in two
-// operand layouts:
+// the accumulator registers, for the ffn's two products (gemm_mlp below:
+// K3 in ffn.cu and K8 in finish.cu), K2's qkv and output projections
+// (window_attn.cu), K6's qkv recompute (window_attn_bwd.cu) and its do, dx
+// and weight-gradient products (window_attn_bwd_gemm.cu), and K5's
+// reduction (merge.cu, whose A a producer gathers and normalises as it
+// lands: MmaPlainA below), in two operand layouts:
 //
 //   C = A W^T   A (M, K) row-major, W (N, K) row-major (the nn.Linear layout)
 //   C = A^T B   A (K, M) row-major, B (K, N) row-major (MMA_WGRAD: the
@@ -66,8 +66,8 @@
 //     whole sectors. In the reference's rounding order (a float32 dot
 //     rounded to the compute dtype, then the bias added there):
 //       MMA_BIAS   out = rnd(rnd(acc) + b[n])       (K2's qkv and proj, K6's qkv)
-//       MMA_GELU   h = rnd(rnd(acc) + b[n]); out = GELU(h)     (fc1)
-//       MMA_RESID  out = (rnd(x + a) + b[n]) + acc            (fc2)
+//       MMA_GELU   h = rnd(rnd(acc) + b[n]); out = GELU(h)     (fc1 of K3, K8)
+//       MMA_RESID  out = (rnd(x + a) + b[n]) + acc            (fc2 of K3, K8)
 //       MMA_PART   out = acc, float32, at part + z M N: block z of the grid
 //                  sums K range [z k_chunk, (z + 1) k_chunk); the split-K
 //                  partials of fc2, which resid_sum_kernel adds in the order
@@ -771,6 +771,27 @@ void launch_resid_sum(const float* part, int nz, int M, int N, const T* bias, co
   const long long groups = mn / 8;
   resid_sum_kernel<T><<<(unsigned)((groups + 255) / 256), 256, 0, stream>>>(part, nz, mn, N, bias,
                                                                              rx, ra, out);
+}
+
+// The ffn's two products after its LayerNorm rows ln (n, c), shared by K3
+// (ffn.cu) and K8 (finish.cu): fc1 h = GELU(rnd(rnd(ln W1^T) + b1)) with
+// the tile tile1, then fc2 out = (rnd(x + a) + b2) + h W2^T with tile2,
+// or where K is cut (nz2 > 1, chunks of k_chunk2) its float32 partials
+// into part, added in order by resid_sum_kernel (ops/ffn.py mlp_plan)
+template <typename T>
+int gemm_mlp(const T* ln, const T* w1, const T* b1, const T* w2, const T* b2, const T* x,
+             const T* a, T* h, float* part, T* out, int n, int c, int hidden, int tile1, int tile2,
+             int k_chunk2, int nz2, cudaStream_t s) {
+  int e = gemm_tile<T, MMA_GELU>(tile1, ln, w1, h, n, hidden, c, c, 1, b1, nullptr, nullptr, s,
+                                 nullptr);
+  if (e) return e;
+  if (nz2 == 1)
+    return gemm_tile<T, MMA_RESID>(tile2, h, w2, out, n, c, hidden, hidden, 1, b2, x, a, s,
+                                   nullptr);
+  e = gemm_tile<T, MMA_PART>(tile2, h, w2, part, n, c, hidden, k_chunk2, nz2, nullptr, nullptr,
+                             nullptr, s, nullptr);
+  if (!e) launch_resid_sum<T>(part, nz2, n, c, b2, x, a, out, s);
+  return e;
 }
 
 }  // namespace flair

@@ -1,6 +1,5 @@
-// Residual + LayerNorm rows, one warp per row, shared by K3 (ffn.cu), K7
-// (ffn_bwd.cu, the forward's LN recomputed) and K8 (finish.cu, whose
-// residual row is gathered from the attention windows).
+// Residual + LayerNorm rows, one warp per row, shared by K3 (ffn.cu) and K7
+// (ffn_bwd.cu, the forward's LN recomputed).
 //
 // Numerics of ops/pallas/ffn.py _kernel_body :126-131: x2 = x + a rounded to
 // the compute dtype, float32 mean and (two-pass) variance. A row's C <= 1024

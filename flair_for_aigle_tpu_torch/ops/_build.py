@@ -59,9 +59,13 @@ _SIGNATURES = {
     # dtype, tile, epilogue, out (int[4]: registers, local bytes, shared
     # bytes, blocks per SM)
     "ffn_gemm_info": [_I] * 3 + [_P],
-    # logits, row_lo, row_hi, row_w_lo, row_w_hi, col_lo, col_hi, col_w_lo,
-    # col_w_hi, out, b, k, h4, w4, inner, class_prob, dtype, stream
-    "epilogue_fwd": [_P] * 10 + [_I] * 7 + [_P],
+    # logits, row_loc, row_w, row_tile, col_start, group_base, col_w, out,
+    # b, k, h4, w4, inner, tr, gt, nc, nr, col_tiles, row_tiles, p,
+    # class_prob, dtype, stream
+    "epilogue_fwd": [_P] * 8 + [_I] * 14 + [_P],
+    # dtype, p, class_prob, k, tr, nc, nr, out (int[4]: registers, local
+    # bytes, shared bytes, blocks per SM)
+    "epilogue_info": [_I] * 7 + [_P],
     # x, ln_scale, ln_bias, w_red, part, out, b, h, w, c, out_c, tile,
     # k_chunk, nz, eps, dtype, stream
     "merge_fwd": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
@@ -84,9 +88,13 @@ _SIGNATURES = {
     # t, attn_f32, dtype, out (int[5]: registers, local bytes, shared
     # bytes, blocks per SM, warps per SM)
     "window_attn_bwd_core_info": [_I] * 3 + [_P],
-    # win, x, ln_scale, ln_bias, w1, b1, w2, b2, ln, x2, h, out,
-    # b, h, w, c, hidden, ws, ss, eps, dtype, stream
-    "finish_fwd": [_P] * 12 + [_I] * 7 + [_F, _I, _P],
+    # win, x, ln_scale, ln_bias, w1, b1, w2, b2, ln, a, h, part, out,
+    # b, h, w, c, hidden, ws, ss, g, v, tile1, tile2, k_chunk2, nz2, eps,
+    # dtype, stream
+    "finish_fwd": [_P] * 13 + [_I] * 13 + [_F, _I, _P],
+    # dtype, g, v, out (int[4]: registers, local bytes, shared bytes, blocks
+    # per SM)
+    "finish_info": [_I] * 3 + [_P],
     # x, attn, g, ln_scale, ln_bias, w1, b1, w2, ln, h0, h, dh0c, db1_part,
     # wpart, dln, row_part, dx, dvec, dw1, db1, dw2,
     # n, c, hidden, k_chunk, rows, eps, dtype, stream

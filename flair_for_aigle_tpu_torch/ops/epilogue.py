@@ -5,7 +5,12 @@ and its plain PyTorch version.
 Replaces ``flair_for_aigle_tpu/ops/pallas/epilogue.py:184
 upsample_crop_convert``. The kernel reads the stride-4 logits once and
 writes the cropped uint8 prediction; the full-resolution float32 logits
-never exist. Bandwidth-bound on the card; see the CUDA source.
+never exist. One block a tile of output rows and columns stages the source
+rows and columns the tile needs, takes each row tap once into shared
+memory, then each thread the column taps of a few adjacent pixels and one
+packed store: ``epilogue_plan`` cuts the tiles and builds the kernel's
+small tables; ``epilogue_info`` reports the kernels' resources. See the
+CUDA source for the bounds.
 
 argmax ties break to the lowest class index; class_prob is
 round(softmax * 255) with the softmax statistics taken online over the
@@ -14,7 +19,9 @@ classes, as the reference's stats pass does.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -103,18 +110,146 @@ def upsample_crop_convert_reference(logits_s4: torch.Tensor, *, margin: int,
     return torch.stack(planes, dim=1)
 
 
-_TAP_CACHE: dict = {}
+#: threads of a kernel block
+EPI_THREADS = 256
+#: most dynamic shared memory a plan may ask of a block, at MAX_CLASSES
+#: classes in float32 (the staged logits and the row taps)
+EPI_MAX_SMEM = 160 * 1024
+#: staged columns start on, and span, a multiple of this many elements (16
+#: bytes of bf16, 32 of float32: whole 16-byte loads in either dtype)
+EPI_CHUNK = 8
 
 
-def _device_taps(h4: int, w4: int, scale: int, margin: int, inner: int,
-                 device) -> tuple:
-    key = (h4, w4, scale, margin, inner, str(device))
-    if key not in _TAP_CACHE:
-        rows = _taps(h4, scale, margin, margin + inner)
-        cols = _taps(w4, scale, margin, margin + inner)
-        _TAP_CACHE[key] = tuple(torch.as_tensor(a, device=device)
-                                for a in (*rows, *cols))
-    return _TAP_CACHE[key]
+class EpiloguePlan(NamedTuple):
+    """How ``csrc/epilogue.cu`` cuts one call: tiles of ``tr`` output rows
+    by ``gt`` groups of ``p`` adjacent output pixels (a thread a group),
+    ``col_tiles`` x ``row_tiles`` of them an image; each tile stages ``nc``
+    source columns from ``col_start[t]`` and at most ``nr`` source rows
+    (``row_tile[t]``: first row, rows). The tables, as the kernel reads
+    them: ``row_loc`` (inner, 2) int32, each output row's two source rows
+    relative to its tile's first staged row; ``row_w`` (inner, 2) float32,
+    their weights; ``row_tile`` (row_tiles, 2) int32; ``col_start``
+    (col_tiles,) int32, a multiple of ``EPI_CHUNK``; ``group_base`` (groups,)
+    int32, a group's first source column relative to its tile's first
+    staged column; ``col_w`` (groups p, 3) float32, each pixel's weights of
+    the group's three source columns (zero past the last pixel)."""
+    p: int
+    gt: int
+    tr: int
+    col_tiles: int
+    row_tiles: int
+    nc: int
+    nr: int
+    row_loc: np.ndarray
+    row_w: np.ndarray
+    row_tile: np.ndarray
+    col_start: np.ndarray
+    group_base: np.ndarray
+    col_w: np.ndarray
+
+
+def epilogue_smem(k: int, itemsize: int, tr: int, nc: int, nr: int) -> int:
+    """Dynamic shared bytes of a block (``csrc/epilogue.cu
+    epi_smem_bytes``): the staged logits (K, nr, nc) in the logits' dtype,
+    then the row taps (tr, K, nc) in float32."""
+    return k * nr * nc * itemsize + tr * k * nc * 4
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile_cost(tiles: int, tr: int, gt: int, nc: int, nr: int) -> float:
+    """A model of one image's warp instructions per class: the column taps
+    and running argmax of each warp of groups (about 27 a warp and class),
+    the row taps (a warp a row and class, two columns a lane, about 12 a
+    64 columns) and the staging (a 16-byte chunk a lane)."""
+    return tiles * (27 * _ceil(tr * gt, 32) + 12 * tr * _ceil(nc, 64) + nr * nc / 32)
+
+
+@lru_cache(maxsize=64)
+def epilogue_plan(h4: int, scale: int, margin: int) -> EpiloguePlan:
+    """The tiles and tables of the kernel at (h4 = w4, scale, margin),
+    inner = h4 scale - 2 margin > 0 (the wrapper's checks).
+
+    A group holds p = 4 pixels where every four adjacent pixels' taps reach
+    at most three neighbouring source columns (scale >= 3), else 2 (which
+    always do). Of the column-tile counts whose tile rows hold 16 to 256
+    groups and whose blocks fit ``EPI_MAX_SMEM`` at 64 float32 classes, the
+    one of least ``_tile_cost``."""
+    inner = h4 * scale - 2 * margin
+    if inner <= 0:
+        raise ValueError(f"epilogue plan: margin {margin} leaves no pixel of {h4 * scale}")
+    rlo, rhi, rw_lo, rw_hi = _taps(h4, scale, margin, margin + inner)
+    clo, chi, cw_lo, cw_hi = rlo, rhi, rw_lo, rw_hi  # h4 == w4: the same taps
+    p = 4 if all(clo[j:j + 4].max() - clo[j] <= 1 and chi[j:j + 4].max() - clo[j] <= 2
+                 for j in range(0, inner, 4)) else 2
+    groups = _ceil(inner, p)
+
+    def cols(gt: int):
+        """(first staged column of each tile, staged columns)."""
+        starts, width = [], 0
+        for t in range(_ceil(groups, gt)):
+            first = clo[t * gt * p] // EPI_CHUNK * EPI_CHUNK
+            last = int(clo[min(groups, (t + 1) * gt) * p - p]) + 2
+            starts.append(first)
+            width = max(width, last - first + 1)
+        return starts, _ceil(width, EPI_CHUNK) * EPI_CHUNK
+
+    def rows(tr: int):
+        """((first source row, rows) of each row tile, most rows)."""
+        tiles = [(int(rlo[i]), int(rhi[i:i + tr].max()) - int(rlo[i]) + 1)
+                 for i in range(0, inner, tr)]
+        return tiles, max(n for _, n in tiles)
+
+    best = None
+    for n_ct in range(1, groups + 1):
+        gt = _ceil(groups, n_ct)
+        if gt > EPI_THREADS or _ceil(groups, gt) != n_ct:
+            continue
+        if gt < 16 and best is not None:
+            break
+        tr = min(EPI_THREADS // gt, inner)
+        starts, nc = cols(gt)
+        tiles, nr = rows(tr)
+        if epilogue_smem(MAX_CLASSES, 4, tr, nc, nr) > EPI_MAX_SMEM:
+            continue
+        cost = _tile_cost(n_ct * len(tiles), tr, gt, nc, nr)
+        if best is None or cost < best[0]:
+            best = (cost, gt, tr, starts, nc, tiles, nr)
+    if best is None:
+        raise ValueError(f"epilogue plan: no tile of h4={h4}, scale={scale} fits "
+                         f"{EPI_MAX_SMEM} bytes of shared memory")
+    _, gt, tr, starts, nc, tiles, nr = best
+    row_tile = np.asarray(tiles, np.int32)
+    first = np.repeat(row_tile[:, 0], tr)[:inner]
+    row_loc = np.stack([rlo - first, rhi - first], 1).astype(np.int32)
+    row_w = np.stack([rw_lo, rw_hi], 1).astype(np.float32)
+    col_start = np.asarray(starts, np.int32)
+    j0 = np.arange(groups) * p
+    group_base = (clo[j0] - col_start[np.arange(groups) // gt]).astype(np.int32)
+    col_w = np.zeros((groups * p, 3), np.float32)
+    for j in range(inner):
+        d = int(clo[j] - clo[j - j % p])  # 0 or 1: where the pixel's taps start
+        col_w[j, d] += cw_lo[j]
+        col_w[j, d + 1] += cw_hi[j]
+    return EpiloguePlan(p, gt, tr, len(starts), len(tiles), nc, nr, row_loc, row_w,
+                        row_tile, col_start, group_base, col_w)
+
+
+_TABLE_CACHE: dict = {}
+
+
+def _device_tables(plan: EpiloguePlan, key, device) -> tuple:
+    """The plan's six tables on ``device`` (made once a geometry and
+    device)."""
+    key = (*key, str(device))
+    if key not in _TABLE_CACHE:
+        _TABLE_CACHE[key] = tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (plan.row_loc, plan.row_w, plan.row_tile, plan.col_start,
+                      plan.group_base, plan.col_w))
+    return _TABLE_CACHE[key]
 
 
 def upsample_crop_convert(logits_s4: torch.Tensor, *, margin: int,
@@ -142,13 +277,17 @@ def upsample_crop_convert(logits_s4: torch.Tensor, *, margin: int,
     if k_cls > MAX_CLASSES or h4 != w4 or inner <= 0:
         raise ValueError(f"epilogue kernel: unsupported K={k_cls}, "
                          f"{h4}x{w4}, margin={margin}")
-    taps = _device_taps(h4, w4, scale, margin, inner, logits_s4.device)
+    plan = epilogue_plan(h4, scale, margin)
+    tables = _device_tables(plan, (h4, scale, margin), logits_s4.device)
+    # the kernel stages the logits 16 bytes at a time
+    logits_s4 = _build.aligned(logits_s4)
     n_out = 1 if output_type == "argmax" else k_cls
     out = torch.empty((b, n_out, inner, inner), dtype=torch.uint8,
                       device=logits_s4.device)
     rc = _build.lib().epilogue_fwd(
-        logits_s4.data_ptr(), *(t.data_ptr() for t in taps), out.data_ptr(),
-        b, k_cls, h4, w4, inner, int(output_type == "class_prob"),
+        logits_s4.data_ptr(), *(t.data_ptr() for t in tables), out.data_ptr(),
+        b, k_cls, h4, w4, inner, plan.tr, plan.gt, plan.nc, plan.nr,
+        plan.col_tiles, plan.row_tiles, plan.p, int(output_type == "class_prob"),
         _build.dtype_code(logits_s4), _build.stream_ptr(logits_s4))
     _build.check(rc, "epilogue_fwd")
     upsample_crop_convert.launches += 1
@@ -156,3 +295,20 @@ def upsample_crop_convert(logits_s4: torch.Tensor, *, margin: int,
 
 
 upsample_crop_convert.launches = 0
+
+
+def epilogue_info(k: int, dtype=torch.bfloat16, output_type: str = "argmax", *,
+                  h4: int = 128, scale: int = 4, margin: int = 40) -> dict:
+    """The resources of the kernel that ``upsample_crop_convert`` runs for
+    K = k classes in ``dtype`` at (h4, scale, margin) on the current card,
+    as the CUDA runtime reports them: registers per thread, local (spill)
+    bytes per thread, shared bytes per block and resident blocks per SM;
+    with the plan's tile (``tr`` rows by ``gt`` groups of ``p`` pixels)."""
+    plan = epilogue_plan(h4, scale, margin)
+    out = (ctypes.c_int * 4)()
+    rc = _build.lib().epilogue_info(
+        0 if dtype == torch.float32 else 1, plan.p, int(output_type == "class_prob"), k,
+        plan.tr, plan.nc, plan.nr, ctypes.addressof(out))
+    _build.check(rc, "epilogue_info")
+    return {**dict(zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out)),
+            "p": plan.p, "gt": plan.gt, "tr": plan.tr}

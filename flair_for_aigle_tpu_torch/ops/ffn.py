@@ -7,8 +7,9 @@ Replaces ``flair_for_aigle_tpu/ops/pallas/ffn.py:481 fused_ln_mlp_residual``
 mma.sync tensor-core GEMMs (``csrc/gemm_mma.cuh``: bf16, or float32 as
 3xTF32) whose epilogues apply bias + exact GELU (fc1) and the float32
 residual (fc2, recomputing x + attn); the LayerNorm is one bandwidth-bound
-pass. ``ops/mma_plan.py gemm_plan`` picks each product's tile and fc2's
-split of K; ``ffn_info`` reports the GEMM kernels' resources. Every tensor
+pass. ``mlp_plan`` (``ops/mma_plan.py gemm_plan``) picks each product's
+tile and fc2's split of K, for K3 and for K8 (``ops/finish.py``), which
+runs the same products; ``ffn_info`` reports the GEMM kernels' resources. Every tensor
 the kernels read goes through ``_build.aligned`` (a view off a 16-byte
 boundary is copied). See the CUDA sources for
 the bounds.
@@ -63,6 +64,17 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def mlp_plan(n: int, c: int, hidden: int, device, dtype) -> tuple[int, int, int, int]:
+    """(tile1, tile2, k_chunk2, nz2): the tiles of fc1 and fc2 over n rows
+    on ``device``'s SMs (``ops/mma_plan.py gemm_plan``) and fc2's split of
+    K, as ``csrc/gemm_mma.cuh gemm_mlp`` takes them; shared by K3 and K8
+    (``ops/finish.py``), whose products are the same."""
+    sms = n_sm(device)
+    tile1, _, _ = gemm_plan(n, hidden, c, sms, dtype)
+    tile2, k_chunk2, nz2 = gemm_plan(n, c, hidden, sms, dtype, split=True)
+    return tile1, tile2, k_chunk2, nz2
+
+
 def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
     """The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
@@ -91,9 +103,7 @@ def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
             or lns.shape != (c,) or lnb.shape != (c,)):
         raise ValueError("ffn kernel: parameter shapes do not match x")
     n = x.numel() // c
-    sms = n_sm(x.device)
-    tile1, _, _ = gemm_plan(n, hidden, c, sms, dt)
-    tile2, k_chunk2, nz2 = gemm_plan(n, c, hidden, sms, dt, split=True)
+    tile1, tile2, k_chunk2, nz2 = mlp_plan(n, c, hidden, x.device, dt)
     ln = torch.empty((n, c), dtype=dt, device=x.device)
     h = torch.empty((n, hidden), dtype=dt, device=x.device)
     part = (torch.empty((nz2, n, c), dtype=torch.float32, device=x.device)
@@ -162,9 +172,8 @@ def ffn_info(c: int, hidden: int, dtype=torch.bfloat16, n: int | None = None) ->
     if n is None:
         kernels = [(e, t) for e in _EPILOGUES for t in PLAN_TILES[dtype]]
     else:
-        sms = n_sm(torch.device("cuda", torch.cuda.current_device()))
-        tile1, _, _ = gemm_plan(n, hidden, c, sms, dtype)
-        tile2, _, nz2 = gemm_plan(n, c, hidden, sms, dtype, split=True)
+        tile1, tile2, _, nz2 = mlp_plan(
+            n, c, hidden, torch.device("cuda", torch.cuda.current_device()), dtype)
         kernels = [("fc1", tile1), ("fc2 split" if nz2 > 1 else "fc2", tile2)]
     info = {}
     for epi, tile in kernels:

@@ -15,9 +15,11 @@ copies, one stream, so no overlap), ``wall_ms_per_step`` (the host clock
 under the profiler), ``kernels``: the 15 largest by device time as
 [name, ms per step, calls per step], ``cores``: the attention cores of
 K2 and K6 (``attn_core_*``, ``attn_bwd_core_*``) as {name: [ms per step,
-calls per step]}, however small; ``ffn_gemms``: K3's two products
+calls per step]}, however small; ``ffn_gemms``: the ffn's two products
 (``gemm_mma_kernel`` with the GELU, residual or split-K epilogue, and
-``resid_sum_kernel`` where fc2 splits K) the same way; and
+``resid_sum_kernel`` where fc2 splits K) the same way: K3's, or under
+``FLAIR_SWIN_FINISH=1`` K8's, which runs the same kernels after its gather
+pass (``finish_gather_kernel``, among ``kernels``); and
 ``attn_gemms``: ``gemm_mma_kernel`` with the bias epilogue, K2's qkv and
 output projections and K6's qkv recompute; ``bwd_gemms``: ``gemm_mma_kernel``
 with the rounding and weight-gradient epilogues, K6's do, dx, dWproj and
@@ -25,7 +27,8 @@ dWqkv (``gemm_tallies`` splits them by the kernel's epilogue template
 argument); ``merge_gemms``: K5's ``gemm_mma_ln_kernel`` (the reduction
 with the gathering LayerNorm producer of A, and ``sum_round_kernel`` where
 it cuts K); and ``gemm_cuh_gemms``: every launch of ``csrc/gemm.cuh``'s
-``gemm_kernel`` (K7 and K8 under their switches). ``FLAIR_FFN_BWD`` and
+``gemm_kernel`` (K7's, under ``FLAIR_FFN_BWD=kernel``; none otherwise).
+``FLAIR_FFN_BWD`` and
 ``FLAIR_SWIN_FINISH`` are read as in training. Runs on the card unless
 ``--device cpu`` asks for the CPU (the plain versions; no device lines).
 """
@@ -76,8 +79,8 @@ def random_batch(cfg: dict, batch: int, px: int, seed: int = 0) -> dict:
             task: np.moveaxis(np.eye(k, dtype=np.float32)[labels], -1, 1)}
 
 
-#: gemm_mma.cuh's epilogue codes (its template argument EPI): K3's
-#: MMA_GELU, MMA_RESID and MMA_PART; MMA_BIAS, K2's and K6's projections;
+#: gemm_mma.cuh's epilogue codes (its template argument EPI): K3's (and
+#: K8's) MMA_GELU, MMA_RESID and MMA_PART; MMA_BIAS, K2's and K6's projections;
 #: MMA_ROUND and MMA_WGRAD, K6's do and dx and its weight gradients
 K3_EPILOGUES = {0, 1, 2}
 BIAS_EPILOGUE = 3
@@ -87,7 +90,7 @@ _MMA_EPI = re.compile(r"gemm_mma_kernel<[^>]*?(\d+)\s*>")
 
 def gemm_tallies(rows) -> dict:
     """``rows``: (kernel name, ms per step, calls per step) of the device
-    kernels. Returns {"ffn_gemms": K3's products, "attn_gemms": K2's and K6's
+    kernels. Returns {"ffn_gemms": K3's (or K8's) products, "attn_gemms": K2's and K6's
     bias products, "bwd_gemms": K6's do, dx and weight gradients,
     "merge_gemms": K5's reduction, "gemm_cuh_gemms": gemm.cuh's kernel},
     each {name[:90]: [ms, calls]}: ``gemm_mma_kernel`` by its epilogue

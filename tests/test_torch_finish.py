@@ -9,6 +9,10 @@ unshifted and shifted, 20 x 20 padded and shifted, 16 x 16 with window 4.
 Tolerances as the JAX tests use them: forward float32 2e-5 (the block
 3e-5), gradients 1e-4.
 
+The gather pass's plain version (``finish_gather_reference``, the kernel's
+index map) is held against window reverse + crop + roll, and K3's plain
+version on the gathered rows against the Pallas finish.
+
 Each comparison checks that the JAX side really ran its Pallas finish
 kernel: the op is called directly (it has no gate) and its ``_build_call``
 is watched; the JAX block consults ``finish.supports``, which must hold for
@@ -26,6 +30,8 @@ from flair_for_aigle_tpu.ops.pallas import finish as jfin
 from flair_for_aigle_tpu_torch.models.checkpoint import state_dict_from_flax
 from flair_for_aigle_tpu_torch.models.swin import SwinBlock
 from flair_for_aigle_tpu_torch.ops import finish
+from flair_for_aigle_tpu_torch.ops.ffn import fused_ln_mlp_residual_reference
+from flair_for_aigle_tpu_torch.ops.prep import _padded, window_reverse
 from tests._torch_threads import few_torch_threads  # noqa: F401
 
 C, HIDDEN = 128, 256
@@ -133,3 +139,36 @@ def test_swin_block_with_finish_matches_jax(h, shift, monkeypatch, pallas_calls)
     for name, p in tblk.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(jgrads[name]), rtol=1e-4,
                                    atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("h,w,ws,ss", [(20, 20, 12, 0), (20, 20, 12, 6), (20, 28, 12, 6),
+                                       (7, 5, 4, 2), (24, 24, 12, 6)])
+def test_finish_gather_reference_is_reverse_crop_roll(h, w, ws, ss):
+    """The gather pass's index map (``finish_gather_reference``) picks for
+    every output token the row that window reverse + crop + the +ss roll
+    puts there, padded H and W included (no pad row or column is read),
+    and its LN rows are K3's plain LayerNorm of x + a."""
+    vals = _torch_args(_inputs(11, 2, h, w, ws))
+    win, x, s, b = vals[:4]
+    ln, a = finish.finish_gather_reference(win, x, s, b, ws=ws, ss=ss)
+    y = window_reverse(win, ws, _padded(h, ws), _padded(w, ws))[:, :h, :w]
+    if ss:
+        y = torch.roll(y, (ss, ss), dims=(1, 2))
+    assert torch.equal(a, y.reshape(-1, C))
+    x2 = (x.reshape(-1, C) + a).float()
+    want = torch.nn.functional.layer_norm(x2, (C,), s, b, eps=1e-5)
+    torch.testing.assert_close(ln, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,ws,ss", [(20, 20, 12, 6), (24, 24, 12, 0)])
+def test_ffn_plain_on_gathered_rows_matches_pallas_finish(h, w, ws, ss, pallas_calls):
+    """What the kernel computes after its gather pass, K3's function on (x,
+    a), against the Pallas finish in interpret mode: float32 2e-5."""
+    vals = _inputs(12, 2, h, w, ws)
+    want = np.asarray(jfin.fused_reverse_ln_mlp_residual(
+        *(jnp.asarray(v.copy()) for v in vals), ws=ws, ss=ss, interpret=True))
+    assert pallas_calls == [(h, w)]
+    win, x, *params = _torch_args(vals)
+    _, a = finish.finish_gather_reference(win, x, *params[:2], ws=ws, ss=ss)
+    got = fused_ln_mlp_residual_reference(x, a.reshape(x.shape), *params)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)

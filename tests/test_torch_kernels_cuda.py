@@ -16,9 +16,14 @@ magnitude (1 for the prologue). The attention backward (K6) against
 autograd through the plain forward: float32 2e-3 relative to each
 gradient's largest magnitude, bfloat16 median relative error < 0.04 per
 gradient (tests/test_window_attn_kernel.py's bounds for the TPU backward).
-The fused finish (K8) has K3's bounds (after its gather it computes K3's
-function), the ffn backward (K7) K6's, at the four swin-base@512 stages at
-batch 2 and at an odd shape. The A/B tool's two attention-product kernels:
+The fused finish (K8) has K3's bounds (after its gather pass it runs K3's
+products), twice bit-identical, the ffn backward (K7) K6's, at the four
+swin-base@512 stages at batch 2 and at an odd shape; K8's gather pass at
+every swin width without spill at the blocks per SM it promises. The zonal epilogue
+(K4) at the zonal batch and at ragged geometries (a ragged last group,
+rows no whole number of 16-byte chunks, 64 classes, scale 2), twice
+bit-identical, and its kernels at the zonal geometry without spill at four
+blocks per SM. The A/B tool's two attention-product kernels:
 one bfloat16 unit in the last place at the largest magnitude against their
 plain version, bit-identical to each other and from call to call. Every
 wrapper on views off a 16-byte boundary launches its kernel on aligned
@@ -309,6 +314,55 @@ def test_epilogue_kernel(dev, dtype, output_type):
         assert (got != want).float().mean().item() <= 1e-3
     else:
         assert (got.int() - want.int()).abs().max().item() <= 1
+
+
+# (B, K, h4, margin, scale): the zonal batch's tile; inner 50, a ragged last
+# group of four pixels; h4 = 13, rows no whole number of 16-byte chunks; K =
+# 64, the most classes; scale 2, two pixels a group
+EPILOGUE_GEOMS = [(16, 19, 128, 40, 4), (3, 7, 16, 7, 4), (2, 5, 13, 3, 4), (1, 64, 32, 0, 4),
+                  (2, 5, 16, 2, 2)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("output_type", ["argmax", "class_prob"])
+@pytest.mark.parametrize("b,k,h4,margin,scale", EPILOGUE_GEOMS)
+def test_epilogue_kernel_geometries(dev, dtype, output_type, b, k, h4, margin, scale):
+    """K4's tiles at the zonal batch and at ragged geometries against its
+    plain version (argmax: at most 1e-3 of the pixels differ, at near-ties;
+    class_prob: one uint8 step), two calls bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    lg = (torch.randn((b, k, h4, h4), generator=g, device=dev) * 3).to(dtype)
+    kw = dict(margin=margin, scale=scale, output_type=output_type)
+    epilogue.upsample_crop_convert.launches = 0
+    got = epilogue.upsample_crop_convert(lg, **kw)
+    again = epilogue.upsample_crop_convert(lg, **kw)
+    want = epilogue.upsample_crop_convert_reference(lg, **kw)
+    torch.cuda.synchronize()
+    assert epilogue.upsample_crop_convert.launches == 2
+    assert got.shape == want.shape and got.dtype == torch.uint8
+    assert torch.equal(got, again)
+    if output_type == "argmax":
+        assert (got != want).float().mean().item() <= 1e-3
+    else:
+        assert (got.int() - want.int()).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("output_type", ["argmax", "class_prob"])
+def test_epilogue_resources(dev, dtype, output_type):
+    """K4's kernel at the zonal geometry (19 classes, 128 px, margin 40):
+    no spill, at least four blocks of 256 threads per SM."""
+    info = epilogue.epilogue_info(19, dtype, output_type)
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 4, info
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [128, 256, 512, 1024])
+def test_finish_gather_resources(dev, dtype, c):
+    """K8's gather pass at every swin width: no spill, the blocks per SM
+    its launch bounds promise."""
+    info = finish.finish_info(c, dtype)
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= info["min_blocks"], info
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -612,6 +666,7 @@ def test_finish_kernel(dev, dtype, h, w, c, ws, ss):
     assert finish.fused_reverse_ln_mlp_residual.launches == 1
     assert got.shape == x.shape and got.dtype == dtype
     _assert_close(got, want, dtype)
+    assert torch.equal(got, finish.fused_reverse_ln_mlp_residual(win, x, *p, ws=ws, ss=ss))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
