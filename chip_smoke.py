@@ -50,14 +50,19 @@ Phases, one printed line each (any failure raises and exits non-zero):
    fused), float32 also bounded at
    3xTF32's rate; K2 the same way (two calls bit-identical, CUDA events
    and device time, its two projections alone through cuBLAS as device
-   time); K6 in the training configuration's mode also as device time,
+   time); K7 the same way at the four stages at batch 2 in both dtypes and
+   at the training batch 5 in float32 (two calls bit-identical, CUDA
+   events and device time, ``tools/time_ffn.py backward_stage_times``,
+   beside its five products alone through cuBLAS, ``torch.matmul`` in the
+   same dtype, TF32 off, as device time; float32 also bounded at 3xTF32's
+   rate); K6 in the training configuration's mode also as device time,
    beside its four products alone (do, dx, dWproj, dWqkv on
    ``gemm_mma.cuh``, ``window_attn.backward_gemm``), the weights'
    transposed copies it makes, and the same four products through cuBLAS
    (``torch.matmul``, same dtype, TF32 off: a yardstick); then the
    tensor-core GEMM kernels' resources at each stage, K3's and K2's
-   projections', and K6's products' at every tile (no spill; at least 2
-   blocks per SM), and both A/B kernels' (no spill; per head at least 3
+   projections', and K6's and K7's products' at every tile (no spill; at
+   least 2 blocks per SM), and both A/B kernels' (no spill; per head at least 3
    blocks per SM, grouped 2); K1 and K5 at batch 2 in both dtypes and at
    the paths' batches (16 in bf16, the zonal one; 5 in float32, the
    training one): two calls bit-identical, kernel and plain by CUDA events
@@ -818,6 +823,56 @@ def ffn_lines(stats, batch, hw, c, dtype, randn, bound, ffn_params) -> None:
         s["bound_3xtf32_ms"] = s.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
 
 
+def ffn_bwd_lines(stats, batch, hw, c, dtype, randn, ffn_params) -> None:
+    """K7 at one stage (N = batch H W rows) in ``dtype`` against its plain
+    version (``_compare_grads``' bounds), two calls bit-identical, and
+    ``tools/time_ffn.py``'s ``backward_stage_times``: kernel and plain ms
+    by CUDA events, as every kernel line, then as device time, and beside
+    them its five products alone through cuBLAS (``torch.matmul`` in the
+    same dtype, float32 with TF32 off) as device time: a yardstick of the
+    GEMM part, not a library call computing K7's fused function. float32
+    lines give the bound at 67 TFLOP/s and at 3xTF32's 165. Sums: float32
+    at batch 2 in ``stats["ffn_bwd"]`` (the training configuration's
+    dtype), bf16 at batch 2 in ``stats["ffn_bwd_bf16"]``, float32 at the
+    training batch in ``stats["ffn_bwd_b5"]``."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import ffn
+    from flair_for_aigle_tpu_torch.tools.time_ffn import backward_stage_times
+
+    bf = dtype == torch.bfloat16
+    dts = "bf16" if bf else "f32"
+    n = batch * hw * hw
+    x, a, gy = (randn(n, c, dtype=dtype) for _ in range(3))
+    fp = ffn_params(c)
+    s, b, w1, b1, w2, _ = fp
+    args = (gy, x, a, s, b, w1, b1, w2)
+    got = ffn.fused_ln_mlp_residual_backward(*args)
+    again = ffn.fused_ln_mlp_residual_backward(*args)
+    want = ffn.fused_ln_mlp_residual_backward_reference(x, a, s, b, w1, b1, w2, gy)
+    tag = f"B{batch} N{n} C{c} {dts}"
+    same = all(torch.equal(u, v) for u, v in zip(got, again))
+    say("kernel", f"ffn_bwd {tag}: repeat {'bit-identical ok' if same else 'DIFFERS FAIL'}")
+    if not same:
+        raise AssertionError(f"ffn_bwd {tag}: two calls differ")
+    t = backward_stage_times(x, a, gy, fp)
+    cost = (*cost_ffn_bwd(n, c, 2 if bf else 4), dts)
+    x3 = (*cost[:2], "tf32x3")  # the same work at 3xTF32's effective rate
+    note = (f"; device time kernel {t['device_ms']:.4f} ms, plain {t['plain_device_ms']:.4f} ms, "
+            f"cuBLAS products (torch.matmul x5, {dts}) {t['cublas_device_ms']:.4f} ms"
+            + ("" if bf else f"; at 3xTF32's 165 TFLOP/s {_bound_text(x3)}"))
+    _compare_grads("ffn_bwd", ["dx", "dattn", "dln_scale", "dln_bias", "dw1", "db1", "dw2",
+                               "db2"], tag, got, want, not bf, t["ms"], t["plain_ms"], stats,
+                   cost, note=note)
+    name = "ffn_bwd_bf16" if bf else ("ffn_bwd" if batch == 2 else f"ffn_bwd_b{batch}")
+    _add_time(stats, name, t["ms"], t["plain_ms"], cost)
+    st = stats[name]
+    for key in ("device_ms", "plain_device_ms", "cublas_device_ms"):
+        st[key] = st.get(key, 0.0) + t[key]
+    if not bf:
+        st["bound_3xtf32_ms"] = st.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
+
+
 def window_attn_lines(stats, tag, win, params, nh, nwh, attn_f32, bound) -> None:
     """K2 on the stage's windows in one softmax mode against its plain
     version (4 bf16 units, float32 1e-4 of the largest magnitude), two
@@ -1215,6 +1270,24 @@ def bwd_gemm_info_lines(stats) -> None:
     stats["window_attn_bwd"]["gemm_info"] = worst
 
 
+def ffn_bwd_info_lines(stats) -> None:
+    """K7's product kernels (gemm_mma.cuh: fc1's MMA_GELU_AUX, dh's
+    MMA_DGELU and dln's MMA_PART at every tile of each dtype's plan, the
+    weight gradients' MMA_WGRAD at theirs): registers, spill bytes, shared
+    bytes and resident blocks per SM; raises on a spill or on fewer than
+    the design's 2 blocks per SM. The worst go into K7's stats."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import ffn
+
+    worst = {"gemm_spill_bytes": 0, "gemm_max_regs": 0, "gemm_min_blocks_per_sm": 99}
+    for dtype in (torch.bfloat16, torch.float32):
+        dts = "bf16" if dtype == torch.bfloat16 else "f32"
+        for kname, i in ffn.ffn_bwd_gemm_info(dtype).items():
+            _resource_line(f"ffn_bwd GEMM {dts} {kname}", i, worst)
+    stats["ffn_bwd"]["gemm_info"] = worst
+
+
 def attn_dots_info_lines(stats) -> None:
     """Both A/B kernels' registers, spill bytes, shared bytes and resident
     blocks per SM at T = 144; raises on a spill or below the design's
@@ -1292,7 +1365,7 @@ def phase_kernels() -> dict:
 
     from flair_for_aigle_tpu_torch.tools.time_window_attn import backward_times
     from flair_for_aigle_tpu_torch.tools.timing import cuda_ms
-    from flair_for_aigle_tpu_torch.ops import attn_dots, ffn, prep, window_attn
+    from flair_for_aigle_tpu_torch.ops import attn_dots, prep, window_attn
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1349,27 +1422,11 @@ def phase_kernels() -> dict:
         for dtype in (bf, f32):
             finish_line(stats, hw, c, dtype, randn, bound, ffn_params)
 
-    # K7: the ffn backward at the four stages (N = 2 H W rows), both dtypes,
-    # against its plain version; times summed in float32
+    # K7: the ffn backward at the four stages, both dtypes at batch 2 and
+    # float32 at the training batch, against its plain version
     for (hw, c, nh) in STAGES:
-        n = 2 * hw * hw
-        for dtype in (bf, f32):
-            dts = "bf16" if dtype == bf else "f32"
-            tag = f"N{n} C{c} {dts}"
-            x, a, gy = randn(n, c, dtype=dtype), randn(n, c, dtype=dtype), randn(n, c, dtype=dtype)
-            s, b, w1, b1, w2, _ = ffn_params(c)
-            args = (gy, x, a, s, b, w1, b1, w2)
-            got = ffn.fused_ln_mlp_residual_backward(*args)
-            want = ffn.fused_ln_mlp_residual_backward_reference(x, a, s, b, w1, b1, w2, gy)
-            t_k = cuda_ms(lambda: ffn.fused_ln_mlp_residual_backward(*args))
-            t_p = cuda_ms(lambda: ffn.fused_ln_mlp_residual_backward_reference(
-                x, a, s, b, w1, b1, w2, gy))
-            cost = (*cost_ffn_bwd(n, c, 2 if dtype == bf else 4), dts)
-            _compare_grads("ffn_bwd", ["dx", "dattn", "dln_scale", "dln_bias", "dw1", "db1",
-                                       "dw2", "db2"], tag, got, want, dtype == f32, t_k, t_p,
-                           stats, cost)
-            if dtype == f32:
-                _add_time(stats, "ffn_bwd", t_k, t_p, cost)
+        for batch, dtype in ((2, f32), (2, bf), (TRAIN_BATCH, f32)):
+            ffn_bwd_lines(stats, batch, hw, c, dtype, randn, ffn_params)
 
     # K5: patch merge at the three transitions, batch 2 in both dtypes
     # (times summed in float32, the training configuration's dtype)
@@ -1482,6 +1539,7 @@ def phase_kernels() -> dict:
     bwd_core_info(stats)
     ffn_info_lines(stats)
     bwd_gemm_info_lines(stats)
+    ffn_bwd_info_lines(stats)
     prep_merge_info_lines(stats)
     finish_epilogue_info_lines(stats)
     gemm_mma_unchanged(stats)
@@ -2062,6 +2120,18 @@ def main() -> int:
         **{k: st[k] for k in ("device_ms", "plain_device_ms", "gemm_products_device_ms",
                               "weight_transpose_device_ms", "cublas_device_ms")},
         **st["gemm_info"]})
+    # K7 summed over the stages: float32 at batch 2 (the entry's own
+    # numbers), bf16 at batch 2 and float32 at the training batch, each by
+    # CUDA events and as device time beside its five products through
+    # cuBLAS, float32 with its bound at 3xTF32's rate; its GEMMs' worst
+    # resources
+    st = stats["ffn_bwd"]
+    extra["ffn_bwd"] = {**{k: st[k] for k in (*dev, "bound_3xtf32_ms")}, **st["gemm_info"]}
+    for key, name in (("bf16", "ffn_bwd_bf16"), (f"b{TRAIN_BATCH}", f"ffn_bwd_b{TRAIN_BATCH}")):
+        st = stats[name]
+        extra["ffn_bwd"].update({f"{key}_{k}": st[k] for k in ("ms", "plain_ms", "bound_ms", *dev)})
+    extra["ffn_bwd"][f"b{TRAIN_BATCH}_bound_3xtf32_ms"] = stats[f"ffn_bwd_b{TRAIN_BATCH}"][
+        "bound_3xtf32_ms"]
     for name in ("attn_dots_per_head", "attn_dots_grouped"):
         extra[name] = dict(stats[name]["info"])
     # K1 (bf16) and K5 (float32) at batch 2 also as device time, beside

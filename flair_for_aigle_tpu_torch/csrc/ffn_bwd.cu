@@ -14,21 +14,30 @@
 //   db2 = sum g;  dln_scale = sum dln * nrm;  dln_bias = sum dln
 //   dx  = rnd(g + rstd (dln s - mean(dln s) - nrm mean(dln s nrm)))
 //
-// Bound on the card: five GEMMs of 2 N C hidden flops each (tensor cores in
-// bf16, SIMT float32 FMAs in float32); the rest is bandwidth.
+// Bound on the card: five products of 2 N C hidden operations each, on the
+// tensor cores (bf16; float32 as 3xTF32, a third of the tf32 rate); the
+// rest is bandwidth.
 //
 // The TPU kernel ran its grid in order with the hidden chunk outer and kept
 // the chunk's float32 dW1 / db1 / dW2 resident in VMEM across the token
 // axis. Hopper's blocks run in parallel in no order, so this design (K6's)
 // makes every cross-row sum a pass of its own with a fixed order, and no
-// atomics: two calls give bit-identical gradients.
+// atomics: two calls give bit-identical gradients. The five products run on
+// gemm_mma.cuh (mma.sync fed by a cp.async ring; float32 as 3xTF32), with
+// the tiles and splits of ops/ffn.py _bwd_plan:
 //   1. ln: K3's warp-per-row LayerNorm (ln.cuh).
-//   2. fc1 GEMM; its epilogue writes h0 and h = GELU(h0).
-//   3. dh = g W2 (A B GEMM); its epilogue multiplies by gelu'(h0), writes
-//      dh0c, and one float32 column-sum partial of dh0 per 128-row tile.
-//   4. dW2 = g^T h, dW1 = dh0c^T ln: A^T B GEMMs split over the N rows into
-//      float32 partials, summed in order.
-//   5. dln = dh0c W1 in float32.
+//   2. fc1, C = ln W1^T, MMA_GELU_AUX at K3's fc1 tile (ops/ffn.py
+//      mlp_plan): writes h0 and h = GELU(h0), h bit for bit K3's.
+//   3. dh = g W2 as C = A W^T on W2's transposed copy (hidden, C), at
+//      fc1's tile (the same shape), MMA_DGELU: multiplies by gelu'(h0) (h0
+//      read 16 bytes at a time), writes dh0c and one float32 column-sum
+//      partial of dh0 per row block of the tile.
+//   4. dW2 = g^T h, dW1 = dh0c^T ln: MMA_WGRAD (C = A^T B) into float32
+//      split-K partials over the N rows (ops/mma_plan.py wgrad_plan),
+//      summed in order.
+//   5. dln = dh0c W1 in float32: MMA_PART on W1's transposed copy (C,
+//      hidden); where the plan cuts K (few rows, hidden = 4 C long), its
+//      partials are summed in order.
 //   6. One row kernel for the LayerNorm backward (dx) and, per block of rows,
 //      the column partials of dln * nrm, dln and g; the partials of 3 and 6
 //      are then summed in order.
@@ -36,7 +45,7 @@
 // round-trip device memory (the TPU kernel kept them in VMEM); keeping the
 // hidden tensors on chip is later work.
 #include "common.cuh"
-#include "gemm.cuh"
+#include "gemm_mma.cuh"
 #include "ln.cuh"
 
 namespace flair {
@@ -115,62 +124,98 @@ void launch_bwd_ln(const T* x, const T* a, const T* g, const float* dln, const f
 }
 
 template <typename T>
-int ffn_bwd_impl(const void* x, const void* a, const void* g, const void* lns, const void* lnb,
-                 const void* w1, const void* b1, const void* w2, void* ln, void* h0, void* h,
-                 void* dh0c, void* db1_part, void* wpart, void* dln, void* row_part, void* dx,
-                 void* dvec, void* dw1, void* db1, void* dw2, int n, int c, int hidden,
-                 int k_chunk, int rows, float eps, cudaStream_t s) {
-  const int n_split = (n + k_chunk - 1) / k_chunk;
-  float* part = (float*)wpart;
-  launch_ffn_ln<T>((const T*)x, (const T*)a, (const float*)lns, (const float*)lnb, (T*)ln, n, c,
-                   eps, s);
-  launch_gemm<T, EPI_BIAS_GELU_AUX>((const T*)ln, (const T*)w1, h, n, hidden, c, (const T*)b1,
-                                    nullptr, s, 0, h0);
-  launch_gemm<T, EPI_DGELU, false, true>((const T*)g, (const T*)w2, dh0c, n, hidden, c, nullptr,
-                                         (const T*)h0, s, 0, db1_part);
-  launch_gemm<T, EPI_F32, true, true>((const T*)g, (const T*)h, part, c, hidden, n, nullptr,
-                                      nullptr, s, k_chunk);
-  launch_sum_partials(part, (float*)dw2, (long long)c * hidden, n_split, s);
-  launch_gemm<T, EPI_F32, true, true>((const T*)dh0c, (const T*)ln, part, hidden, c, n, nullptr,
-                                      nullptr, s, k_chunk);
-  launch_sum_partials(part, (float*)dw1, (long long)hidden * c, n_split, s);
-  launch_gemm<T, EPI_F32, false, true>((const T*)dh0c, (const T*)w1, dln, n, c, hidden, nullptr,
-                                       nullptr, s);
-  if (c <= 128) {
-    launch_bwd_ln<T, 4>((const T*)x, (const T*)a, (const T*)g, (const float*)dln,
-                        (const float*)lns, (T*)dx, (float*)row_part, c, eps, n, rows, s);
-  } else if (c <= 256) {
-    launch_bwd_ln<T, 8>((const T*)x, (const T*)a, (const T*)g, (const float*)dln,
-                        (const float*)lns, (T*)dx, (float*)row_part, c, eps, n, rows, s);
-  } else if (c <= 512) {
-    launch_bwd_ln<T, 16>((const T*)x, (const T*)a, (const T*)g, (const float*)dln,
-                         (const float*)lns, (T*)dx, (float*)row_part, c, eps, n, rows, s);
-  } else {
-    launch_bwd_ln<T, 32>((const T*)x, (const T*)a, (const T*)g, (const float*)dln,
-                         (const float*)lns, (T*)dx, (float*)row_part, c, eps, n, rows, s);
-  }
-  launch_sum_partials((const float*)row_part, (float*)dvec, 3ll * c, (n + rows - 1) / rows, s);
-  launch_sum_partials((const float*)db1_part, (float*)db1, hidden, (n + GEMM_BM - 1) / GEMM_BM,
-                      s);
+int ffn_bwd_impl(const T* x, const T* a, const T* g, const float* lns, const float* lnb,
+                 const T* w1, const T* b1, const T* w1t, const T* w2t, T* ln, T* h0, T* h,
+                 T* dh0c, float* db1_part, float* part, float* dln, float* row_part, T* dx,
+                 float* dvec, float* dw1, float* db1, float* dw2, int n, int c, int hidden,
+                 int tile_h, int tile_w, int k_chunk_w2, int k_chunk_w1, int tile_dln,
+                 int k_chunk_dln, int rows, float eps, cudaStream_t s) {
+  launch_ffn_ln<T>(x, a, lns, lnb, ln, n, c, eps, s);
+  int e = gemm_tile<T, MMA_GELU_AUX>(tile_h, ln, w1, h, n, hidden, c, c, 1, b1, nullptr, nullptr,
+                                     s, nullptr, MmaPlainA{}, h0);
+  if (!e)
+    e = gemm_tile<T, MMA_DGELU>(tile_h, g, w2t, dh0c, n, hidden, c, c, 1, nullptr, nullptr, h0,
+                                s, nullptr, MmaPlainA{}, db1_part);
+  if (!e) e = gemm_wgrad<T>(tile_w, g, h, part, dw2, c, hidden, n, k_chunk_w2, s);
+  if (!e) e = gemm_wgrad<T>(tile_w, dh0c, ln, part, dw1, hidden, c, n, k_chunk_w1, s);
+  const int nz_dln = (hidden + k_chunk_dln - 1) / k_chunk_dln;
+  if (!e)
+    e = gemm_tile<T, MMA_PART>(tile_dln, dh0c, w1t, nz_dln > 1 ? part : dln, n, c, hidden,
+                               k_chunk_dln, nz_dln, nullptr, nullptr, nullptr, s, nullptr);
+  if (e) return e;
+  if (nz_dln > 1) launch_sum_partials(part, dln, (long long)n * c, nz_dln, s);
+  if (c <= 128)
+    launch_bwd_ln<T, 4>(x, a, g, dln, lns, dx, row_part, c, eps, n, rows, s);
+  else if (c <= 256)
+    launch_bwd_ln<T, 8>(x, a, g, dln, lns, dx, row_part, c, eps, n, rows, s);
+  else if (c <= 512)
+    launch_bwd_ln<T, 16>(x, a, g, dln, lns, dx, row_part, c, eps, n, rows, s);
+  else
+    launch_bwd_ln<T, 32>(x, a, g, dln, lns, dx, row_part, c, eps, n, rows, s);
+  launch_sum_partials(row_part, dvec, 3ll * c, (n + rows - 1) / rows, s);
+  const int bm = mma_tile_bm(tile_h);
+  launch_sum_partials(db1_part, db1, hidden, (n + bm - 1) / bm, s);
   return (int)cudaGetLastError();
+}
+
+// the resources of K7's product kernels at tile code `tile`: epi 0 fc1
+// (MMA_GELU_AUX), 1 dh (MMA_DGELU), 2 the weight gradients (MMA_WGRAD), 3
+// dln (MMA_PART)
+template <typename T>
+int bwd_gemm_info(int tile, int epi, int* info) {
+  switch (epi) {
+    case 0:
+      return gemm_tile<T, MMA_GELU_AUX>(tile, nullptr, nullptr, nullptr, 0, 0, 0, 0, 1, nullptr,
+                                        nullptr, nullptr, 0, info);
+    case 1:
+      return gemm_tile<T, MMA_DGELU>(tile, nullptr, nullptr, nullptr, 0, 0, 0, 0, 1, nullptr,
+                                     nullptr, nullptr, 0, info);
+    case 2:
+      return gemm_wgrad<T>(tile, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 1, 0, info);
+    case 3:
+      return gemm_tile<T, MMA_PART>(tile, nullptr, nullptr, nullptr, 0, 0, 0, 0, 1, nullptr,
+                                    nullptr, nullptr, 0, info);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flair
 
 using namespace flair;
 
+// tile_h (fc1 and dh), tile_w, tile_dln: ops/mma_plan.py tile codes; part:
+// the float32 partials of the weight gradients and of dln (where
+// k_chunk_dln < hidden), sized by ops/ffn.py _bwd_plan; db1_part: one row of
+// hidden per row block of tile_h
 extern "C" int ffn_bwd(const void* x, const void* a, const void* g, const void* lns,
-                       const void* lnb, const void* w1, const void* b1, const void* w2, void* ln,
-                       void* h0, void* h, void* dh0c, void* db1_part, void* wpart, void* dln,
-                       void* row_part, void* dx, void* dvec, void* dw1, void* db1, void* dw2,
-                       int n, int c, int hidden, int k_chunk, int rows, float eps, int dtype,
-                       void* stream) {
+                       const void* lnb, const void* w1, const void* b1, const void* w1t,
+                       const void* w2t, void* ln, void* h0, void* h, void* dh0c, void* db1_part,
+                       void* part, void* dln, void* row_part, void* dx, void* dvec, void* dw1,
+                       void* db1, void* dw2, int n, int c, int hidden, int tile_h, int tile_w,
+                       int k_chunk_w2, int k_chunk_w1, int tile_dln, int k_chunk_dln, int rows,
+                       float eps, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return ffn_bwd_impl<float>(x, a, g, lns, lnb, w1, b1, w2, ln, h0, h, dh0c, db1_part, wpart,
-                               dln, row_part, dx, dvec, dw1, db1, dw2, n, c, hidden, k_chunk,
-                               rows, eps, s);
-  return ffn_bwd_impl<bf16>(x, a, g, lns, lnb, w1, b1, w2, ln, h0, h, dh0c, db1_part, wpart, dln,
-                            row_part, dx, dvec, dw1, db1, dw2, n, c, hidden, k_chunk, rows, eps,
-                            s);
+  float *pd = (float*)db1_part, *pp = (float*)part, *pl = (float*)dln, *pr = (float*)row_part;
+  float *vd = (float*)dvec, *v1 = (float*)dw1, *vb = (float*)db1, *v2 = (float*)dw2;
+  if (dtype == 0) {
+    using T = float;
+    return ffn_bwd_impl<T>((const T*)x, (const T*)a, (const T*)g, (const float*)lns,
+                           (const float*)lnb, (const T*)w1, (const T*)b1, (const T*)w1t,
+                           (const T*)w2t, (T*)ln, (T*)h0, (T*)h, (T*)dh0c, pd, pp, pl, pr,
+                           (T*)dx, vd, v1, vb, v2, n, c, hidden, tile_h, tile_w,
+                           k_chunk_w2, k_chunk_w1, tile_dln, k_chunk_dln, rows, eps, s);
+  }
+  using T = bf16;
+  return ffn_bwd_impl<T>((const T*)x, (const T*)a, (const T*)g, (const float*)lns,
+                         (const float*)lnb, (const T*)w1, (const T*)b1, (const T*)w1t,
+                         (const T*)w2t, (T*)ln, (T*)h0, (T*)h, (T*)dh0c, pd, pp, pl, pr, (T*)dx,
+                         vd, v1, vb, v2, n, c, hidden, tile_h, tile_w, k_chunk_w2,
+                         k_chunk_w1, tile_dln, k_chunk_dln, rows, eps, s);
+}
+
+// the resources of K7's product kernel with tile code `tile` and product
+// `epi` (0 fc1, 1 dh, 2 the weight gradients, 3 dln) in `dtype`: out =
+// int[4] registers, local bytes, shared bytes, blocks per SM
+extern "C" int ffn_bwd_gemm_info(int dtype, int tile, int epi, int* out) {
+  return dtype == 0 ? bwd_gemm_info<float>(tile, epi, out) : bwd_gemm_info<bf16>(tile, epi, out);
 }

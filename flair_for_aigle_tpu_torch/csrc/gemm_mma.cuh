@@ -1,14 +1,17 @@
 // Tensor-core GEMM with a cp.async pipeline and an epilogue straight from
-// the accumulator registers, for the ffn's two products (gemm_mlp below:
-// K3 in ffn.cu and K8 in finish.cu), K2's qkv and output projections
-// (window_attn.cu), K6's qkv recompute (window_attn_bwd.cu) and its do, dx
-// and weight-gradient products (window_attn_bwd_gemm.cu), and K5's
-// reduction (merge.cu, whose A a producer gathers and normalises as it
-// lands: MmaPlainA below), in two operand layouts:
+// the accumulator registers, for every product of the port: the ffn's two
+// (gemm_mlp below: K3 in ffn.cu and K8 in finish.cu), K2's qkv and output
+// projections (window_attn.cu), K6's qkv recompute (window_attn_bwd.cu)
+// and its do, dx and weight-gradient products (window_attn_bwd_gemm.cu),
+// K5's reduction (merge.cu, whose A a producer gathers and normalises as
+// it lands: MmaPlainA below), and K7's five (ffn_bwd.cu: the fc1
+// recompute, dh, dln and the two weight gradients), in two operand
+// layouts:
 //
-//   C = A W^T   A (M, K) row-major, W (N, K) row-major (the nn.Linear layout)
+//   C = A W^T   A (M, K) row-major, W (N, K) row-major (the nn.Linear layout;
+//               a product A B takes B's transposed copy as W)
 //   C = A^T B   A (K, M) row-major, B (K, N) row-major (MMA_WGRAD: the
-//               weight gradients, reduced over K = every window row)
+//               weight gradients, reduced over K = every row)
 //
 // bf16 runs mma.sync.m16n8k16 (float32 accumulate). float32 runs the same
 // skeleton as 3xTF32 on mma.sync.m16n8k8 (core_util.cuh: each operand
@@ -72,12 +75,27 @@
 //                  sums K range [z k_chunk, (z + 1) k_chunk); the split-K
 //                  partials of fc2, which resid_sum_kernel adds in the order
 //                  z = 0, 1, ... before it applies MMA_RESID's epilogue (no
-//                  atomics: two calls give the same bits), and of K5's
-//                  reduction at few rows (merge.cu sum_round_kernel)
+//                  atomics: two calls give the same bits), of K5's
+//                  reduction at few rows (merge.cu sum_round_kernel), and
+//                  K7's dln = dh0c W1 (on W1's transposed copy; its
+//                  partials summed by sum_partials_kernel where K is cut)
 //       MMA_ROUND  out = rnd(acc)                   (K6's do = g Wproj and
 //                  dx = dqkv Wqkv, W the weight's transposed copy; K5)
 //       MMA_WGRAD  C = A^T B, out = acc as MMA_PART (K6's dWproj = g^T o and
-//                  dWqkv = dqkv^T x; sum_partials_kernel adds them in order)
+//                  dWqkv = dqkv^T x, K7's dW2 = g^T h and dW1 = dh0c^T ln;
+//                  sum_partials_kernel adds them in order)
+//     and two with a second output (gemm_mma_aux_kernel, its `aux`), K7's:
+//       MMA_GELU_AUX  h0 = rnd(rnd(acc) + b[n]) to aux (T); out = GELU(h0):
+//                  MMA_GELU's expression, so that at fc1's tile the
+//                  recomputed h is K3's forward h bit for bit
+//       MMA_DGELU  d = acc gelu'(z), z = ra[m, n] (h0, read 16 bytes at a
+//                  time as MMA_RESID reads x and a); out = rnd(d); and the
+//                  block's float32 column sums of d (before rounding) to
+//                  aux[blockIdx.y N + n], one partial per row block: each
+//                  lane sums its MT x 2 rows, xor-shuffles 4, 8 and 16 add
+//                  the 8 lanes that share a column group, and shared memory
+//                  adds the two warp rows, warp row 0 first (a fixed order;
+//                  rows past M add nothing and are never read)
 #pragma once
 
 #include <type_traits>
@@ -87,10 +105,25 @@
 
 namespace flair {
 
-enum { MMA_GELU = 0, MMA_RESID = 1, MMA_PART = 2, MMA_BIAS = 3, MMA_ROUND = 4, MMA_WGRAD = 5 };
+// the codes are template arguments that tools/profile_train_step.py reads
+// from the kernels' names: a new epilogue takes the next code
+enum {
+  MMA_GELU = 0,
+  MMA_RESID = 1,
+  MMA_PART = 2,
+  MMA_BIAS = 3,
+  MMA_ROUND = 4,
+  MMA_WGRAD = 5,
+  MMA_GELU_AUX = 6,
+  MMA_DGELU = 7
+};
 
 // whether the epilogue's product is C = A^T B (else C = A W^T)
 template <int EPI> __host__ __device__ constexpr bool mma_tn() { return EPI == MMA_WGRAD; }
+// whether the epilogue writes a second output (gemm_mma_aux_kernel)
+template <int EPI> __host__ __device__ constexpr bool mma_aux() {
+  return EPI == MMA_GELU_AUX || EPI == MMA_DGELU;
+}
 
 constexpr int MMA_THREADS = 256;
 
@@ -199,6 +232,13 @@ __device__ __forceinline__ void resid8(const T* x, const T* a, const float (&b)[
   for (int c = 0; c < 8; ++c) o[c] = (rnd<T>(xv[c] + av[c]) + b[c]) + acc[c];
 }
 
+// the derivative of the exact GELU (common.cuh gelu_f), Phi(z) + z phi(z),
+// in float32 (the reference's _gelu_grad)
+__device__ __forceinline__ float gelu_grad_f(float z) {
+  return 0.5f * (1.f + erff(z * 0.7071067811865476f)) +
+         z * expf(-0.5f * z * z) * 0.3989422804014327f;
+}
+
 }  // namespace
 
 // A's producer, the policy of gemm_mma_tile. MmaPlainA: A (M, K)
@@ -229,7 +269,7 @@ __device__ __forceinline__ void gemm_mma_tile(const T* __restrict__ A, const T* 
                                               void* __restrict__ out, int M, int N, int K,
                                               int k_chunk, const T* __restrict__ bias,
                                               const T* __restrict__ rx, const T* __restrict__ ra,
-                                              const AP& ap) {
+                                              const AP& ap, void* __restrict__ aux) {
   constexpr bool F32 = mma_f32<T>();
   constexpr bool LN = AP::kLN;
   constexpr int S = MMA_STAGES;
@@ -585,9 +625,18 @@ __device__ __forceinline__ void gemm_mma_tile(const T* __restrict__ A, const T* 
   const int g = lane >> 2, t = lane & 3;
   // this lane's eight bias values of each quad span (the epilogues that
   // add a bias)
-  constexpr bool BIAS = EPI == MMA_GELU || EPI == MMA_RESID || EPI == MMA_BIAS;
+  constexpr bool BIAS =
+      EPI == MMA_GELU || EPI == MMA_RESID || EPI == MMA_BIAS || EPI == MMA_GELU_AUX;
   constexpr bool PART = EPI == MMA_PART || EPI == MMA_WGRAD;
+  constexpr bool DGELU = EPI == MMA_DGELU;
   float bq[NT / 4][8];
+  // MMA_DGELU: this lane's float32 column sums of d over its rows, for
+  // each quad span's eight columns
+  float cs[DGELU ? NT / 4 : 1][8];
+#pragma unroll
+  for (int q = 0; q < (DGELU ? NT / 4 : 1); ++q)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) cs[q][c] = 0.f;
 #pragma unroll
   for (int q = 0; q < NT / 4; ++q) {
     const int n = n0 + wn * WN + 32 * q + 8 * t;
@@ -631,6 +680,22 @@ __device__ __forceinline__ void gemm_mma_tile(const T* __restrict__ A, const T* 
           } else if constexpr (EPI == MMA_ROUND) {
 #pragma unroll
             for (int e = 0; e < 8; ++e) o[e] = v[e];  // st8 rounds
+          } else if constexpr (EPI == MMA_GELU_AUX) {
+            float h0[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              h0[e] = rnd<T>(rnd<T>(v[e]) + bq[q][e]);
+              o[e] = gelu_f(h0[e]);
+            }
+            st8<T>(reinterpret_cast<T*>(aux) + idx, h0);
+          } else if constexpr (DGELU) {
+            float z[8];
+            ld8<T>(ra + idx, z);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              o[e] = v[e] * gelu_grad_f(z[e]);  // st8 rounds
+              cs[q][e] += o[e];
+            }
           } else {
 #pragma unroll
             for (int e = 0; e < 8; ++e) o[e] = gelu_f(rnd<T>(rnd<T>(v[e]) + bq[q][e]));
@@ -638,6 +703,35 @@ __device__ __forceinline__ void gemm_mma_tile(const T* __restrict__ A, const T* 
           st8<T>(reinterpret_cast<T*>(out) + idx, o);
         }
       }
+  if constexpr (DGELU) {
+    // the 8 lanes of a column group (g = 0 .. 7 at one t), then the two
+    // warp rows through shared memory after the pipeline's buffers, warp
+    // row 0 first: one partial of the block's BM rows per column
+    float* red = reinterpret_cast<float*>(smem + mma_smem_bytes<T, BM, BN, TN>());
+#pragma unroll
+    for (int q = 0; q < NT / 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int sh = 4; sh <= 16; sh <<= 1) cs[q][e] += __shfl_xor_sync(0xffffffffu, cs[q][e], sh);
+    if (wm == 1 && g == 0) {
+#pragma unroll
+      for (int q = 0; q < NT / 4; ++q) st8<float>(red + wn * WN + 32 * q + 8 * t, cs[q]);
+    }
+    __syncthreads();
+    if (wm == 0 && g == 0) {
+#pragma unroll
+      for (int q = 0; q < NT / 4; ++q) {
+        const int n = n0 + wn * WN + 32 * q + 8 * t;
+        if (n >= N) continue;
+        float r[8];
+        ld8<float>(red + wn * WN + 32 * q + 8 * t, r);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) r[e] = cs[q][e] + r[e];
+        st8<float>(reinterpret_cast<float*>(aux) + (long long)blockIdx.y * N + n, r);
+      }
+    }
+  }
 }
 
 template <typename T, int BM, int BN, int EPI>
@@ -645,7 +739,17 @@ __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
     gemm_mma_kernel(const T* __restrict__ A, const T* __restrict__ W, void* __restrict__ out,
                     int M, int N, int K, int k_chunk, const T* __restrict__ bias,
                     const T* __restrict__ rx, const T* __restrict__ ra) {
-  gemm_mma_tile<T, BM, BN, EPI>(A, W, out, M, N, K, k_chunk, bias, rx, ra, MmaPlainA{});
+  gemm_mma_tile<T, BM, BN, EPI>(A, W, out, M, N, K, k_chunk, bias, rx, ra, MmaPlainA{}, nullptr);
+}
+
+// the same for the epilogues with a second output (mma_aux: K7's
+// MMA_GELU_AUX and MMA_DGELU), `aux`; ra: MMA_DGELU's h0
+template <typename T, int BM, int BN, int EPI>
+__global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
+    gemm_mma_aux_kernel(const T* __restrict__ A, const T* __restrict__ W, void* __restrict__ out,
+                        int M, int N, int K, int k_chunk, const T* __restrict__ bias,
+                        const T* __restrict__ ra, void* __restrict__ aux) {
+  gemm_mma_tile<T, BM, BN, EPI>(A, W, out, M, N, K, k_chunk, bias, nullptr, ra, MmaPlainA{}, aux);
 }
 
 // the same with an LN producer of A (K5)
@@ -653,7 +757,8 @@ template <typename T, int BM, int BN, int EPI, class AP>
 __global__ void __launch_bounds__(MMA_THREADS, MMA_MIN_BLOCKS)
     gemm_mma_ln_kernel(const T* __restrict__ A, const T* __restrict__ W, void* __restrict__ out,
                        int M, int N, int K, int k_chunk, const AP ap) {
-  gemm_mma_tile<T, BM, BN, EPI>(A, W, out, M, N, K, k_chunk, nullptr, nullptr, nullptr, ap);
+  gemm_mma_tile<T, BM, BN, EPI>(A, W, out, M, N, K, k_chunk, nullptr, nullptr, nullptr, ap,
+                                nullptr);
 }
 
 // fc2's split-K reduction and epilogue: out = (rnd(x + a) + b[n]) + sum_z
@@ -681,6 +786,8 @@ __global__ void __launch_bounds__(256)
 template <typename T, int BM, int BN, int EPI, class AP> constexpr auto mma_kernel() {
   if constexpr (AP::kLN)
     return gemm_mma_ln_kernel<T, BM, BN, EPI, AP>;
+  else if constexpr (mma_aux<EPI>())
+    return gemm_mma_aux_kernel<T, BM, BN, EPI>;
   else
     return gemm_mma_kernel<T, BM, BN, EPI>;
 }
@@ -688,15 +795,18 @@ template <typename T, int BM, int BN, int EPI, class AP> constexpr auto mma_kern
 // Launch one product with tile BM x BN: grid (N / BN, M / BM, nz), block z
 // over K range [z k_chunk, (z + 1) k_chunk); MMA_WGRAD's A is (K, M) and W
 // its B (K, N); `ap` produces A (an LN producer: A is only a valid
-// address). With `info` set, launch nothing and write the kernel's
-// resources there (core_util.cuh kernel_info).
+// address); `aux` is the second output of MMA_GELU_AUX and MMA_DGELU. With
+// `info` set, launch nothing and write the kernel's resources there
+// (core_util.cuh kernel_info).
 template <typename T, int BM, int BN, int EPI, class AP = MmaPlainA>
 int launch_gemm_mma(const T* A, const T* W, void* out, int M, int N, int K, int k_chunk, int nz,
                     const T* bias, const T* rx, const T* ra, cudaStream_t stream, int* info,
-                    const AP& ap = AP()) {
+                    const AP& ap = AP(), void* aux = nullptr) {
   const auto kernel = mma_kernel<T, BM, BN, EPI, AP>();
-  // an LN producer's row statistics after the pipeline's buffers
-  const size_t smem = mma_smem_bytes<T, BM, BN, mma_tn<EPI>()>() + (AP::kLN ? 8 * BM : 0);
+  // after the pipeline's buffers: an LN producer's row statistics, or
+  // MMA_DGELU's column sums of one warp row
+  const size_t smem = mma_smem_bytes<T, BM, BN, mma_tn<EPI>()>() + (AP::kLN ? 8 * BM : 0) +
+                      (EPI == MMA_DGELU ? 4 * BN : 0);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
@@ -707,10 +817,15 @@ int launch_gemm_mma(const T* A, const T* W, void* out, int M, int N, int K, int 
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, nz);
   if constexpr (AP::kLN)
     kernel<<<grid, MMA_THREADS, smem, stream>>>(A, W, out, M, N, K, k_chunk, ap);
+  else if constexpr (mma_aux<EPI>())
+    kernel<<<grid, MMA_THREADS, smem, stream>>>(A, W, out, M, N, K, k_chunk, bias, ra, aux);
   else
     kernel<<<grid, MMA_THREADS, smem, stream>>>(A, W, out, M, N, K, k_chunk, bias, rx, ra);
   return 0;
 }
+
+// rows of C a block takes at tile code `tile` (ops/mma_plan.py MMA_TILES)
+inline int mma_tile_bm(int tile) { return tile == 0 ? 128 : 64; }
 
 // The tile codes of ops/mma_plan.py MMA_TILES: one product with the tile
 // that `tile` names (see launch_gemm_mma). Each .cu file that calls it
@@ -718,17 +833,17 @@ int launch_gemm_mma(const T* A, const T* W, void* out, int M, int N, int K, int 
 template <typename T, int EPI, class AP = MmaPlainA>
 int gemm_tile(int tile, const T* A, const T* W, void* out, int M, int N, int K, int k_chunk,
               int nz, const T* bias, const T* rx, const T* ra, cudaStream_t s, int* info,
-              const AP& ap = AP()) {
+              const AP& ap = AP(), void* aux = nullptr) {
   switch (tile) {
     case 0:  // bf16 C = A W^T only: float32's would hold one block an SM,
              // and bf16 C = A^T B's address arithmetic spills at 128 registers
       if constexpr (!mma_f32<T>() && !mma_tn<EPI>())
         return launch_gemm_mma<T, 128, 128, EPI, AP>(A, W, out, M, N, K, k_chunk, nz, bias, rx,
-                                                     ra, s, info, ap);
+                                                     ra, s, info, ap, aux);
       break;
     case 1:
       return launch_gemm_mma<T, 64, 128, EPI, AP>(A, W, out, M, N, K, k_chunk, nz, bias, rx, ra,
-                                                  s, info, ap);
+                                                  s, info, ap, aux);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -95,10 +95,14 @@ _SIGNATURES = {
     # dtype, g, v, out (int[4]: registers, local bytes, shared bytes, blocks
     # per SM)
     "finish_info": [_I] * 3 + [_P],
-    # x, attn, g, ln_scale, ln_bias, w1, b1, w2, ln, h0, h, dh0c, db1_part,
-    # wpart, dln, row_part, dx, dvec, dw1, db1, dw2,
-    # n, c, hidden, k_chunk, rows, eps, dtype, stream
-    "ffn_bwd": [_P] * 21 + [_I] * 5 + [_F, _I, _P],
+    # x, attn, g, ln_scale, ln_bias, w1, b1, w1t, w2t, ln, h0, h, dh0c,
+    # db1_part, part, dln, row_part, dx, dvec, dw1, db1, dw2,
+    # n, c, hidden, tile_h, tile_w, k_chunk_w2, k_chunk_w1, tile_dln,
+    # k_chunk_dln, rows, eps, dtype, stream
+    "ffn_bwd": [_P] * 22 + [_I] * 10 + [_F, _I, _P],
+    # dtype, tile, product (0 fc1, 1 dh, 2 weight gradients, 3 dln), out
+    # (int[4]: registers, local bytes, shared bytes, blocks per SM)
+    "ffn_bwd_gemm_info": [_I] * 3 + [_P],
     # q, k, v, out, bnw, t, c, nh, bw, stream
     "attn_dots_per_head": [_P] * 4 + [_I] * 5 + [_P],
     "attn_dots_grouped": [_P] * 4 + [_I] * 5 + [_P],

@@ -21,6 +21,10 @@ reference's custom VJP does (``ffn.py:464-475``): ``kernel`` runs K7
 _build_bwd_call`` and the LayerNorm epilogue of ``_kernel_bwd`` :370) on
 CUDA tensors and K7's plain version on CPU tensors; anything else, the
 reference's default, recomputes through the plain forward under autograd.
+K7's five products run on ``gemm_mma.cuh`` too (fc1 recomputed at K3's
+tile with h0 kept, dh with the GELU derivative and db1's partials in its
+epilogue, dln and the two weight gradients), planned by ``_bwd_plan``;
+``ffn_bwd_gemm_info`` reports their kernels' resources.
 """
 
 from __future__ import annotations
@@ -32,7 +36,16 @@ import torch
 
 from flair_for_aigle_tpu_torch.ops import _build
 from flair_for_aigle_tpu_torch.ops._vjp import plain_vjp
-from flair_for_aigle_tpu_torch.ops.mma_plan import MMA_TILES, PLAN_TILES, gemm_plan, n_sm
+from typing import NamedTuple
+
+from flair_for_aigle_tpu_torch.ops.mma_plan import (
+    MMA_TILES,
+    PLAN_TILES,
+    WGRAD_TILE,
+    gemm_plan,
+    n_sm,
+    wgrad_plan,
+)
 
 
 def gelu_exact(h: torch.Tensor) -> torch.Tensor:
@@ -186,6 +199,13 @@ def ffn_info(c: int, hidden: int, dtype=torch.bfloat16, n: int | None = None) ->
     return info
 
 
+def _matmul(a, b):
+    """a @ b: the one helper through which K7's plain version takes its five
+    products (fc1, dh, dW2, dW1, dln), so that a test can run them as the
+    card's tensor cores take them (``tests/_tf32.py``)."""
+    return torch.matmul(a, b)
+
+
 def fused_ln_mlp_residual_backward_reference(x, attn, ln_scale, ln_bias, w1, b1,
                                              w2, g, *, eps: float = 1e-5) -> tuple:
     """K7's plain version, step by step in the rounding order of the Pallas
@@ -195,9 +215,9 @@ def fused_ln_mlp_residual_backward_reference(x, attn, ln_scale, ln_bias, w1, b1,
     dh = g W2 in float32, dh0 = dh * gelu'(h0) with gelu' = Phi + z phi in
     float32, db1 = sum dh0; dh0c = rnd(dh0) for dW1 = dh0c^T ln and dln =
     dh0c W1 (float32); the LayerNorm backward in float32 and dx = rnd(g +
-    dx2) = dattn. Returns (dx, dattn, dln_scale, dln_bias, dw1, db1, dw2,
-    db2), the weight gradients in the ``nn.Linear`` layout and the inputs'
-    dtypes (db2 in w2's)."""
+    dx2) = dattn. The products go through ``_matmul``. Returns (dx, dattn,
+    dln_scale, dln_bias, dw1, db1, dw2, db2), the weight gradients in the
+    ``nn.Linear`` layout and the inputs' dtypes (db2 in w2's)."""
     shape = x.shape
     dt = x.dtype
     c = shape[-1]
@@ -206,19 +226,19 @@ def fused_ln_mlp_residual_backward_reference(x, attn, ln_scale, ln_bias, w1, b1,
     rstd = torch.rsqrt(((x2 - mean) ** 2).mean(-1, keepdim=True) + eps)
     nrm = (x2 - mean) * rstd
     ln = (nrm * ln_scale.float() + ln_bias.float()).to(dt)
-    h0 = torch.matmul(ln, w1.to(dt).t()) + b1.to(dt)
+    h0 = _matmul(ln, w1.to(dt).t()) + b1.to(dt)
     h = gelu_exact(h0)
     gc = g.reshape(-1, c).to(dt).float()
     db2 = gc.sum(0)
-    dw2 = gc.t() @ h.float()
+    dw2 = _matmul(gc.t(), h.float())
     z = h0.float()
     dgelu = (0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
              + z * torch.exp(-0.5 * z * z) * 0.3989422804014327)
-    dh0 = (gc @ w2.to(dt).float()) * dgelu
+    dh0 = _matmul(gc, w2.to(dt).float()) * dgelu
     db1 = dh0.sum(0)
     dh0c = dh0.to(dt).float()
-    dw1 = dh0c.t() @ ln.float()
-    dln = dh0c @ w1.to(dt).float()
+    dw1 = _matmul(dh0c.t(), ln.float())
+    dln = _matmul(dh0c, w1.to(dt).float())
     dlns = (dln * nrm).sum(0)
     dlnb = dln.sum(0)
     dnrm = dln * ln_scale.float()
@@ -231,15 +251,49 @@ def fused_ln_mlp_residual_backward_reference(x, attn, ln_scale, ln_bias, w1, b1,
             dw2.to(w2.dtype), db2.to(w2.dtype))
 
 
-def _bwd_plan(n: int, c: int, hidden: int, n_sm: int) -> tuple[int, int]:
-    """(k_chunk of the weight-gradient GEMMs, rows per block of the
-    LayerNorm-backward pass): about two blocks per SM in each launch."""
-    want = 2 * n_sm
-    tiles = _ceil(c, 128) * _ceil(hidden, 64)
-    n_split = max(1, min(_ceil(want, tiles), _ceil(n, 256)))
-    k_chunk = _ceil(_ceil(n, n_split), 32) * 32
-    rows = max(8, _ceil(n, 2 * want))
-    return k_chunk, rows
+#: most rows one of K7's weight-gradient partials sums. The tensor cores
+#: add each k step's products into the float32 accumulator without
+#: rounding to nearest, so a partial's error grows with its rows (about
+#: as its rows times the square root of n): at 81920 rows, partials of
+#: 2496 put dW2 at twice the backward's elementwise bound on the H100,
+#: partials of 1008 at 32768 rows at 0.43 of it. Shorter partials, added
+#: in order in float32 by sum_partials_kernel, keep it well inside; a
+#: whole number of pipeline steps in either dtype.
+WGRAD_ROWS = 512
+
+
+class BwdPlan(NamedTuple):
+    """K7's launch plan at n rows of C (tile codes of ``ops/mma_plan.py``)."""
+    tile_h: int       # fc1's and dh's tile (n x hidden over C): K3's fc1 tile
+    tile_w: int       # the weight gradients' tile
+    k_chunk_w2: int   # rows of each dW2 partial
+    k_chunk_w1: int   # rows of each dW1 partial
+    tile_dln: int     # dln's tile
+    k_chunk_dln: int  # hidden columns each dln partial sums (hidden: not split)
+    rows: int         # rows per block of the LayerNorm-backward pass
+    db1_blocks: int   # db1's float32 partials: one per row block of tile_h
+    part: int         # float32 elements of the partials' buffer
+
+
+def _bwd_plan(n: int, c: int, hidden: int, n_sm: int, dtype) -> BwdPlan:
+    """K7's plan on a card of ``n_sm`` SMs: fc1 and dh take the tile of
+    ``mlp_plan``'s fc1 (``gemm_plan`` at n x hidden over C), so that the
+    recomputed h is K3's; dW2 (C, hidden) and dW1 (hidden, C) the
+    ``wgrad_plan`` over the n rows, in partials of at most ``WGRAD_ROWS``
+    rows; dln ``gemm_plan`` at n x C over hidden, K cut where the smallest
+    tile leaves SMs idle; the LayerNorm-backward pass about two blocks per
+    SM. The three split products run one after
+    another, so one buffer holds the partials of each in turn, sized for
+    the largest."""
+    tile_h, _, _ = gemm_plan(n, hidden, c, n_sm, dtype)
+    tile_w, k_w2, _ = wgrad_plan(c, hidden, n, n_sm, dtype)
+    _, k_w1, _ = wgrad_plan(hidden, c, n, n_sm, dtype)
+    k_w2, k_w1 = min(k_w2, WGRAD_ROWS), min(k_w1, WGRAD_ROWS)
+    nz_w2, nz_w1 = _ceil(n, k_w2), _ceil(n, k_w1)
+    tile_dln, k_dln, nz_dln = gemm_plan(n, c, hidden, n_sm, dtype, split=True)
+    part = max(nz_w2 * c * hidden, nz_w1 * hidden * c, nz_dln * n * c if nz_dln > 1 else 0)
+    return BwdPlan(tile_h, tile_w, k_w2, k_w1, tile_dln, k_dln, max(8, _ceil(n, 4 * n_sm)),
+                   _ceil(n, MMA_TILES[tile_h][0]), part)
 
 
 def fused_ln_mlp_residual_backward(g, x, attn, ln_scale, ln_bias, w1, b1, w2,
@@ -278,7 +332,9 @@ def fused_ln_mlp_residual_backward(g, x, attn, ln_scale, ln_bias, w1, b1, w2,
             or w2c.shape != (c, hidden) or lns.shape != (c,) or lnb.shape != (c,)):
         raise ValueError(f"{what}: parameter shapes do not match x")
     n = x.numel() // c
-    k_chunk, rows = _bwd_plan(n, c, hidden, n_sm(dev))
+    plan = _bwd_plan(n, c, hidden, n_sm(dev), dt)
+    # dh = g W2 and dln = dh0c W1 as C = A W^T on the transposed copies
+    w1t, w2t = (_build.aligned(w.t().contiguous()) for w in (w1c, w2c))
 
     def f32(*s):
         return torch.empty(s, dtype=torch.float32, device=dev)
@@ -287,19 +343,19 @@ def fused_ln_mlp_residual_backward(g, x, attn, ln_scale, ln_bias, w1, b1, w2,
         return torch.empty(s, dtype=dt, device=dev)
 
     ln, h0, h, dh0c = cdt(n, c), cdt(n, hidden), cdt(n, hidden), cdt(n, hidden)
-    db1_part = f32(_ceil(n, 128), hidden)
-    wpart = f32(_ceil(n, k_chunk) * c * hidden)
-    dln, row_part = f32(n, c), f32(_ceil(n, rows), 3 * c)
+    db1_part, part = f32(plan.db1_blocks, hidden), f32(plan.part)
+    dln, row_part = f32(n, c), f32(_ceil(n, plan.rows), 3 * c)
     dx = torch.empty(shape, dtype=dt, device=dev)
     dvec, dw1, db1, dw2 = f32(3, c), f32(hidden, c), f32(hidden), f32(c, hidden)
     rc = _build.lib().ffn_bwd(
         xc.data_ptr(), ac.data_ptr(), gc.data_ptr(), lns.data_ptr(),
-        lnb.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w2c.data_ptr(),
-        ln.data_ptr(), h0.data_ptr(), h.data_ptr(), dh0c.data_ptr(),
-        db1_part.data_ptr(), wpart.data_ptr(), dln.data_ptr(),
+        lnb.data_ptr(), w1c.data_ptr(), b1c.data_ptr(), w1t.data_ptr(),
+        w2t.data_ptr(), ln.data_ptr(), h0.data_ptr(), h.data_ptr(),
+        dh0c.data_ptr(), db1_part.data_ptr(), part.data_ptr(), dln.data_ptr(),
         row_part.data_ptr(), dx.data_ptr(), dvec.data_ptr(), dw1.data_ptr(),
-        db1.data_ptr(), dw2.data_ptr(), n, c, hidden, k_chunk, rows,
-        float(eps), _build.dtype_code(x), _build.stream_ptr(x))
+        db1.data_ptr(), dw2.data_ptr(), n, c, hidden, plan.tile_h, plan.tile_w,
+        plan.k_chunk_w2, plan.k_chunk_w1, plan.tile_dln, plan.k_chunk_dln,
+        plan.rows, float(eps), _build.dtype_code(x), _build.stream_ptr(x))
     _build.check(rc, "ffn_bwd")
     fused_ln_mlp_residual_backward.launches += 1
     dlns, dlnb, db2 = dvec
@@ -309,3 +365,28 @@ def fused_ln_mlp_residual_backward(g, x, attn, ln_scale, ln_bias, w1, b1, w2,
 
 
 fused_ln_mlp_residual_backward.launches = 0
+
+#: ffn_bwd_gemm_info's products: the C entry's code of each
+_BWD_PRODUCTS = {"fc1": 0, "dh": 1, "wgrad": 2, "dln": 3}
+
+
+def ffn_bwd_gemm_info(dtype=torch.bfloat16) -> dict:
+    """The resources of K7's product kernels (``gemm_mma.cuh``) in
+    ``dtype`` on the current card, as the CUDA runtime reports them:
+    registers per thread, local (spill) bytes per thread, shared bytes per
+    block and resident blocks per SM, keyed ``"fc1 128x128"`` (fc1's
+    recompute, ``MMA_GELU_AUX``), ``"dh 64x128"`` (``MMA_DGELU``), ``"dln
+    64x128"`` (``MMA_PART``) at every tile of the dtype's plan, and
+    ``"wgrad 64x128"`` (``MMA_WGRAD``, ``mma_plan.WGRAD_TILE``)."""
+    code = 0 if dtype == torch.float32 else 1
+    kernels = [(p, t) for p in ("fc1", "dh", "dln") for t in PLAN_TILES[dtype]]
+    info = {}
+    for name, tile in kernels + [("wgrad", WGRAD_TILE)]:
+        out = (ctypes.c_int * 4)()
+        rc = _build.lib().ffn_bwd_gemm_info(code, tile, _BWD_PRODUCTS[name],
+                                            ctypes.addressof(out))
+        _build.check(rc, "ffn_bwd_gemm_info")
+        bm, bn = MMA_TILES[tile]
+        info[f"{name} {bm}x{bn}"] = dict(
+            zip(("regs", "spill_bytes", "shared_bytes", "blocks_per_sm"), out))
+    return info

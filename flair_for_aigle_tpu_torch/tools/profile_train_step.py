@@ -26,9 +26,12 @@ with the rounding and weight-gradient epilogues, K6's do, dx, dWproj and
 dWqkv (``gemm_tallies`` splits them by the kernel's epilogue template
 argument); ``merge_gemms``: K5's ``gemm_mma_ln_kernel`` (the reduction
 with the gathering LayerNorm producer of A, and ``sum_round_kernel`` where
-it cuts K); and ``gemm_cuh_gemms``: every launch of ``csrc/gemm.cuh``'s
-``gemm_kernel`` (K7's, under ``FLAIR_FFN_BWD=kernel``; none otherwise).
-``FLAIR_FFN_BWD`` and
+it cuts K); and ``ffn_bwd_gemms``: ``gemm_mma_aux_kernel``, K7's fc1
+recompute and dh (the epilogues with a second output, codes 6 and 7; under
+``FLAIR_FFN_BWD=kernel``, none otherwise). K7's other three products share
+their kernels with the tallies above: its dW2 and dW1 (the weight-gradient
+epilogue, code 5) land in ``bwd_gemms``, its dln (the split-K partials'
+epilogue, code 2) in ``ffn_gemms``. ``FLAIR_FFN_BWD`` and
 ``FLAIR_SWIN_FINISH`` are read as in training. Runs on the card unless
 ``--device cpu`` asks for the CPU (the plain versions; no device lines).
 """
@@ -80,31 +83,33 @@ def random_batch(cfg: dict, batch: int, px: int, seed: int = 0) -> dict:
 
 
 #: gemm_mma.cuh's epilogue codes (its template argument EPI): K3's (and
-#: K8's) MMA_GELU, MMA_RESID and MMA_PART; MMA_BIAS, K2's and K6's projections;
-#: MMA_ROUND and MMA_WGRAD, K6's do and dx and its weight gradients
+#: K8's) MMA_GELU, MMA_RESID and MMA_PART (also K7's dln); MMA_BIAS, K2's and
+#: K6's projections; MMA_ROUND and MMA_WGRAD, K6's do and dx and its weight
+#: gradients (also K7's); MMA_GELU_AUX and MMA_DGELU, K7's fc1 recompute and
+#: dh (gemm_mma_aux_kernel)
 K3_EPILOGUES = {0, 1, 2}
 BIAS_EPILOGUE = 3
 K6_EPILOGUES = {4, 5}
-_MMA_EPI = re.compile(r"gemm_mma_kernel<[^>]*?(\d+)\s*>")
+K7_EPILOGUES = {6, 7}
+_MMA_EPI = re.compile(r"gemm_mma(?:_aux)?_kernel<[^>]*?(\d+)\s*>")
 
 
 def gemm_tallies(rows) -> dict:
     """``rows``: (kernel name, ms per step, calls per step) of the device
-    kernels. Returns {"ffn_gemms": K3's (or K8's) products, "attn_gemms": K2's and K6's
-    bias products, "bwd_gemms": K6's do, dx and weight gradients,
-    "merge_gemms": K5's reduction, "gemm_cuh_gemms": gemm.cuh's kernel},
-    each {name[:90]: [ms, calls]}: ``gemm_mma_kernel`` by its epilogue
-    template argument, ``resid_sum_kernel`` (fc2's split-K sum) to K3,
-    ``gemm_mma_ln_kernel`` and ``sum_round_kernel`` to K5."""
+    kernels. Returns {"ffn_gemms": K3's (or K8's) products and K7's dln,
+    "attn_gemms": K2's and K6's bias products, "bwd_gemms": K6's do, dx and
+    weight gradients and K7's, "merge_gemms": K5's reduction,
+    "ffn_bwd_gemms": K7's fc1 recompute and dh}, each {name[:90]: [ms,
+    calls]}: ``gemm_mma_kernel`` and ``gemm_mma_aux_kernel`` by their
+    epilogue template argument, ``resid_sum_kernel`` (fc2's split-K sum) to
+    K3, ``gemm_mma_ln_kernel`` and ``sum_round_kernel`` to K5."""
     out: dict = {"ffn_gemms": {}, "attn_gemms": {}, "bwd_gemms": {}, "merge_gemms": {},
-                 "gemm_cuh_gemms": {}}
+                 "ffn_bwd_gemms": {}}
     for name, ms, calls in rows:
         if "resid_sum_kernel" in name:
             key = "ffn_gemms"
         elif "gemm_mma_ln_kernel<" in name or "sum_round_kernel<" in name:
             key = "merge_gemms"
-        elif "gemm_kernel<" in name:
-            key = "gemm_cuh_gemms"
         else:
             m = _MMA_EPI.search(name)
             if m is None:
@@ -112,7 +117,8 @@ def gemm_tallies(rows) -> dict:
             epi = int(m.group(1))
             key = ("ffn_gemms" if epi in K3_EPILOGUES
                    else "attn_gemms" if epi == BIAS_EPILOGUE
-                   else "bwd_gemms" if epi in K6_EPILOGUES else None)
+                   else "bwd_gemms" if epi in K6_EPILOGUES
+                   else "ffn_bwd_gemms" if epi in K7_EPILOGUES else None)
             if key is None:
                 raise ValueError(f"gemm_mma_kernel with an unknown epilogue {epi}: {name}")
         out[key][name[:90]] = [ms, calls]

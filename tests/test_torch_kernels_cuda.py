@@ -33,7 +33,9 @@ bias epilogue, twice bit-identical; that epilogue's tiles without spill at
 two blocks per SM. K6's do, dx and weight-gradient products alone
 (gemm_mma.cuh's rounding epilogue and its C = A^T B layout) against a
 float64 product on ragged shapes, twice bit-identical, their kernels
-without spill at two blocks per SM. The A/B kernels at swin-base's four
+without spill at two blocks per SM; K7's five products (gemm_mma.cuh
+too) likewise without spill at two blocks per SM, and its fc1 recompute
+equal to K3's forward h bit for bit. The A/B kernels at swin-base's four
 stage geometries at batch 16 (bw 1 and 4), and their residency: no spill,
 three blocks per SM per head, two grouped. K1 (16-byte lane groups) and
 K5 (one gemm_mma.cuh launch whose A is gathered and normalised as it
@@ -685,6 +687,45 @@ def test_ffn_backward_kernel(dev, dtype, n, c):
     _assert_grads_close(got, want, dtype)
     again = ffn.fused_ln_mlp_residual_backward(gy, x, a, s, b, w1, b1, w2)
     assert all(torch.equal(u, v) for u, v in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,c", [(32768, 128), (2048, 512), (512, 1024), (37, 96)])
+def test_ffn_backward_recomputes_the_forward_h(dev, dtype, n, c, monkeypatch):
+    """K7's fc1 recompute (gemm_mma.cuh MMA_GELU_AUX at K3's fc1 tile)
+    gives K3's forward h bit for bit: each wrapper's (n, hidden) buffers
+    are caught as they are allocated (K3: h; K7: h0, h, dh0c)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x, a, gy = (torch.randn((n, c), generator=g, device=dev).to(dtype) for _ in range(3))
+    p = _ffn_params(g, dev, c)
+    empty, caught = torch.empty, []
+
+    def spy(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        if t.shape == (n, 4 * c) and t.dtype == dtype:
+            caught.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    ffn.fused_ln_mlp_residual(x, a, *p)
+    ffn.fused_ln_mlp_residual_backward(gy, x, a, *p[:5])
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert len(caught) == 4
+    assert torch.equal(caught[0], caught[2])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ffn_backward_gemm_resources(dev, dtype):
+    """No kernel of K7's products (gemm_mma.cuh: fc1's GELU epilogue with h0
+    kept and dh's GELU-derivative epilogue with its column partials, the
+    two that K7 adds, and dln's split-K partials at every tile of the
+    dtype's plan; the weight gradients at theirs) spills, and every one
+    holds two blocks per SM."""
+    info = ffn.ffn_bwd_gemm_info(dtype)
+    assert len(info) == (4 if dtype == torch.float32 else 7), info
+    for name, i in info.items():
+        assert i["spill_bytes"] == 0 and i["blocks_per_sm"] >= 2, (name, i)
 
 
 @pytest.mark.parametrize("switch", ["FLAIR_SWIN_FINISH", "FLAIR_FFN_BWD"])
