@@ -6,6 +6,8 @@
 Phases, one printed line each (any failure raises and exits non-zero):
 
 1. environment: the card (name and power limit from nvidia-smi), TF32 off;
+   whether the host tail's libraries load (the GeoTIFF IO and GEOS,
+   ``memory_io.native_io_error``; libproj);
 2. build: compile the CUDA kernels under flair_for_aigle_tpu_torch/csrc/;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the swin-base@512 shapes (batch 2): K1-K3 at the zonal path's stages,
@@ -73,7 +75,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    stage width and K5's GEMM per merge and batch (no spill; K1 at least
    the blocks per SM its launch bounds promise, K5 2); every
    ``gemm_mma.cuh`` instantiation of K2, K3 and K6 with the registers it
-   had before K5's producer joined the GEMM's body, and no spill;
+   had before K5's producer joined the GEMM's body, and no spill; K6's
+   float32 weight gradients (dWqkv, dWproj) at the four stages at the
+   training batch 5 in its own plan's partials, each stage's worst ratio
+   to 2e-3 + 2e-3 |ref| against the float64 product;
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -84,6 +89,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    then a pass of the same raster with ``FLAIR_SWIN_FINISH=1`` (K8 in every
    block, K3 in none): its launches, its label agreement with the default
    pass and both passes' tiles/s;
+   bench: the port's bench (``flair_for_aigle_tpu_torch/bench.py``) at its
+   defaults (5000 x 5000 at 0.2 m/px, 144 tiles, batch 16, bf16): its JSON
+   line, km2/h > 0, the tile count, labels < 19, and the launches of K1,
+   K2, K3, K5 and K4 during its timed runs;
 5. train: the host probe (pandas), then the port's ``training_stage`` and
    ``predict_stage`` with the reference's default training configuration
    (configs/train/*.yaml: swin-base-UPerNet, AERIAL_RGBI channels [4,1,2],
@@ -236,9 +245,9 @@ def phase_env() -> dict:
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    from flair_for_aigle_tpu_torch.bench import card
+
+    smi = card(torch.device(DEVICE))
     print(smi, flush=True)
     # the plain versions stand for the reference's float32-accumulated
     # products: no TF32, no reduced-precision bf16 split-K reductions
@@ -251,8 +260,27 @@ def phase_env() -> dict:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"matmul.allow_bf16_reduced_precision_reduction="
         f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    say("env", f"host tail: {host_libraries()}")
     return {"card": smi, "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
+
+
+def host_libraries() -> str:
+    """Whether the host tail's native libraries load here: the GeoTIFF IO
+    and GEOS (``memory_io.native_io_error``) and libproj (the CRS
+    transforms of ``geo/crs.py``)."""
+    import ctypes
+
+    from flair_for_aigle_tpu_torch.zonal.memory_io import native_io_error
+
+    try:
+        ctypes.CDLL("libproj.so.25")
+        proj = "libproj.so.25 loads"
+    except OSError as e:
+        proj = f"libproj.so.25 does not load ({e})"
+    err = native_io_error()
+    return (f"native_io_error() = {err!r}" if err is not None
+            else "native GeoTIFF IO and GEOS load") + f"; {proj}"
 
 
 def phase_build() -> None:
@@ -871,6 +899,50 @@ def ffn_bwd_lines(stats, batch, hw, c, dtype, randn, ffn_params) -> None:
         st[key] = st.get(key, 0.0) + t[key]
     if not bf:
         st["bound_3xtf32_ms"] = st.get("bound_3xtf32_ms", 0.0) + max(_bound(x3))
+
+
+def wgrad_lines(stats, randn) -> None:
+    """K6's float32 weight gradients dWqkv = dqkv^T x and dWproj = g^T o
+    at swin-base's four stages at the training batch, in the partials of
+    K6's own plan (``window_attn._bwd_plan``; ``backward_gemm`` runs the
+    same ``wgrad_plan``), against the float64 product of the same inputs:
+    each stage's worst ratio to the elementwise bound 2e-3 + 2e-3 |ref|
+    (raises above 1). The worst over the stages goes into K6's stats."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+    from flair_for_aigle_tpu_torch.ops.mma_plan import n_sm
+
+    f32 = torch.float32
+    sms = n_sm(torch.device("cuda"))
+    worst_all = 0.0
+    for hw, c, nh in STAGES:
+        nwh = -(-hw // WS)
+        bnw = TRAIN_BATCH * nwh * nwh
+        m = bnw * T
+        plan = window_attn._bwd_plan(bnw, nh, T, c, sms,
+                                     window_attn._core_slots(T, True, f32, sms), f32)
+        x, o, gy = (randn(m, c, dtype=f32) for _ in range(3))
+        dqkv = randn(m, 3 * c, dtype=f32)
+        parts = []
+        for name, a, b, k_chunk in (("dwqkv", dqkv, x, plan.k_chunk_qkv),
+                                    ("dwproj", gy, o, plan.k_chunk_proj)):
+            if window_attn.wgrad_plan(a.shape[1], c, m, sms, f32)[1] != k_chunk:
+                raise AssertionError(f"backward_gemm's {name} plan is not K6's")
+            got = window_attn.backward_gemm(a, b, wgrad=True)
+            want = a.double().t() @ b.double()
+            ratio = ((got.double() - want).abs() / (2e-3 + 2e-3 * want.abs())).max().item()
+            worst_all = max(worst_all, ratio)
+            parts.append(f"{name} partials of {k_chunk} rows x{ratio:.3f} of bound")
+            del got, want
+        ok = worst_all <= 1.0
+        say("kernel", f"window_attn_bwd weight gradients B{TRAIN_BATCH} N{m} C{c} f32: "
+            f"{'; '.join(parts)} (bound 2e-3 + 2e-3|ref| against the float64 product) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K6's weight gradients at N{m} C{c} outside the bound")
+        del x, o, gy, dqkv
+    stats["window_attn_bwd"]["wgrad_b5_worst_ratio"] = worst_all
 
 
 def window_attn_lines(stats, tag, win, params, nh, nwh, attn_f32, bound) -> None:
@@ -1499,6 +1571,8 @@ def phase_kernels() -> dict:
                                       ("cublas_device_ms", "bwd_cublas_device_ms")):
                         st[key] = st.get(key, 0.0) + t[tkey]
             bwd_core_lines(stats, f"B2 {hw}x{hw}x{c}", x.shape[0], c, nh, nwh, randn, dtype)
+    # K6's float32 weight gradients at the training batch against float64
+    wgrad_lines(stats, randn)
 
     # K4: epilogue at (B, 19, 128, 128), margin 40, at batch 2 and at the
     # zonal batch, both dtypes, both output types
@@ -1562,54 +1636,28 @@ def phase_kernels() -> dict:
 
 
 def slice_config(img: str, weights: str) -> dict:
-    """bench.py's zonal configuration (bench.py:55-90) for the port."""
-    return {
-        "output_path": os.path.join(TMP, "out"), "output_name": "chip_smoke",
-        "write_dataframe": False, "output_type": "argmax", "cog_conversion": False,
-        "model_weights": weights, "batch_size": BATCH, "num_worker": 4,
-        "img_pixels_detection": 512, "margin": 40, "output_px_meters": RES,
-        "compute_dtype": "bfloat16", "attn_f32": False, "normalize_on_device": True,
-        "emit_label_placeholders": False,
-        "monotemp_arch": "swin_base_patch4_window12_384-upernet",
-        "modalities": {
-            "inputs": {"AERIAL_RGBI": True},
-            "AERIAL_RGBI": {"input_img_path": img, "channels": [1, 2, 3],
-                            "normalization": {"type": "custom",
-                                              "means": [105.66, 111.35, 102.18],
-                                              "stds": [52.23, 45.62, 44.30]}},
-        },
-        "tasks": [{"name": "AERIAL_LABEL-COSIA", "active": True,
-                   "class_names": {i: f"c{i}" for i in range(N_CLASSES)}}],
-    }
+    """The port's bench configuration (``bench.py make_cfg``: bench.py's
+    zonal configuration, bench.py:55-90) with a checkpoint to load."""
+    from flair_for_aigle_tpu_torch import bench
+
+    return {**bench.make_cfg(img, os.path.join(TMP, "out")), "output_name": "chip_smoke",
+            "model_weights": weights}
 
 
 def _zonal_pass(cfg: dict, model) -> tuple[float, dict, str]:
     """Wall seconds of one zonal pass (tiling, dataset, inference, stitch,
-    D2H, write) with a prebuilt model, as bench.py times it, the engine's
-    phase timings of that pass and the label raster it wrote."""
+    D2H, write) with a prebuilt model, as the bench times it
+    (``bench.run_zonal``), the engine's phase timings of that pass and the
+    label raster it wrote."""
     import torch
 
-    from flair_for_aigle_tpu_torch.zonal import inference as zi
-    from flair_for_aigle_tpu_torch.zonal.model_utils import compute_patch_sizes
+    from flair_for_aigle_tpu_torch import bench
     from flair_for_aigle_tpu_torch.zonal.stripes import LAST_TIMINGS
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    c = zi.initialize_geometry_and_resolutions(dict(cfg))
-    c["output_type"] = "argmax"
-    tiles = zi.generate_patches_from_reference(c)
-    patch_sizes = compute_patch_sizes(c)
-    dataset = zi.prep_dataset(c, tiles, patch_sizes)
-    loader = zi.BatchedLoader(dataset, batch_size=BATCH, num_workers=c["num_worker"])
-    ref_img = zi.open_raster(c["modalities"]["AERIAL_RGBI"]["input_img_path"])
-    output_files, paths = zi.init_outputs(c, ref_img)
-    zi.inference_and_write(model, loader, tiles, c, output_files, ref_img,
-                           torch.device("cuda"))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ref_img.close()
-    dataset.close()
-    return wall, dict(LAST_TIMINGS), paths["AERIAL_LABEL-COSIA"]
+    _, _, paths = bench.run_zonal(cfg, torch.device(DEVICE), model)
+    return time.perf_counter() - t0, dict(LAST_TIMINGS), paths["AERIAL_LABEL-COSIA"]
 
 
 def synthetic_raster(seed: int = 0):
@@ -1747,6 +1795,47 @@ def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
         raise AssertionError("the FLAIR_SWIN_FINISH=1 pass did not run K8 in every block "
                              "or disagrees with the default pass")
     return {**launches, "finish": launches_f["finish"]}
+
+
+def phase_bench(write_geotiff) -> dict:
+    """The port's bench (``python -m flair_for_aigle_tpu_torch.bench``'s
+    measurement) at its defaults: a 5000 x 5000 raster at 0.2 m/px, batch
+    16, bf16, under the current host IO. Prints its JSON line; checks that
+    the km2/h is positive, that the tile count is the port's tiling of the
+    raster, that the labels are < 19, and that K1, K2, K3, K5 and K4 each
+    launched during the timed runs (their counts set to 0 just before the
+    first). Returns those counts."""
+    import numpy as np
+    import torch
+
+    from flair_for_aigle_tpu_torch import bench
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+
+    fns: dict = {}
+    work = os.path.join(TMP, "bench")
+    result, labels = bench.measure(
+        torch.device(DEVICE), work, write_geotiff,
+        before_timed=lambda: fns.update(zero_launches(
+            {"prep", "window_attn", "ffn", "merge", "epilogue"})))
+    launches = {k: fn.launches for k, fn in fns.items()}
+    print(json.dumps(result), flush=True)
+    d = result["detail"]
+    cfg = zi.initialize_geometry_and_resolutions(
+        bench.make_cfg(os.path.join(work, "km2.tif"), os.path.join(work, "out")))
+    n_tiles = len(zi.generate_patches_from_reference(cfg))
+    with zi.open_raster(labels) as src:
+        pred = src.read()
+    side = bench.KM2_SIDE_PX
+    say("bench", f"{result['value']:.2f} km2/h, {d['tiles_per_s']:.2f} tiles/s, best of "
+        f"{len(d['all_runs_s'])} runs {d['elapsed_s']:.4f} s; {d['tiles']} tiles (the port's "
+        f"tiling: {n_tiles}); labels {pred.shape} {int(pred.min())}..{int(pred.max())} "
+        f"(bound < {N_CLASSES}); launches during the timed runs {launches}; io: {d['io']}; "
+        f"{d['card']}")
+    if not (result["value"] > 0 and d["tiles"] == n_tiles and pred.shape == (1, side, side)
+            and pred.max() < N_CLASSES and all(launches.values())):
+        raise AssertionError("the bench's result, tiles or labels are wrong, or a kernel "
+                             "of the zonal path did not run during its timed runs")
+    return launches
 
 
 def train_config(root: str) -> dict:
@@ -2057,14 +2146,17 @@ def main() -> int:
     stats = phase_kernels()
     with host_io() as (write_geotiff, io_desc):
         zonal = phase_slice(env["card"], write_geotiff, io_desc)
+        bench = phase_bench(write_geotiff)
         train, train_switched = phase_train(env["card"], write_geotiff)
     tool = phase_tool()
-    # launches: the main path's runs (zonal, training stages and CLI), for
+    # launches: the main path's runs (zonal, the bench's timed runs,
+    # training stages and CLI), for
     # K7 and K8 the runs under their switches (the zonal finish pass, one
     # training step each), and the A/B tool's run; library_ms: the A/B
     # kernels' two bf16 torch.bmm at the tool's defaults, else null (no
     # single PyTorch call computes the other, fused functions)
-    runs = {"zonal": zonal, "train": train, "train_switched": train_switched, "tool": tool}
+    runs = {"zonal": zonal, "bench": bench, "train": train, "train_switched": train_switched,
+            "tool": tool}
     # K2's bf16 attention core alone, summed over the stages at attn_f32
     # False (the slice's), and its float32 core at attn_f32 True (the
     # training configuration's, with its bound at 3xTF32's rate beside),
@@ -2118,7 +2210,8 @@ def main() -> int:
     st = stats["window_attn_bwd"]
     extra["window_attn_bwd"].update({
         **{k: st[k] for k in ("device_ms", "plain_device_ms", "gemm_products_device_ms",
-                              "weight_transpose_device_ms", "cublas_device_ms")},
+                              "weight_transpose_device_ms", "cublas_device_ms",
+                              "wgrad_b5_worst_ratio")},
         **st["gemm_info"]})
     # K7 summed over the stages: float32 at batch 2 (the entry's own
     # numbers), bf16 at batch 2 and float32 at the training batch, each by

@@ -18,8 +18,9 @@
 // 3 m C elements read a pair, so the products are bound by operations at
 // every swin-base stage. do and dx take K2's proj tile (ops/mma_plan.py
 // gemm_plan at m x C), the weight gradients the 64 x 128 tile with K cut
-// into whole pipeline steps until one wave of resident blocks is full
-// (ops/mma_plan.py wgrad_plan; bf16's 128 x 128 spills in this layout).
+// into whole pipeline steps until one wave of resident blocks is full,
+// no partial longer than 512 rows (ops/mma_plan.py wgrad_plan,
+// WGRAD_ROWS; bf16's 128 x 128 spills in this layout).
 // float32 is 3xTF32, about 2^-21 of each product; bf16 is bf16 in,
 // float32 accumulate, rounded where the reference rounds (do and dx to the
 // compute dtype, the weight gradients kept in float32).

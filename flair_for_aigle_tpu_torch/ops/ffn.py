@@ -251,17 +251,6 @@ def fused_ln_mlp_residual_backward_reference(x, attn, ln_scale, ln_bias, w1, b1,
             dw2.to(w2.dtype), db2.to(w2.dtype))
 
 
-#: most rows one of K7's weight-gradient partials sums. The tensor cores
-#: add each k step's products into the float32 accumulator without
-#: rounding to nearest, so a partial's error grows with its rows (about
-#: as its rows times the square root of n): at 81920 rows, partials of
-#: 2496 put dW2 at twice the backward's elementwise bound on the H100,
-#: partials of 1008 at 32768 rows at 0.43 of it. Shorter partials, added
-#: in order in float32 by sum_partials_kernel, keep it well inside; a
-#: whole number of pipeline steps in either dtype.
-WGRAD_ROWS = 512
-
-
 class BwdPlan(NamedTuple):
     """K7's launch plan at n rows of C (tile codes of ``ops/mma_plan.py``)."""
     tile_h: int       # fc1's and dh's tile (n x hidden over C): K3's fc1 tile
@@ -279,8 +268,8 @@ def _bwd_plan(n: int, c: int, hidden: int, n_sm: int, dtype) -> BwdPlan:
     """K7's plan on a card of ``n_sm`` SMs: fc1 and dh take the tile of
     ``mlp_plan``'s fc1 (``gemm_plan`` at n x hidden over C), so that the
     recomputed h is K3's; dW2 (C, hidden) and dW1 (hidden, C) the
-    ``wgrad_plan`` over the n rows, in partials of at most ``WGRAD_ROWS``
-    rows; dln ``gemm_plan`` at n x C over hidden, K cut where the smallest
+    ``wgrad_plan`` over the n rows (partials of at most ``WGRAD_ROWS``
+    rows); dln ``gemm_plan`` at n x C over hidden, K cut where the smallest
     tile leaves SMs idle; the LayerNorm-backward pass about two blocks per
     SM. The three split products run one after
     another, so one buffer holds the partials of each in turn, sized for
@@ -288,7 +277,6 @@ def _bwd_plan(n: int, c: int, hidden: int, n_sm: int, dtype) -> BwdPlan:
     tile_h, _, _ = gemm_plan(n, hidden, c, n_sm, dtype)
     tile_w, k_w2, _ = wgrad_plan(c, hidden, n, n_sm, dtype)
     _, k_w1, _ = wgrad_plan(hidden, c, n, n_sm, dtype)
-    k_w2, k_w1 = min(k_w2, WGRAD_ROWS), min(k_w1, WGRAD_ROWS)
     nz_w2, nz_w1 = _ceil(n, k_w2), _ceil(n, k_w1)
     tile_dln, k_dln, nz_dln = gemm_plan(n, c, hidden, n_sm, dtype, split=True)
     part = max(nz_w2 * c * hidden, nz_w1 * hidden * c, nz_dln * n * c if nz_dln > 1 else 0)

@@ -2,7 +2,7 @@
 its callers: C (m, n) = A (m, k) W^T (``gemm_plan``) for K3's fc1 and fc2
 (``ops/ffn.py``), K2's and K6's qkv and output projections and K6's do and
 dx (``ops/window_attn.py``); and the weight gradients C (m, n) = A^T B
-over k rows (``wgrad_plan``), K6's dWproj and dWqkv.
+over k rows (``wgrad_plan``), K6's dWproj and dWqkv and K7's dW1 and dW2.
 
 A tile's index in ``MMA_TILES`` is its code in ``gemm_mma.cuh gemm_tile``.
 The plan is a function of the shapes, the dtype and the SM count alone, so
@@ -31,6 +31,17 @@ WGRAD_TILE = 1
 K_STEP = {torch.float32: 16, torch.bfloat16: 64}
 #: fewest pipeline steps a split-K chunk of ``gemm_plan`` keeps
 MIN_STEPS = 8
+#: most rows one weight-gradient partial of ``wgrad_plan`` sums. The
+#: tensor cores add each k step's products into the float32 accumulator
+#: without rounding to nearest, so a partial's error grows with its rows
+#: (about as its rows times the square root of n). On the H100, K7's dW2
+#: at 81920 rows in partials of 2496 came to twice the backward's
+#: elementwise bound 2e-3 + 2e-3 |ref|, and K6's float32 dWqkv at
+#: swin-base's batch 5 (stage 1: 87120 rows in partials of 1984) to 2.9
+#: times it; partials of 512 rows kept both under half of it. Shorter
+#: partials, added in order in float32 by sum_partials_kernel, keep it
+#: well inside; a whole number of pipeline steps in either dtype.
+WGRAD_ROWS = 512
 #: resident blocks per SM the GEMM kernel promises (``__launch_bounds__``
 #: in gemm_mma.cuh: MMA_MIN_BLOCKS)
 RESIDENT = 2
@@ -73,7 +84,9 @@ def wgrad_plan(m: int, n: int, k: int, n_sm: int, dtype) -> tuple[int, int, int]
     the tile ``WGRAD_TILE`` runs and K is cut into chunks of whole
     pipeline steps (``K_STEP[dtype]`` elements) until the blocks fill one
     wave of the kernel's ``RESIDENT`` blocks an SM: at most that many, and
-    every SM a block. Block z of the grid sums K range [z k_chunk, (z + 1)
+    every SM a block; but no chunk is longer than ``WGRAD_ROWS`` rows (the
+    float32 accumulator's error), so a long K takes more partials than
+    one wave. Block z of the grid sums K range [z k_chunk, (z + 1)
     k_chunk); the partials are added in the order z = 0, 1, ... (two calls
     give the same bits)."""
     code = WGRAD_TILE
@@ -82,7 +95,7 @@ def wgrad_plan(m: int, n: int, k: int, n_sm: int, dtype) -> tuple[int, int, int]
     step = K_STEP[dtype]
     steps = _ceil(k, step)
     parts = max(1, min(steps, RESIDENT * n_sm // tiles))
-    k_chunk = _ceil(steps, parts) * step
+    k_chunk = min(_ceil(steps, parts) * step, WGRAD_ROWS)
     return code, k_chunk, _ceil(k, k_chunk)
 
 

@@ -458,8 +458,9 @@ def _bwd_plan(bnw: int, nh: int, t: int, c: int, n_sm: int, slots: int, dtype) -
     """K6's plan: the core's window groups for its ``slots`` resident
     blocks, K2's projection tiles at the same rows, and the weight
     gradients' ``wgrad_plan`` (dWproj (C, C) and dWqkv (3C, C) over the
-    B*nW*T rows), whose partials size the buffer they share with dbproj's
-    column sums (a partial of C per dWproj chunk)."""
+    B*nW*T rows, in partials of at most ``WGRAD_ROWS`` rows), whose
+    partials size the buffer they share with dbproj's column sums (a
+    partial of C per dWproj chunk)."""
     m = bnw * t
     tile_qkv, tile_proj = attn_gemm_tiles(m, c, n_sm, dtype)
     tile_w, k_proj, n_proj = wgrad_plan(c, c, m, n_sm, dtype)

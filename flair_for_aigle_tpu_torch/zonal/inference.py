@@ -7,7 +7,8 @@ Port of ``flair_for_aigle_tpu/zonal/inference.py``. Per raster:
         into a device-resident, margin-padded raster (device tile gather)
   device: normalise -> compute dtype -> forward -> fused epilogue (or crop
           + argmax / class_prob) -> optional nearest rescale -> uint8 canvas
-  host: streamed raw D2H of final canvas rows -> tiled GeoTIFF
+  host: streamed raw D2H of final canvas rows -> tiled GeoTIFF -> polygons
+        (``raster_to_polygons``, GEOS)
 
 Tiles are processed bottom-up row-major (reference :732-742) and stitched
 one tile at a time in that order, which keeps the reference's
@@ -33,6 +34,8 @@ from flair_for_aigle_tpu_torch.geo.geotiff import (
     convert_to_cog,
     open_raster,
 )
+from flair_for_aigle_tpu_torch.geo.gpkg import read_gpkg
+from flair_for_aigle_tpu_torch.geo.polygonize import raster_to_polygons as _raster_to_polys
 from flair_for_aigle_tpu_torch.geo.windows import Window, from_bounds, from_origin
 from flair_for_aigle_tpu_torch.zonal.config import (
     config_recap_1,
@@ -57,6 +60,15 @@ from flair_for_aigle_tpu_torch.zonal.stripes import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def overwrite_config(config, model_ckpt_path, model_threshold_filepath,
+                     result_folder, log_folder):
+    config["model_weights"] = model_ckpt_path
+    config["model_threshold_filepath"] = model_threshold_filepath
+    config["output_path"] = result_folder
+    config["log_folder"] = log_folder
+    return config
 
 
 def initialize_geometry_and_resolutions(config: Dict) -> Dict:
@@ -87,9 +99,22 @@ def initialize_geometry_and_resolutions(config: Dict) -> Dict:
     return config
 
 
-def prep_config(config_path) -> Dict:
-    """Load (path or dict), validate and complete the zonal config."""
+def prep_config(config_path, model_ckpt_path=None, model_threshold_filepath=None,
+                result_folder=None, log_folder=None, images_folder=None) -> Dict:
+    """Load (path or dict), validate and complete the zonal config. The
+    Aigle driver also passes its staged checkpoint, threshold file, result
+    and log folders (they overwrite the config's) and its images folder
+    (the first raster there becomes the AERIAL_RGBI input)."""
     config = load_config(config_path) if isinstance(config_path, str) else config_path
+    if images_folder:
+        rasters = sorted(p for p in os.listdir(images_folder)
+                         if p.lower().endswith((".tif", ".tiff", ".jp2")))
+        if rasters:
+            config["modalities"]["AERIAL_RGBI"]["input_img_path"] = os.path.join(
+                images_folder, rasters[0])
+    if model_ckpt_path is not None:
+        config = overwrite_config(config, model_ckpt_path, model_threshold_filepath,
+                                  result_folder, log_folder)
     validate_config(config)
     config_recap_1(config)
     config = initialize_geometry_and_resolutions(config)
@@ -157,6 +182,84 @@ def init_outputs(config: Dict, ref_img, raster_index=None):
             compress="lzw")
         temp_paths[task["name"]] = out_path
     return output_files, temp_paths
+
+
+def resample_prediction(prediction: np.ndarray, scale: float) -> np.ndarray:
+    """Nearest zoom of the last two axes with scipy's ``zoom(order=0)``
+    semantics (reference inference.py:212-226): output size round(in *
+    scale)."""
+    prediction = np.asarray(prediction)
+    h, w = prediction.shape[-2:]
+    out_h, out_w = int(round(h * scale)), int(round(w * scale))
+    if (out_h, out_w) == (h, w):
+        return prediction
+    out = np.take(prediction, scipy_zoom0_index(h, out_h), axis=-2)
+    return np.take(out, scipy_zoom0_index(w, out_w), axis=-1)
+
+
+def load_geozone_contour(config, db=None) -> list:
+    """Geozone contours of the Aigle run (reference inference.py:229-252):
+    the cached GPKG or shapefile named by ``GEOZONES_SHAPEFILE`` under
+    ``config.db_sources``, filtered by iso_code (``geozones_codes``) and
+    moved to ``input_crs``; without the cache, the ``detections.
+    fr_geozone_view`` query through ``aigle/db.py``, written to the cache
+    when one is configured. Raises FileNotFoundError when neither is
+    available."""
+    geo_file = os.getenv("GEOZONES_SHAPEFILE", "")
+    shp = os.path.join(getattr(config, "db_sources", "."), geo_file)
+    code = getattr(config, "geozones_codes", "all")
+    if not geo_file or not os.path.isfile(shp):
+        logger.warning("Geozones cache file not found, expecting: %s", shp)
+        from flair_for_aigle_tpu_torch.aigle.db import (
+            DatabaseError,
+            connect_from_env,
+            fetch_geozones,
+        )
+
+        try:
+            db = db or connect_from_env()
+            if db is None:
+                raise DatabaseError("DB_STRING_PROD not set")
+            logger.info("Querying geozones from aigle bd topo...")
+            from flair_for_aigle_tpu_torch.geo.geos import from_wkt
+            from flair_for_aigle_tpu_torch.geo.gpkg import write_gpkg
+
+            recs = [{"geometry": from_wkt(row["geometry"]), "id": row.get("id"),
+                     "name": row.get("name"), "geo_zone_type": row.get("geo_zone_type"),
+                     "name_normalized": row.get("name_normalized"),
+                     "iso_code": row.get("iso_code")}
+                    for row in fetch_geozones(db)]
+            if geo_file and shp.lower().endswith(".gpkg"):
+                crs = getattr(config, "input_crs", None) or "EPSG:2154"
+                write_gpkg(shp, recs, layer="geozones", crs=crs)
+                logger.info("Geozones cache created at %s", shp)
+            else:
+                # no cache location configured: filter in memory
+                return [r["geometry"] for r in recs
+                        if code in ("all", None)
+                        or str(r.get("iso_code")) in str(code).split(",")]
+        except DatabaseError as e:
+            raise FileNotFoundError(
+                f"Geozones cache file not found: {shp} and the PostGIS fallback is "
+                f"unavailable ({e}); provide the cached geozones GPKG/SHP or a "
+                "reachable DB_STRING_PROD") from e
+    if shp.lower().endswith(".shp"):
+        from flair_for_aigle_tpu_torch.geo.shapefile import read_shapefile
+
+        records, crs = read_shapefile(shp)
+    else:
+        records, crs = read_gpkg(shp)
+    out = []
+    for rec in records:
+        if code in ("all", None) or str(rec.get("iso_code")) in str(code).split(","):
+            geom = rec["geometry"]
+            input_crs = getattr(config, "input_crs", crs)
+            if input_crs and crs and input_crs != crs:
+                from flair_for_aigle_tpu_torch.geo.crs import transform_geometry
+
+                geom = transform_geometry(geom, crs, input_crs)
+            out.append(geom)
+    return out
 
 
 def device_tiling_plan(config: Dict) -> Dict | None:
@@ -496,6 +599,49 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
     LAST_TIMINGS.update(finalize_s=time.perf_counter() - t0,
                         total_s=time.perf_counter() - t_start)
     logger.info("[ok] canvases written")
+
+
+def raster_to_polygons(output_files, ignore_background=True, background_value=18,
+                       min_area=1.0, simplification=0.1, n_jobs=None):
+    """Polygons of the first task's written label raster, per class
+    (reference inference.py:377-413): ``output_files`` is the dict of
+    writers ``init_outputs`` returned, or a raster path. Each record holds
+    ``geometry``, ``class_id`` and the raster's ``crs``."""
+    if isinstance(output_files, dict):
+        path = next(iter(output_files.values())).path
+    else:
+        path = output_files
+    with open_raster(path) as src:
+        data, transform, crs = src.read(1), src.transform, src.crs
+    polys = _raster_to_polys(data, transform, ignore_background=ignore_background,
+                             background_value=background_value, min_area=min_area,
+                             simplification=simplification, n_jobs=n_jobs)
+    for p in polys:
+        p["crs"] = crs
+    return polys
+
+
+def logits_to_labels_and_confidence(probs: np.ndarray):
+    """(labels uint8, confidence) of (K, H, W) class probabilities."""
+    return np.argmax(probs, axis=0).astype(np.uint8), np.max(probs, axis=0)
+
+
+def vectorize_segmentation(labels, confidence, transform, crs="EPSG:5490",
+                           simplification_tolerance=1.0, min_area=0.0):
+    """Polygons of every class but 0, each with its class's mean confidence
+    (reference inference.py:574-595)."""
+    from flair_for_aigle_tpu_torch.geo.polygonize import polygons_for_class
+
+    out = []
+    for cls in np.unique(labels):
+        if cls == 0:
+            continue
+        mask_mean = float(confidence[labels == cls].mean())
+        for poly in polygons_for_class(labels, int(cls), transform, min_area=min_area,
+                                       simplification=simplification_tolerance):
+            out.append({"geometry": poly, "class_id": int(cls),
+                        "confidence": mask_mean, "crs": crs})
+    return out
 
 
 def postpro_outputs(temp_paths: Dict[str, str], config: Dict) -> None:

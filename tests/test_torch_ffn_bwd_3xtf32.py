@@ -150,8 +150,8 @@ def test_bwd_plan_at_the_swin_base_stages(batch, dtype, monkeypatch):
         nz_w2 = _covers_once(n, plan.k_chunk_w2, step)
         nz_w1 = _covers_once(n, plan.k_chunk_w1, step)
         for k_chunk, m, nn in ((plan.k_chunk_w2, c, hidden), (plan.k_chunk_w1, hidden, c)):
-            assert k_chunk <= ffn.WGRAD_ROWS
-            assert k_chunk == min(ffn.WGRAD_ROWS,
+            assert k_chunk <= mma_plan.WGRAD_ROWS
+            assert k_chunk == min(mma_plan.WGRAD_ROWS,
                                   mma_plan.wgrad_plan(m, nn, n, H100_SMS, dtype)[1]), (n, c)
         # dln over hidden: cut, into whole steps, only where its smallest
         # tile leaves SMs idle

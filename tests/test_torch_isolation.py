@@ -23,7 +23,12 @@ from flair_for_aigle_tpu.data.paths import get_datasets as jax_get_datasets
 from flair_for_aigle_tpu.geo.geotiff import write_geotiff
 from flair_for_aigle_tpu.geo.windows import from_origin
 from flair_for_aigle_tpu.zonal import inference as jzi
-from flair_for_aigle_tpu_torch import train_main, zonal_main
+from flair_for_aigle_tpu_torch import bench, train_main, zonal_main
+from flair_for_aigle_tpu_torch import main as aigle_main
+from flair_for_aigle_tpu_torch.aigle.config import ArgsObject
+from flair_for_aigle_tpu_torch.aigle.run_fast_aigle_segmentation import (
+    run_fast_aigle_segmentation,
+)
 from flair_for_aigle_tpu_torch.train import stages
 from flair_for_aigle_tpu_torch.zonal import inference as zi
 from tests.test_torch_train_main import make_toy_split, toy_config
@@ -54,9 +59,16 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     assert not {k: v for k, v in bad.items() if v}
 
 
+# the host tail's modules, copied or ported from the JAX package
+HOST_TAIL = ["geo.crs", "geo.polygonize", "geo.shapefile", "zonal.postprocess", "aigle.config",
+             "aigle.utils", "aigle.logs", "aigle.map", "aigle.pgwire", "aigle.db", "aigle.export",
+             "aigle.s3", "zonal.inference", "aigle.run_fast_aigle_segmentation", "main", "bench"]
+
+
 def test_importing_every_module_of_the_port_leaves_jax_out():
     modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
                      for p in PORT.rglob("*.py"))
+    assert {f"flair_for_aigle_tpu_torch.{m}" for m in HOST_TAIL} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -81,9 +93,13 @@ class _Untouched:
 
 
 @pytest.mark.parametrize("entry", ["run_inference", "training_stage", "predict_stage",
-                                   "zonal_main", "train_main"])
+                                   "zonal_main", "train_main", "bench", "main",
+                                   "run_fast_aigle_segmentation"])
 def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # the Aigle driver's folders and the bench's work folder, were they made
+    monkeypatch.setenv("DATA_FOLDER", str(tmp_path / "data"))
+    monkeypatch.setenv("RUN_FOLDER", str(tmp_path / "runs"))
     missing = str(tmp_path / "missing.yaml")
     calls = {
         "run_inference": lambda: zi.run_inference({"output_path": str(tmp_path / "out")}),
@@ -91,6 +107,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path,
         "predict_stage": lambda: stages.predict_stage({}, _Untouched(), tmp_path / "out"),
         "zonal_main": lambda: zonal_main.main(["--config", missing]),
         "train_main": lambda: train_main.main(["--config", missing]),
+        "bench": lambda: bench.main(["--work", str(tmp_path / "bench")]),
+        "main": lambda: aigle_main.main(["--config", missing]),
+        "run_fast_aigle_segmentation": lambda: run_fast_aigle_segmentation(
+            ArgsObject(model_config=missing, db_sources=str(tmp_path / "db"))),
     }
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         calls[entry]()

@@ -827,6 +827,35 @@ def test_window_attn_backward_gemm_matches_float64(dev, dtype, wgrad, shape):
     _assert_close(got, want, torch.float32 if wgrad else dtype, bf16_ulps=1)
 
 
+# swin-base@512's four stages at the training batch 5: (windows, C)
+TRAIN_WGRAD_STAGES = [(5 * 121, 128), (5 * 36, 256), (5 * 9, 512), (5 * 4, 1024)]
+
+
+@pytest.mark.parametrize("bnw,c", TRAIN_WGRAD_STAGES)
+def test_window_attn_weight_gradients_at_the_training_batch(dev, bnw, c):
+    """K6's float32 weight gradients, dWqkv = dqkv^T x and dWproj = g^T o
+    over the B*nW*T rows of a swin-base@512 stage at batch 5, in the
+    partials of K6's own plan on this card's SMs: every element within
+    2e-3 + 2e-3 |ref| of the float64 product of the same inputs (the
+    elementwise bound of the backward kernels' smoke lines)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    m = bnw * 144
+    x, o, gy = (torch.randn((m, c), generator=g, device=dev) for _ in range(3))
+    dqkv = torch.randn((m, 3 * c), generator=g, device=dev)
+    sms = window_attn.n_sm(dev)
+    plan = window_attn._bwd_plan(bnw, c // 32, 144, c, sms,
+                                 window_attn._core_slots(144, True, torch.float32, sms),
+                                 torch.float32)
+    for name, a, b, k_chunk in (("dwqkv", dqkv, x, plan.k_chunk_qkv),
+                                ("dwproj", gy, o, plan.k_chunk_proj)):
+        # backward_gemm runs the partials K6's plan gives this product
+        assert window_attn.wgrad_plan(a.shape[1], c, m, sms, torch.float32)[1] == k_chunk
+        got = window_attn.backward_gemm(a, b, wgrad=True)
+        want = a.double().t() @ b.double()
+        ratio = ((got.double() - want).abs() / (2e-3 + 2e-3 * want.abs())).max().item()
+        assert ratio <= 1.0, (name, m, c, k_chunk, ratio)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_attn_backward_gemm_resources(dev, dtype):
     """No kernel of K6's products (the rounding epilogue at every tile of

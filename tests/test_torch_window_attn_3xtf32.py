@@ -22,7 +22,8 @@ checked here: at swin-base's four stages at batch 2, 5 and 16 every
 projection gives the H100's 132 SMs a block with the largest such tile of
 its dtype, at the full K; and each weight gradient's chunks of whole
 pipeline steps cover K exactly once and give every SM a block, within one
-wave of resident blocks, with the partials' buffer sized from the plan.
+wave of resident blocks unless that would make a partial longer than
+``WGRAD_ROWS`` rows, with the partials' buffer sized from the plan.
 """
 
 from unittest import mock
@@ -192,9 +193,10 @@ def test_backward_plan_splits_the_weight_gradients_into_whole_steps(batch, dtype
     """K6's plan at swin-base's stages: dWproj (C, C) and dWqkv (3C, C) on
     the weight gradients' tile, K = B*nW*T cut into chunks of whole pipeline
     steps that cover it exactly once (the last one ragged), every SM a
-    block and no more than one wave of the kernel's resident blocks; do
-    and dx take K2's output-projection tile; the partials' buffer holds
-    every partial of both weight gradients and dbproj's column sums."""
+    block and no more than one wave of the kernel's resident blocks unless
+    the chunks are at ``WGRAD_ROWS``, the longest a partial may be; do and
+    dx take K2's output-projection tile; the partials' buffer holds every
+    partial of both weight gradients and dbproj's column sums."""
     step = mma_plan.K_STEP[dtype]
     slots = mma_plan.RESIDENT * H100_SMS
     for hw, c in STAGES:
@@ -215,7 +217,9 @@ def test_backward_plan_splits_the_weight_gradients_into_whole_steps(batch, dtype
             assert all(b == a2 for (_, b), (a2, _) in zip(ranges, ranges[1:]))
             blocks = _tiles(rows, c, plan.tile_w) * parts
             assert H100_SMS <= blocks, (hw, rows, blocks)
-            assert blocks <= max(slots, _tiles(rows, c, plan.tile_w)), (hw, rows, blocks)
+            assert k_chunk <= mma_plan.WGRAD_ROWS, (hw, rows, k_chunk)
+            assert (blocks <= max(slots, _tiles(rows, c, plan.tile_w))
+                    or k_chunk == mma_plan.WGRAD_ROWS), (hw, rows, blocks)
             assert mma_plan.wgrad_plan(rows, c, m, H100_SMS, dtype) == (plan.tile_w, k_chunk,
                                                                         parts)
             need = max(need, parts * rows * c)
