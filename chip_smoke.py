@@ -93,6 +93,23 @@ Phases, one printed line each (any failure raises and exits non-zero):
    defaults (5000 x 5000 at 0.2 m/px, 144 tiles, batch 16, bf16): its JSON
    line, km2/h > 0, the tile count, labels < 19, and the launches of K1,
    K2, K3, K5 and K4 during its timed runs;
+   multimodal: the FLAIR-HUB fusion model at full width, swin-base-UPerNet
+   on the slice's raster fused with a UTAE (the zonal multitemp defaults)
+   on a Sentinel-2 time series over the same extent (41 x 41 px, 12
+   monthly dates x 10 bands, a dates file, a cloud mask that clouds one
+   date over half the raster, 12 fixed time steps), through
+   ``run_inference`` (the host loader route): output geometry, labels <
+   19, the launches of K1, K2, K3, K5 and K4 during the run
+   (``launches_multimodal`` in the kernels line), argmax agreement of one
+   batch of the run's own inputs with a forward built from the plain
+   versions (float32 >= 0.999, bf16 >= 0.99, and the kernels' bf16 drift
+   from the float32 plain forward within 0.002 of the plain bf16
+   forward's), the warm wall time, tiles/s,
+   km2/h and the engine's phases; then one float32 training step of the
+   same model at batch 5 with modality dropout and the aux losses on:
+   finite loss, a finite non-zero gradient for every UTAE and fusion
+   parameter, the launches of K1, K2, K6, K3 and K5
+   (``launches_multimodal_train``);
 5. train: the host probe (pandas), then the port's ``training_stage`` and
    ``predict_stage`` with the reference's default training configuration
    (configs/train/*.yaml: swin-base-UPerNet, AERIAL_RGBI channels [4,1,2],
@@ -1838,6 +1855,232 @@ def phase_bench(write_geotiff) -> dict:
     return launches
 
 
+S2_SIDE, S2_DATES, S2_BANDS = 41, 12, 10  # Sentinel-2 over the slice's extent
+MM_BATCH_TRAIN = TRAIN_BATCH
+
+
+def multimodal_inputs(write_geotiff, raster) -> dict:
+    """The slice's aerial raster and a Sentinel-2 time series over the
+    same extent: 41 x 41 px (the extent over 41, 9.99 m/px), 12 monthly
+    dates x 10 bands of uint16 reflectance-like values with a smooth field
+    per band and date, a dates_txt file, and a cloud mask raster (snow and
+    cloud band per date) that clouds date 6 over the northern half, so
+    tiles there keep 11 dates and pad the 12th."""
+    import numpy as np
+    import torch
+
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+
+    d = os.path.join(TMP, "multimodal")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(1)
+    res = SIDE * RES / S2_SIDE
+    low = torch.from_numpy(rng.normal(size=(1, S2_DATES * S2_BANDS, 6, 6)).astype(np.float32))
+    field = torch.nn.functional.interpolate(low, size=(S2_SIDE, S2_SIDE), mode="bilinear",
+                                            align_corners=False)[0].numpy()
+    s2 = np.clip(1500 + 600 * field + rng.normal(size=field.shape) * 50, 1, 10000)
+    mask = np.zeros((2 * S2_DATES, S2_SIDE, S2_SIDE), np.uint8)
+    mask[2 * 6 + 1, :S2_SIDE // 2] = 99
+    paths = {k: os.path.join(d, f"{k}.tif") for k in ("aerial", "s2", "mask")}
+    paths["dates"] = os.path.join(d, "dates.txt")
+    write_geotiff(paths["aerial"], raster, zi.from_origin(700000.0, 6600000.0, RES, RES),
+                  "EPSG:2154", compress="lzw", tile_size=512)
+    for key, arr in (("s2", s2.astype(np.uint16)), ("mask", mask)):
+        write_geotiff(paths[key], arr, zi.from_origin(700000.0, 6600000.0, res, res),
+                      "EPSG:2154")
+    with open(paths["dates"], "w") as f:
+        f.write("\n".join(f"2021{m:02d}15" for m in range(1, S2_DATES + 1)))
+    return paths
+
+
+def multimodal_config(paths: dict, weights: str) -> dict:
+    """The slice's configuration (bench.py's zonal defaults: 512 px tiles,
+    40 px margin, batch 16, bf16, attn_f32 False, device normalisation)
+    with SENTINEL2_TS on: all 10 bands of every date, the dates file, the
+    cloud filter, 12 fixed time steps, the zonal UTAE defaults
+    (``multitemp_model_ref_date``)."""
+    cfg = slice_config(paths["aerial"], weights)
+    cfg["output_name"] = "chip_smoke_mm"
+    cfg["fixed_time_steps"] = S2_DATES
+    cfg["multitemp_model_ref_date"] = "05-15"
+    cfg["modalities"]["inputs"]["SENTINEL2_TS"] = True
+    cfg["modalities"]["SENTINEL2_TS"] = {
+        "input_img_path": paths["s2"], "channels": list(range(1, S2_BANDS + 1)),
+        "dates_txt": paths["dates"], "filter_clouds": True,
+        "filter_clouds_img_path": paths["mask"], "temporal_average": False}
+    return cfg
+
+
+def phase_multimodal(card: str, write_geotiff) -> tuple[dict, dict]:
+    """The multimodal / time-series zonal path at full width: swin-base-
+    UPerNet on AERIAL_RGBI fused with a UTAE on SENTINEL2_TS (the FLAIR-HUB
+    fusion model), through ``run_inference`` (the host loader route: a
+    time series disables device-resident tiling). Then one float32
+    training step of the same model at batch 5 with modality dropout and
+    the aux losses on. Returns the launches of the zonal run and of the
+    training step."""
+    import numpy as np
+    import torch
+    from safetensors.torch import save_file
+
+    from flair_for_aigle_tpu_torch.models.checkpoint import load_checkpoint
+    from flair_for_aigle_tpu_torch.train.optim import make_optimizer
+    from flair_for_aigle_tpu_torch.train.stages import build_model
+    from flair_for_aigle_tpu_torch.train.task import make_steps
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+    from flair_for_aigle_tpu_torch.zonal.dataset import BatchedLoader
+    from flair_for_aigle_tpu_torch.zonal.model_utils import (
+        build_inference_model,
+        compute_patch_sizes,
+    )
+
+    paths = multimodal_inputs(write_geotiff, synthetic_raster(0))
+    weights = os.path.join(TMP, "multimodal", "weights.safetensors")
+    cfg = multimodal_config(paths, weights)
+    pcfg = zi.initialize_geometry_and_resolutions(copy.deepcopy(cfg))
+    pcfg["output_type"] = "argmax"
+    zi._set_labels(pcfg)
+    seed_model, _ = build_inference_model({**pcfg, "model_weights": ""}, device="cpu", seed=0)
+    save_file({k: v.contiguous() for k, v in seed_model.state_dict().items()}, weights)
+    mt = seed_model.plan["multitemp"]
+    n_utae = sum(p.numel() for p in seed_model.encoders["SENTINEL2_TS"].parameters())
+    del seed_model
+    patch_sizes = compute_patch_sizes(pcfg)
+    say("multimodal", f"{cfg['monotemp_arch']} on AERIAL_RGBI {SIDE}x{SIDE} at {RES} m + UTAE "
+        f"on SENTINEL2_TS {S2_SIDE}x{S2_SIDE} at {SIDE * RES / S2_SIDE:.5f} m ({S2_DATES} dates "
+        f"x {S2_BANDS} bands, fixed T {cfg['fixed_time_steps']}, cloud filter); patch sizes "
+        f"{patch_sizes}; UTAE widths {mt['encoder_widths']}, out_conv {mt['out_conv']}, "
+        f"{mt['n_head']} heads, d_model {mt['d_model']}, {n_utae} parameters; "
+        f"device_tiling_plan {zi.device_tiling_plan(pcfg)}")
+    tile, margin = cfg["img_pixels_detection"], cfg["margin"]
+    s2_patch = int(round(tile / (SIDE * RES / S2_SIDE / RES)))
+    if zi.device_tiling_plan(pcfg) is not None or patch_sizes["SENTINEL2_TS"] != s2_patch:
+        raise AssertionError("the time-series route or the Sentinel patch size is wrong")
+
+    # the user entry point, with every launch count at 0 just before it
+    names = ("prep", "window_attn", "ffn", "merge", "epilogue")
+    fns = zero_launches(set(names))
+    t0 = time.perf_counter()
+    out_paths = zi.run_inference(copy.deepcopy(cfg), device=DEVICE)
+    torch.cuda.synchronize()
+    t_entry = time.perf_counter() - t0
+    launches = {k: fns[k].launches for k in names}
+    with zi.open_raster(out_paths["AERIAL_LABEL-COSIA"]) as src:
+        pred = src.read()
+        geo_ok = (src.height, src.width, src.count, src.crs) == (SIDE, SIDE, 1, "EPSG:2154")
+    n_tiles = len(zi.generate_patches_from_reference(pcfg))
+    say("multimodal", f"run_inference {t_entry:.2f} s (model build, checkpoint load and first "
+        f"cuDNN autotune included): {n_tiles} tiles, labels {pred.shape} "
+        f"{int(pred.min())}..{int(pred.max())} (bound < {N_CLASSES}), geometry "
+        f"{'ok' if geo_ok else 'WRONG'}; launches during it {launches} (bound > 0 each)")
+    if not (geo_ok and pred.max() < N_CLASSES and all(launches.values())):
+        raise AssertionError("the multimodal zonal run's output is wrong or a kernel of the "
+                             "path did not run")
+
+    # one batch of the run's own inputs (host loader): kernels vs a forward
+    # made of the plain versions, same weights, same batch
+    model, _ = build_inference_model(pcfg, device=DEVICE)
+    ds = zi.prep_dataset(pcfg, zi.generate_patches_from_reference(pcfg), patch_sizes)
+    host = BatchedLoader(ds, batch_size=BATCH)._make_batch(list(range(BATCH)))
+    ds.close()
+    batch = {k: torch.from_numpy(host[k]).to(DEVICE)
+             for k in ("AERIAL_RGBI", "SENTINEL2_TS", "SENTINEL2_DATES")}
+    batch["AERIAL_LABEL-COSIA"] = torch.zeros((BATCH, 1, tile, tile), device=DEVICE)
+    pad_frames = int((batch["SENTINEL2_TS"].flatten(2) == 0).all(-1).sum())
+    norm = {"AERIAL_RGBI": ("custom", cfg["modalities"]["AERIAL_RGBI"]["normalization"]["means"],
+                            cfg["modalities"]["AERIAL_RGBI"]["normalization"]["stds"])}
+    step = zi.ZonalStep(model, "argmax", margin, tile, 1, 1, torch.bfloat16, norm,
+                        torch.device(DEVICE))
+
+    def forward(plain: bool, dtype) -> torch.Tensor:
+        step.compute_dtype = dtype
+        with plain_versions() if plain else contextlib.nullcontext():
+            return step.forward_convert(batch)["AERIAL_LABEL-COSIA"]
+
+    pred_k, pred_r = forward(False, torch.bfloat16), forward(True, torch.bfloat16)
+    pred_r32 = forward(True, torch.float32)
+    agree = (pred_k == pred_r).float().mean().item()
+    agree32 = (forward(False, torch.float32) == pred_r32).float().mean().item()
+    # context, as in the slice: bf16 drift from the float32 plain forward
+    drift_k = (pred_k == pred_r32).float().mean().item()
+    drift_r = (pred_r == pred_r32).float().mean().item()
+    say("multimodal", f"argmax agreement kernels vs plain versions, one batch of {BATCH} "
+        f"({tuple(batch['SENTINEL2_TS'].shape)} host float32 time series, cast to the "
+        f"compute dtype on the card, {pad_frames} padded frames, dates "
+        f"{batch['SENTINEL2_DATES'].dtype}): float32 {agree32:.5f} (bound >= 0.999), bf16 "
+        f"{agree:.5f} (bound >= 0.99); bf16 vs the float32 plain forward: kernels "
+        f"{drift_k:.5f}, plain {drift_r:.5f} (bound: kernels >= plain - 0.002)")
+    if agree32 < 0.999 or agree < 0.99 or drift_k < drift_r - 0.002:
+        raise AssertionError("the multimodal kernel forward disagrees with the plain forward")
+
+    # bench.py's metric on this configuration: one warm-up pass, one timed
+    (first, _, _), (wall, phases, _) = [_zonal_pass(cfg, model) for _ in range(2)]
+    km2 = SIDE * SIDE * RES * RES / 1e6
+    say("multimodal", f"warm wall {wall:.3f} s (first pass {first:.3f} s), "
+        f"{n_tiles / wall:.2f} tiles/s, {km2 / wall * 3600:.1f} km2/h on {card}; phases (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phases.items() if k.endswith("_s")))
+    del model, step, batch
+
+    # one float32 training step of the same model (its weights, aux heads
+    # added) at batch 5, modality dropout and the aux losses on
+    root = os.path.join(TMP, "multimodal", "train")
+    tcfg = train_config(root)
+    tcfg["modalities"]["inputs"]["SENTINEL2_TS"] = True
+    tcfg["modalities"]["inputs_channels"]["AERIAL_RGBI"] = [1, 2, 3]
+    for mod in ("AERIAL_RGBI", "SENTINEL2_TS"):
+        tcfg["modalities"]["aux_loss"][mod] = True
+        tcfg["modalities"]["modality_dropout"][mod] = 0.5
+    tmodel = build_model(tcfg)
+    report = load_checkpoint(tmodel, weights)
+    tmodel.to(DEVICE)
+    rng = np.random.default_rng(2)
+    b, t, s2px = MM_BATCH_TRAIN, S2_DATES, patch_sizes["SENTINEL2_TS"]
+    ts = rng.normal(size=(b, t, S2_BANDS, s2px, s2px)).astype(np.float32)
+    ts[1, -1] = 0.0  # a padded date
+    labels = rng.integers(0, N_CLASSES, (b, TRAIN_PX, TRAIN_PX))
+    tb = {"AERIAL_RGBI": rng.normal(size=(b, 3, TRAIN_PX, TRAIN_PX)).astype(np.float32),
+          "SENTINEL2_TS": ts,
+          "SENTINEL2_DATES": np.sort(rng.integers(-180, 180, (b, t))).astype(np.float32),
+          "AERIAL_LABEL-COSIA": np.transpose(np.eye(N_CLASSES, dtype=np.float32)[labels],
+                                             (0, 3, 1, 2))}
+    opt = make_optimizer(tcfg["hyperparams"], [p for p in tmodel.parameters() if p.requires_grad])
+    steps = make_steps(tmodel, tcfg, opt, DEVICE, aux_loss_fix=True,
+                       generator=torch.Generator(device=DEVICE).manual_seed(0))
+    train_names = ("prep", "window_attn", "window_attn_bwd", "ffn", "merge")
+    tfns = zero_launches(set(train_names))
+    t0 = time.perf_counter()
+    loss, grads, _, _ = steps.loss_and_grads(tb)
+    opt.step(grads, 1e-5)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    train_launches = {k: tfns[k].launches for k in train_names}
+    named = [n for n, p in tmodel.named_parameters() if p.requires_grad]
+    checked = {"encoders.SENTINEL2_TS.": [0, 0], "fusion_handler.": [0, 0]}
+    bad = []
+    for n, g in zip(named, grads):
+        for pre, c in checked.items():
+            if n.startswith(pre):
+                c[1] += 1
+                ok = g is not None and bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+                c[0] += ok
+                if not ok:
+                    bad.append(n)
+    say("multimodal", f"train_step float32 batch {b} ({TRAIN_PX} px, {t} dates, modality "
+        f"dropout and aux losses on, weights of the zonal run: {len(report['loaded'])} loaded, "
+        f"{len(report['missing'])} initialised) {t_step:.2f} s: loss {loss.item():.6f}; "
+        f"finite non-zero gradients: UTAE {checked['encoders.SENTINEL2_TS.'][0]}/"
+        f"{checked['encoders.SENTINEL2_TS.'][1]}, fusion_handler "
+        f"{checked['fusion_handler.'][0]}/{checked['fusion_handler.'][1]}; launches "
+        f"{train_launches}")
+    if not math.isfinite(loss.item()) or bad or not all(train_launches.values()):
+        raise AssertionError(f"multimodal training step: loss {loss.item()}, gradients "
+                             f"missing or not finite for {bad[:8]}, launches {train_launches}")
+    del steps, tmodel, grads, opt
+    torch.cuda.empty_cache()
+    return launches, train_launches
+
+
+
 def train_config(root: str) -> dict:
     """The reference's default training configuration (configs/train/
     *.yaml, merged in file order as its read_config does) on the synthetic
@@ -2147,15 +2390,18 @@ def main() -> int:
     with host_io() as (write_geotiff, io_desc):
         zonal = phase_slice(env["card"], write_geotiff, io_desc)
         bench = phase_bench(write_geotiff)
+        multimodal, multimodal_train = phase_multimodal(env["card"], write_geotiff)
         train, train_switched = phase_train(env["card"], write_geotiff)
     tool = phase_tool()
-    # launches: the main path's runs (zonal, the bench's timed runs,
-    # training stages and CLI), for
+    # launches: the main path's runs (zonal, the bench's timed runs, the
+    # multimodal zonal run and training step, training stages and CLI), for
     # K7 and K8 the runs under their switches (the zonal finish pass, one
     # training step each), and the A/B tool's run; library_ms: the A/B
     # kernels' two bf16 torch.bmm at the tool's defaults, else null (no
     # single PyTorch call computes the other, fused functions)
-    runs = {"zonal": zonal, "bench": bench, "train": train, "train_switched": train_switched,
+    runs = {"zonal": zonal, "bench": bench, "multimodal": multimodal,
+            "multimodal_train": multimodal_train, "train": train,
+            "train_switched": train_switched,
             "tool": tool}
     # K2's bf16 attention core alone, summed over the stages at attn_f32
     # False (the slice's), and its float32 core at attn_f32 True (the

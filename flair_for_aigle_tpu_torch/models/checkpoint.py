@@ -3,7 +3,8 @@
 * ``state_dict_from_flax`` turns the JAX package's numpy parameter trees
   into a torch state dict, with the rules of
   ``flair_for_aigle_tpu/models/checkpoint.py:155 export_torch_state_dict``
-  (HWIO -> OIHW, Linear kernel transpose, ``torch_key_for`` leaf names).
+  (HWIO -> OIHW, transposed convolutions HWIO flipped -> IOHW, Linear
+  kernel transpose, ``torch_key_for`` leaf names).
 * ``load_checkpoint`` ports the reference loader behaviour of
   ``flair_for_aigle_tpu/models/checkpoint.py:346``: read ``.safetensors`` or
   a torch checkpoint, strip a ``model.`` prefix the target lacks, apply the
@@ -23,6 +24,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from flair_for_aigle_tpu_torch.models.utae import UTAE_TRANSPOSE_CONV_PATTERNS
 
 logger = logging.getLogger(__name__)
 
@@ -52,16 +55,21 @@ def torch_key_for(path: tuple[str, ...]) -> str:
 
 
 def state_dict_from_flax(params: Mapping[str, Any],
-                         batch_stats: Mapping[str, Any] | None = None
+                         batch_stats: Mapping[str, Any] | None = None,
+                         transpose_conv_patterns: tuple[str, ...] = UTAE_TRANSPOSE_CONV_PATTERNS
                          ) -> dict[str, torch.Tensor]:
     """Flax ``params`` (+ ``batch_stats``) trees of numpy arrays -> torch
-    state dict (float32 tensors in the torch layout). The ported families
-    hold no transposed convolution, so every 4-D kernel is HWIO -> OIHW."""
+    state dict (float32 tensors in the torch layout). A 4-D kernel is HWIO
+    -> OIHW, except on a path that contains one of
+    ``transpose_conv_patterns``: a transposed convolution's kernel, stored
+    spatially flipped in HWIO, becomes (I, O, kH, kW) unflipped."""
     out = {}
     for tree in (params, batch_stats or {}):
         for path, leaf in _flatten(tree).items():
             v = np.asarray(leaf)
-            if v.ndim == 4:
+            if v.ndim == 4 and any(p in ".".join(path) for p in transpose_conv_patterns):
+                v = np.transpose(v, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+            elif v.ndim == 4:
                 v = np.transpose(v, (3, 2, 0, 1))
             elif v.ndim == 2 and path[-1] == "kernel":
                 v = v.T
@@ -215,6 +223,8 @@ def load_checkpoint(model: nn.Module, path: str, seed: int = 0) -> dict:
             report["missing"].append(key)
             continue
         src = np.asarray(state_dict[key])
+        if src.ndim == 3 and src.shape[-1] == 1 and leaf.ndim == 2:
+            src = src[:, :, 0]  # a kernel-1 Conv1d used as a Linear (LTAE inconv)
         if "relative_position_bias_table" in key and src.shape != tuple(leaf.shape):
             logger.info("-> Interpolating %s: %s -> %s", key, src.shape,
                         tuple(leaf.shape))

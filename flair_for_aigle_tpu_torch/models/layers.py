@@ -53,14 +53,19 @@ class TorchConv(nn.Module):
 
     A list input means "conv over the channel concatenation of these maps",
     computed as the sum of per-piece convs with the weight sliced along
-    C_in (the UPerNet bottleneck; identical params, no concat)."""
+    C_in (the UPerNet bottleneck; identical params, no concat).
+    ``padding_mode="reflect"`` reflect-pads the input and convolves it
+    unpadded (the UTAE convolutions)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride=1,
-                 padding=0, bias: bool = True):
+                 padding=0, bias: bool = True, padding_mode: str = "zeros"):
         super().__init__()
+        if padding_mode not in ("zeros", "reflect"):
+            raise ValueError(f"padding_mode {padding_mode!r}")
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.padding = _pair(padding)
+        self.padding_mode = padding_mode
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
@@ -71,8 +76,13 @@ class TorchConv(nn.Module):
             bias_uniform_(self.bias, fan_in, gen)
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None, self.stride,
-                     self.padding)
+        x = x.permute(0, 3, 1, 2)
+        padding = self.padding
+        if self.padding_mode == "reflect" and any(padding):
+            ph, pw = padding
+            x = F.pad(x, (pw, pw, ph, ph), mode="reflect")
+            padding = (0, 0)
+        y = F.conv2d(x, w.to(x.dtype), None, self.stride, padding)
         return y.permute(0, 2, 3, 1)
 
     def forward(self, x) -> torch.Tensor:
@@ -90,8 +100,42 @@ class TorchConv(nn.Module):
         return y
 
 
+class TorchConvTranspose(nn.Module):
+    """2-D transposed convolution with torch ConvTranspose2d semantics on
+    NHWC tensors (``flair_for_aigle_tpu/models/layers.py:187``); weight in
+    the torch layout (C_in, C_out, kH, kW). Output size (in - 1) * stride -
+    2 * padding + kernel + output_padding."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size=4, stride=2,
+                 padding=1, output_padding: int = 0, bias: bool = True):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.output_padding = output_padding
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, kh, kw))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        # the reference's fan-in: kH * kW * C_in
+        fan_in = self.weight.shape[0] * self.weight.shape[2] * self.weight.shape[3]
+        kaiming_uniform_(self.weight, fan_in, gen)
+        if self.bias is not None:
+            bias_uniform_(self.bias, fan_in, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), None,
+                               self.stride, self.padding, self.output_padding)
+        y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
 class TorchLinear(nn.Module):
-    """Linear layer, weight (out, in); compute-dtype epilogue."""
+    """Linear layer, weight (out, in); compute-dtype epilogue. A kernel-1
+    Conv1d weight (out, in, 1) in a state dict loads as this Linear (the
+    reference LTAE's ``inconv``)."""
 
     def __init__(self, in_f: int, out_f: int, bias: bool = True):
         super().__init__()
@@ -102,6 +146,12 @@ class TorchLinear(nn.Module):
         kaiming_uniform_(self.weight, self.weight.shape[1], gen)
         if self.bias is not None:
             bias_uniform_(self.bias, self.weight.shape[1], gen)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        w = state_dict.get(prefix + "weight")
+        if w is not None and w.ndim == 3 and w.shape[-1] == 1:
+            state_dict[prefix + "weight"] = w[:, :, 0]
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x, self.weight.to(x.dtype).t())
@@ -171,6 +221,83 @@ class TorchBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean) * inv + self.bias).to(x.dtype)
+
+
+class TorchGroupNorm(nn.Module):
+    """GroupNorm with torch semantics, channels last
+    (``flair_for_aigle_tpu/models/layers.py:274``): per sample, float32
+    statistics over every axis but the batch and the group, so a (N, T, C)
+    sequence is normalised over T and C / G together; the output is cast
+    back to the input dtype."""
+
+    def __init__(self, num_groups: int, ch: int, eps: float = 1e-5):
+        super().__init__()
+        if ch % num_groups:
+            raise ValueError(f"channels {ch} not divisible by groups {num_groups}")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(ch))
+        self.bias = nn.Parameter(torch.empty(ch))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ch, g = x.shape[-1], self.num_groups
+        xg = x.float().reshape(x.shape[0], -1, g, ch // g)
+        mean = xg.mean((1, 3), keepdim=True)
+        var = ((xg - mean) ** 2).mean((1, 3), keepdim=True)
+        xg = (xg - mean) * torch.rsqrt(var + self.eps)
+        return (xg.reshape(x.shape) * self.weight + self.bias).to(x.dtype)
+
+
+class TorchInstanceNorm(nn.Module):
+    """InstanceNorm2d (torch default: no affine) on NHWC, float32
+    statistics over H and W (``flair_for_aigle_tpu/models/layers.py:367``)."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean((-3, -2), keepdim=True)
+        var = ((xf - mean) ** 2).mean((-3, -2), keepdim=True)
+        return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+
+
+def avg_pool2d(x: torch.Tensor, kernel_size, stride=None) -> torch.Tensor:
+    """torch AvgPool2d (no padding) on (..., H, W, C), summed in float32
+    (``flair_for_aigle_tpu/models/layers.py:401``)."""
+    kh, kw = _pair(kernel_size)
+    sh, sw = (kh, kw) if stride is None else _pair(stride)
+    lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
+    y = x.float().reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    y = F.avg_pool2d(y, (kh, kw), (sh, sw))
+    return y.permute(0, 2, 3, 1).reshape(*lead, *y.shape[-2:], c).to(x.dtype)
+
+
+def xavier_uniform_like(x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    """Xavier-uniform noise of ``x``'s shape and dtype, with the fans of
+    flax's ``xavier_uniform`` (in axis -2, out axis -1, the leading axes a
+    receptive field): bound sqrt(6 / (fan_in + fan_out))."""
+    receptive = math.prod(x.shape[:-2])
+    fan_in, fan_out = x.shape[-2] * receptive, x.shape[-1] * receptive
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(x.shape, generator=gen, device=x.device, dtype=torch.float32)
+    return (u * (2 * bound) - bound).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            gen: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout with draws from ``gen`` (flax ``nn.Dropout``: keep
+    with probability 1 - p, scale the kept values by 1 / (1 - p))."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class MLP(nn.Module):

@@ -8,7 +8,9 @@ Quirk compatibility: the reference's auxiliary loss is dead code (keys
 ``aux_{mod}_{task}`` never match its ``task in dict_logits_aux`` check).
 ``aux_loss_fix=False`` reproduces that (no aux gradient); ``True`` enables
 the intended aux loss with ``aux_loss_weight`` scaling. Modality dropout
-acts only with more than one modality, which the port does not run yet.
+is on when any ``modality_dropout`` value is positive (the values only
+switch it on, as in ``task.py:57-59``); it acts with more than one
+modality, and draws, like UTAE's dropout, from the steps' generator.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ class Steps:
     """train / eval / predict steps of one model (``make_steps``)."""
 
     def __init__(self, model, config: Dict[str, Any], optimizer,
-                 device, aux_loss_fix: bool = False):
+                 device, aux_loss_fix: bool = False,
+                 generator: torch.Generator | None = None):
         self.model = model
         self.optimizer = optimizer
         self.device = torch.device(device)
@@ -59,6 +62,9 @@ class Steps:
             m for m, a in config["modalities"].get("aux_loss", {}).items()
             if a and config["modalities"]["inputs"].get(m, False)]
         self.aux_loss_fix = aux_loss_fix
+        self.mod_dropout = any(
+            v > 0 for v in config["modalities"].get("modality_dropout", {}).values())
+        self.generator = generator
         self.compute_dtype = (torch.bfloat16 if config["hyperparams"].get(
             "compute_dtype") == "bfloat16" else None)
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -109,7 +115,9 @@ class Steps:
         touches no parameter."""
         self.model.train()
         b = to_device(batch, self.device)
-        logits_tasks, logits_aux = self.model(self.cast_inputs(b))
+        logits_tasks, logits_aux = self.model(self.cast_inputs(b),
+                                              apply_mod_dropout=self.mod_dropout,
+                                              generator=self.generator)
         loss, preds, targets = self.compute_loss(logits_tasks, logits_aux, b)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         return loss.detach(), grads, preds, targets
@@ -147,5 +155,9 @@ class Steps:
 
 
 def make_steps(model, config: Dict[str, Any], optimizer, device,
-               aux_loss_fix: bool = False) -> Steps:
-    return Steps(model, config, optimizer, device, aux_loss_fix=aux_loss_fix)
+               aux_loss_fix: bool = False,
+               generator: torch.Generator | None = None) -> Steps:
+    """``generator``: the draws of the training step's modality dropout
+    and UTAE dropout (on ``device``); None uses torch's default one."""
+    return Steps(model, config, optimizer, device, aux_loss_fix=aux_loss_fix,
+                 generator=generator)

@@ -183,7 +183,10 @@ def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
     optimizer = make_optimizer(hp, [p for p in model.parameters() if p.requires_grad])
     scheduler = make_scheduler(hp, hp.get("scheduler_total_steps")
                                or steps_per_epoch * num_epochs)
-    steps = make_steps(model, config, optimizer, device, aux_loss_fix=aux_loss_fix)
+    # the training step's random draws (modality and UTAE dropout), seeded
+    gen = torch.Generator(device=device).manual_seed(int(hp.get("seed", 0)))
+    steps = make_steps(model, config, optimizer, device, aux_loss_fix=aux_loss_fix,
+                       generator=gen)
     ckpt_cb = CheckpointCallback(config, out_dir)
     global_step = 0
     for epoch in range(num_epochs):

@@ -680,3 +680,8 @@ def run_inference(config_path, device="cuda") -> Dict[str, str]:
     ref_img.close()
     dataset.close()
     return temp_paths
+
+
+# the legacy accumulate variant lives in zonal/legacy.py; re-exported here
+# for callers of the reference API
+from flair_for_aigle_tpu_torch.zonal.legacy import inference  # noqa: E402,F401

@@ -2,7 +2,9 @@
 
 Port of ``flair_for_aigle_tpu/zonal/model_utils.py``: per-modality patch
 sizes from the raster resolutions, the flat zonal YAML expanded into the
-model config, and the model build + checkpoint load.
+model config (with the UTAE defaults when ``multitemp_model_ref_date`` is
+set, and the Sentinel pre-processing keys), and the model build +
+checkpoint load.
 
 Epilogue gate (reference :151-167, with CUDA in place of the TPU):
 ``fused_epilogue`` auto|True|False. ``auto`` takes the stride-4 head + fused
@@ -22,7 +24,7 @@ import torch
 
 from flair_for_aigle_tpu_torch.geo.geotiff import open_raster
 from flair_for_aigle_tpu_torch.models.checkpoint import load_checkpoint
-from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
+from flair_for_aigle_tpu_torch.models.flair_model import DEFAULT_MULTITEMP, FlairHubModel
 from flair_for_aigle_tpu_torch.models.layers import init_weights
 from flair_for_aigle_tpu_torch.ops.epilogue import MAX_CLASSES
 
@@ -62,6 +64,9 @@ def prepare_model_config(config: Dict[str, Any]) -> Dict[str, Any]:
             "attn_f32": config.get("attn_f32", True),
             "attn_kernel": config.get("attn_kernel", "auto"),
         }
+    if "multitemp_model_ref_date" in config:
+        cfg["models"]["multitemp_model"] = {
+            **deepcopy(DEFAULT_MULTITEMP), "ref_date": config["multitemp_model_ref_date"]}
     cfg.setdefault("labels", [t["name"] for t in cfg["tasks"] if t.get("active")])
     cfg.setdefault("labels_configs", {
         t["name"]: {"value_name": (list(t["class_names"].values())
@@ -79,13 +84,24 @@ def prepare_model_config(config: Dict[str, Any]) -> Dict[str, Any]:
     cfg["modalities"].setdefault("pre_processings", {
         "calc_elevation": dem_cfg.get("calc_elevation", False),
         "calc_elevation_stack_dsm": dem_cfg.get("calc_elevation_stack_dsm", False),
+        "filter_sentinel2": False,
+        "filter_sentinel2_max_cloud": 100,
+        "filter_sentinel2_max_snow": 100,
+        "filter_sentinel2_max_frac_cover": 1.0,
+        "temporal_average_sentinel2": False,
+        "temporal_average_sentinel1": False,
+        "use_augmentation": False,
     })
     cfg.setdefault("paths", {})["ckpt_model_path"] = config["model_weights"]
     return cfg
 
 
 def use_stride4_epilogue(config: Dict[str, Any], device: torch.device) -> bool:
-    """The epilogue gate; raises on CUDA for the routes not ported there."""
+    """The epilogue gate; raises on CUDA for the routes not ported there.
+    As in the reference, it reads the arch and the epilogue's fit only, so
+    it holds under fusion; the model takes the stride-4 head only with an
+    active mono modality (``FlairHubModel.stride4``), and a time-series-only
+    model keeps its full-resolution logits."""
     flag = config.get("fused_epilogue", "auto")
     on_cuda = device.type == "cuda"
     attn_kernel = config.get("attn_kernel", "auto")  # YAML reads `off` as False

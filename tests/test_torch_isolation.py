@@ -63,12 +63,15 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 HOST_TAIL = ["geo.crs", "geo.polygonize", "geo.shapefile", "zonal.postprocess", "aigle.config",
              "aigle.utils", "aigle.logs", "aigle.map", "aigle.pgwire", "aigle.db", "aigle.export",
              "aigle.s3", "zonal.inference", "aigle.run_fast_aigle_segmentation", "main", "bench"]
+# the multimodal / time-series path's modules
+MULTIMODAL = ["models.layers", "models.utae", "models.flair_model", "models.checkpoint",
+              "zonal.model_utils", "zonal.legacy", "train.task", "train.trainer"]
 
 
 def test_importing_every_module_of_the_port_leaves_jax_out():
     modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
                      for p in PORT.rglob("*.py"))
-    assert {f"flair_for_aigle_tpu_torch.{m}" for m in HOST_TAIL} <= set(modules)
+    assert {f"flair_for_aigle_tpu_torch.{m}" for m in HOST_TAIL + MULTIMODAL} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -94,7 +97,7 @@ class _Untouched:
 
 @pytest.mark.parametrize("entry", ["run_inference", "training_stage", "predict_stage",
                                    "zonal_main", "train_main", "bench", "main",
-                                   "run_fast_aigle_segmentation"])
+                                   "run_fast_aigle_segmentation", "legacy_inference"])
 def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     # the Aigle driver's folders and the bench's work folder, were they made
@@ -111,6 +114,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry, tmp_path,
         "main": lambda: aigle_main.main(["--config", missing]),
         "run_fast_aigle_segmentation": lambda: run_fast_aigle_segmentation(
             ArgsObject(model_config=missing, db_sources=str(tmp_path / "db"))),
+        "legacy_inference": lambda: zi.inference(_Untouched(), _Untouched(), [], {}, None),
     }
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         calls[entry]()
