@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from flair_for_aigle_tpu_torch.models.utae import UTAE_TRANSPOSE_CONV_PATTERNS
+from flair_for_aigle_tpu_torch.models.flair_model import FLAIR_TRANSPOSE_CONV_PATTERNS
 
 logger = logging.getLogger(__name__)
 
@@ -56,7 +56,7 @@ def torch_key_for(path: tuple[str, ...]) -> str:
 
 def state_dict_from_flax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any] | None = None,
-                         transpose_conv_patterns: tuple[str, ...] = UTAE_TRANSPOSE_CONV_PATTERNS
+                         transpose_conv_patterns: tuple[str, ...] = FLAIR_TRANSPOSE_CONV_PATTERNS
                          ) -> dict[str, torch.Tensor]:
     """Flax ``params`` (+ ``batch_stats``) trees of numpy arrays -> torch
     state dict (float32 tensors in the torch layout). A 4-D kernel is HWIO

@@ -2,7 +2,7 @@
 
 Port of ``flair_for_aigle_tpu/models/flair_model.py``: ``resolve_model_plan``,
 ``FusionHandler`` and ``FlairHubModel`` for every combination of active
-modalities. Mono modalities (B, C, H, W) run a Swin encoder each; time
+modalities. Mono modalities (B, C, H, W) run a monotemporal encoder each; time
 series (B, T, C, H, W) with ``<MOD>_DATES`` (B, T) run a UTAE each, whose
 logits are resized to the tile. The fusion handler takes one of four cases:
 one mono modality (pass-through), one time series (its logits), the mean of
@@ -17,7 +17,8 @@ tasks), ``aux_decoders.<MOD>__<task>.seg_model.*`` (mono) and a 1x1
 ``zonal_stride4_logits`` in the config makes the UPerNet head emit NHWC
 stride-4 logits for the fused zonal epilogue when a mono modality is active
 (reference :355-358); otherwise the forward returns full-resolution NCHW
-logits per task.
+logits per task. Mono encoders and decoders are any family of
+``models/monotemp.py``.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ import torch
 from torch import nn
 
 from flair_for_aigle_tpu_torch.models.layers import TorchConv, xavier_uniform_like
+from flair_for_aigle_tpu_torch.models.linknet import LINKNET_TRANSPOSE_CONV_PATTERNS
 from flair_for_aigle_tpu_torch.models.monotemp import (
     MonotempDecoder,
     MonotempSpec,
+    encoder_mode,
     encoder_out_channels,
     make_encoder,
 )
@@ -45,8 +48,10 @@ logger = logging.getLogger(__name__)
 MONO_KEYS = ["AERIAL_RGBI", "AERIAL-RLT_PAN", "DEM_ELEV", "SPOT_RGBI"]
 MULTI_KEYS = ["SENTINEL2_TS", "SENTINEL1-ASC_TS", "SENTINEL1-DESC_TS"]
 
-# checkpoint paths of transposed convolutions (UTAE's up blocks)
-FLAIR_TRANSPOSE_CONV_PATTERNS = tuple(UTAE_TRANSPOSE_CONV_PATTERNS)
+# checkpoint paths of transposed convolutions (UTAE's up blocks, LinkNet's
+# TransposeX2)
+FLAIR_TRANSPOSE_CONV_PATTERNS = (tuple(UTAE_TRANSPOSE_CONV_PATTERNS)
+                                 + tuple(LINKNET_TRANSPOSE_CONV_PATTERNS))
 
 DEFAULT_MULTITEMP = {
     "ref_date": "05-15",
@@ -228,17 +233,18 @@ class FlairHubModel(nn.Module):
         self.plan = plan
         labels, spec, mt = plan["labels"], plan["spec"], plan["multitemp"]
         mcfg = config["models"]["monotemp_model"]
-        enc_ch = {m: encoder_out_channels(spec.encoder_name, plan["channels"][m])
-                  for m in plan["active_mono"]}
         self.stride4 = bool(config.get("zonal_stride4_logits") and plan["active_mono"]
                             and spec.decoder_name == "upernet")
 
         self.encoders = nn.ModuleDict()
         self.aux_decoders = nn.ModuleDict()
+        os_, depth = encoder_mode(spec.decoder_name)
+        enc_ch = {}
         for mod in plan["active_mono"]:
             self.encoders[mod] = _SegModel(make_encoder(
                 spec.encoder_name, plan["channels"][mod],
-                attn_f32=mcfg.get("attn_f32", True)))
+                attn_f32=mcfg.get("attn_f32", True), output_stride=os_, depth=depth))
+            enc_ch[mod] = self.encoders[mod].seg_model.out_channels
             if plan["aux_losses"].get(mod):
                 for task in labels:
                     self.aux_decoders[f"{mod}__{task}"] = _SegModel(MonotempDecoder(
@@ -302,7 +308,7 @@ class FlairHubModel(nn.Module):
         only). Returns ({task: logits}, {aux key: logits}); logits are NCHW
         at full resolution, or NHWC stride-4 in stride-4 mode.
         ``generator`` draws the modality dropout and, in training mode,
-        UTAE's dropout."""
+        UTAE's and the decoders' dropout."""
         plan = self.plan
         labels = plan["labels"]
         img_size = batch[labels[0]].shape[-1]
@@ -314,7 +320,8 @@ class FlairHubModel(nn.Module):
             fmaps[mod] = self.encoders[mod].seg_model(batch[mod].permute(0, 2, 3, 1))
             if plan["aux_losses"].get(mod):
                 for task in labels:
-                    out = self.aux_decoders[f"{mod}__{task}"].seg_model(*fmaps[mod])
+                    out = self.aux_decoders[f"{mod}__{task}"].seg_model(
+                        *fmaps[mod], generator=generator)
                     out = resize_bilinear_nhwc(out, img_size, img_size)
                     logits_aux[f"aux_{mod}_{task}"] = out.permute(0, 3, 1, 2)
         for mod in plan["active_multi"]:
@@ -340,7 +347,7 @@ class FlairHubModel(nn.Module):
         out_tasks = {}
         for task in labels:
             if plan["active_mono"]:
-                out = self.main_decoders[task].seg_model(*fused)
+                out = self.main_decoders[task].seg_model(*fused, generator=generator)
                 if not self.stride4:
                     out = resize_bilinear_nhwc(out, img_size, img_size)
             elif len(labels) > 1:

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flair_for_aigle_tpu_torch.ops.resize import resize_bilinear_ac_nhwc
+
 
 def _pair(v) -> tuple[int, int]:
     if isinstance(v, (tuple, list)):
@@ -55,18 +57,26 @@ class TorchConv(nn.Module):
     computed as the sum of per-piece convs with the weight sliced along
     C_in (the UPerNet bottleneck; identical params, no concat).
     ``padding_mode="reflect"`` reflect-pads the input and convolves it
-    unpadded (the UTAE convolutions)."""
+    unpadded (the UTAE convolutions). ``dilation`` and ``groups`` are
+    torch's (``flair_for_aigle_tpu/models/layers.py:70``): the weight is
+    (out, in // groups, kH, kW), so ``groups=in_ch`` is a depthwise
+    convolution."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=3, stride=1,
-                 padding=0, bias: bool = True, padding_mode: str = "zeros"):
+                 padding=0, bias: bool = True, padding_mode: str = "zeros",
+                 dilation=1, groups: int = 1):
         super().__init__()
         if padding_mode not in ("zeros", "reflect"):
             raise ValueError(f"padding_mode {padding_mode!r}")
+        if in_ch % groups or out_ch % groups:
+            raise ValueError(f"channels {in_ch} -> {out_ch} not divisible by groups {groups}")
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.groups = groups
         self.padding_mode = padding_mode
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kh, kw))
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -82,11 +92,20 @@ class TorchConv(nn.Module):
             ph, pw = padding
             x = F.pad(x, (pw, pw, ph, ph), mode="reflect")
             padding = (0, 0)
-        y = F.conv2d(x, w.to(x.dtype), None, self.stride, padding)
+        if w.shape[0] == 0:
+            # a zero-channel output (U-Net++ blocks fed only a transformer
+            # encoder's zero-channel dummy), which F.conv2d refuses
+            hw = [(n + 2 * p - d * (k - 1) - 1) // s + 1 for n, p, d, k, s in zip(
+                x.shape[-2:], padding, self.dilation, w.shape[-2:], self.stride)]
+            return x.new_zeros(x.shape[0], *hw, 0)
+        y = F.conv2d(x, w.to(x.dtype), None, self.stride, padding, self.dilation,
+                     self.groups)
         return y.permute(0, 2, 3, 1)
 
     def forward(self, x) -> torch.Tensor:
         if isinstance(x, (list, tuple)):
+            if self.groups != 1:
+                raise ValueError("a split-input convolution needs groups=1")
             y, off = None, 0
             for piece in x:
                 cs = piece.shape[-1]
@@ -207,6 +226,8 @@ class TorchBatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] == 0:
+            return x
         xf = x.float()
         if self.training:
             axes = tuple(range(x.ndim - 1))
@@ -268,6 +289,14 @@ class TorchInstanceNorm(nn.Module):
         return ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
 
 
+def max_pool2d(x: torch.Tensor, kernel_size=3, stride=2, padding=1) -> torch.Tensor:
+    """torch MaxPool2d on NHWC: the padding is -inf, so it never wins
+    (``flair_for_aigle_tpu/models/layers.py:380``)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), _pair(kernel_size), _pair(stride),
+                     _pair(padding))
+    return y.permute(0, 2, 3, 1)
+
+
 def avg_pool2d(x: torch.Tensor, kernel_size, stride=None) -> torch.Tensor:
     """torch AvgPool2d (no padding) on (..., H, W, C), summed in float32
     (``flair_for_aigle_tpu/models/layers.py:401``)."""
@@ -291,12 +320,15 @@ def xavier_uniform_like(x: torch.Tensor, gen: torch.Generator | None) -> torch.T
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            gen: torch.Generator | None) -> torch.Tensor:
+            gen: torch.Generator | None, channel_wise: bool = False) -> torch.Tensor:
     """Inverted dropout with draws from ``gen`` (flax ``nn.Dropout``: keep
-    with probability 1 - p, scale the kept values by 1 / (1 - p))."""
+    with probability 1 - p, scale the kept values by 1 / (1 - p)).
+    ``channel_wise`` drops whole channels of each NHWC sample, one draw per
+    (sample, channel) (torch ``Dropout2d``; flax ``broadcast_dims=(1, 2)``)."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    shape = (x.shape[0], 1, 1, x.shape[-1]) if channel_wise else x.shape
+    keep = torch.rand(shape, generator=gen, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -310,6 +342,41 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+class SequentialReLU(nn.Sequential):
+    """``nn.Sequential`` then ReLU: smp's conv + BatchNorm + ReLU blocks,
+    the conv at child ``0`` and its BatchNorm at child ``1``."""
+
+    def forward(self, x) -> torch.Tensor:
+        return torch.relu(super().forward(x))
+
+
+class ConvBNReLU(SequentialReLU):
+    """Bias-free conv (``kernel_size``, same padding) + BatchNorm + ReLU. A
+    list input is the concat-free split conv of ``TorchConv``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1):
+        super().__init__(TorchConv(in_ch, out_ch, kernel_size, 1, kernel_size // 2, bias=False),
+                         TorchBatchNorm(out_ch))
+
+
+class SegmentationHead(nn.Module):
+    """smp's SegmentationHead: ``segmentation_head.0``, a conv to the
+    classes, then an align-corners bilinear x ``upsampling`` when it is
+    above 1."""
+
+    def __init__(self, in_ch: int, classes: int, kernel_size: int = 3, upsampling: int = 1):
+        super().__init__()
+        self.upsampling = upsampling
+        self.add_module("0", TorchConv(in_ch, classes, kernel_size, 1, kernel_size // 2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = getattr(self, "0")(x)
+        if self.upsampling > 1:
+            x = resize_bilinear_ac_nhwc(x, x.shape[-3] * self.upsampling,
+                                        x.shape[-2] * self.upsampling)
+        return x
 
 
 def init_weights(model: nn.Module, gen: torch.Generator) -> nn.Module:

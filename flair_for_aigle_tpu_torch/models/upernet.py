@@ -6,7 +6,8 @@ back), FPN laterals with top-down nearest x2 + add, every pyramid level
 resized (bilinear) to stride 4 and fused by a 3x3 Conv+BN+ReLU computed
 concat-free, then the segmentation head (3x3 conv; x4 align-corners
 bilinear unless ``upsampling=1``, the stride-4 mode that hands the logits
-to the fused zonal epilogue). Module names mirror the smp state-dict keys.
+to the fused zonal epilogue; ``layers.py SegmentationHead``). Module names
+mirror the smp state-dict keys.
 """
 
 from __future__ import annotations
@@ -16,27 +17,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from flair_for_aigle_tpu_torch.models.layers import TorchBatchNorm, TorchConv
+from flair_for_aigle_tpu_torch.models.layers import ConvBNReLU
 from flair_for_aigle_tpu_torch.ops.resize import (
     adaptive_avg_pool_nhwc,
     resize_bilinear_ac_nhwc,
     resize_bilinear_nhwc,
     resize_nearest_nhwc,
 )
-
-
-class ConvBNReLU(nn.Module):
-    """Children named ``0`` (bias-free conv) and ``1`` (BatchNorm), as
-    smp's ``nn.Sequential``. A list input is the concat-free split conv."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 1):
-        super().__init__()
-        self.add_module("0", TorchConv(in_ch, out_ch, kernel_size, 1,
-                                       kernel_size // 2, bias=False))
-        self.add_module("1", TorchBatchNorm(out_ch))
-
-    def forward(self, x) -> torch.Tensor:
-        return torch.relu(getattr(self, "1")(getattr(self, "0")(x)))
 
 
 # identical param tree; the list-input mode lives in TorchConv
@@ -91,7 +78,7 @@ class UPerNetDecoder(nn.Module):
         self.fpn_bottleneck = SplitInputConvBNReLU(
             pyramid_channels * len(chans), segmentation_channels, 3)
 
-    def forward(self, *features) -> torch.Tensor:
+    def forward(self, *features, generator: torch.Generator | None = None) -> torch.Tensor:
         feats = list(features[2:])
         fpn_features = [self.psp(feats[-1])]
         for i in range(len(feats) - 2, -1, -1):
@@ -99,17 +86,3 @@ class UPerNetDecoder(nn.Module):
         th, tw = feats[0].shape[-3], feats[0].shape[-2]
         resized = [resize_bilinear_nhwc(f, th, tw) for f in fpn_features]
         return self.fpn_bottleneck(resized)
-
-
-class UPerNetSegmentationHead(nn.Module):
-    def __init__(self, in_ch: int, classes: int, upsampling: int = 4):
-        super().__init__()
-        self.upsampling = upsampling
-        self.add_module("0", TorchConv(in_ch, classes, 3, 1, 1))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = getattr(self, "0")(x)
-        if self.upsampling > 1:
-            x = resize_bilinear_ac_nhwc(x, x.shape[-3] * self.upsampling,
-                                        x.shape[-2] * self.upsampling)
-        return x

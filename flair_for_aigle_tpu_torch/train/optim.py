@@ -76,6 +76,14 @@ class ReduceLROnPlateau:
     def lr(self, base_lr: float) -> float:
         return max(base_lr * self.scale, self.min_lr)
 
+    def state_dict(self) -> dict:
+        return {"best": self.best, "bad_epochs": self.bad_epochs,
+                "cooldown_count": self.cooldown_count, "scale": self.scale}
+
+    def load_state_dict(self, state: dict) -> None:
+        for k, v in state.items():
+            setattr(self, k, v)
+
 
 @dataclass
 class SchedulerState:
@@ -107,6 +115,18 @@ class SchedulerState:
         if self.kind == "reduce_on_plateau" or (
                 self.kind == "cycle_then_plateau" and self.using_plateau):
             self.plateau.step(val_loss)
+
+    def state_dict(self) -> dict:
+        """The host state a resumed run needs: the plateau tracker and the
+        warm-up switch. The horizon is not part of it: the trainer sets it
+        after the restore."""
+        return {"using_plateau": self.using_plateau,
+                "plateau": None if self.plateau is None else self.plateau.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.using_plateau = state["using_plateau"]
+        if self.plateau is not None and state["plateau"] is not None:
+            self.plateau.load_state_dict(state["plateau"])
 
 
 def make_scheduler(cfg: dict, total_steps: int) -> SchedulerState:
@@ -170,6 +190,26 @@ class Optimizer:
         if self.weight_decay:
             torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
+
+    def state_dict(self) -> dict:
+        """The step count and the moments, in parameter order."""
+        out = {"kind": self.kind, "count": self.count}
+        if self.kind != "sgd":
+            out.update(mu=[m.detach().cpu() for m in self.mu],
+                       nu=[n.detach().cpu() for n in self.nu])
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if state["kind"] != self.kind:
+            raise ValueError(f"optimizer state of {state['kind']!r}, not {self.kind!r}")
+        self.count = int(state["count"])
+        if self.kind != "sgd":
+            for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+                if [tuple(t.shape) for t in dst] != [tuple(t.shape) for t in src]:
+                    raise ValueError("optimizer moments do not match the parameters")
+                for d, t in zip(dst, src):
+                    d.copy_(t)
 
 
 def make_optimizer(cfg: dict, params: Sequence[torch.Tensor]) -> Optimizer:

@@ -3,12 +3,28 @@ trainer.py``; the reference replaced Lightning's Trainer by an explicit
 loop, and so does this module, on one device).
 
 Ported: ModelCheckpoint (monitor, top-1 + optional last), EarlyStopping,
-the BatchNorm batch-size-1 abort, weights-only resume from a checkpoint, the
-final validate pass, and checkpoints written as torch-layout safetensors
-with the keys of the JAX package's ``export_torch_state_dict``. Not yet:
-full-state (optimizer + step) resume (the reference's orbax flags raise),
-TensorBoard scalars, and data parallelism over several GPUs (ROADMAP Queue
-A 9 and 11).
+the BatchNorm batch-size-1 abort, weights-only resume from a checkpoint,
+full-state resume, TensorBoard scalars, the final validate pass, and
+checkpoints written as torch-layout safetensors with the keys of the JAX
+package's ``export_torch_state_dict``. Not yet: data parallelism over
+several GPUs (ROADMAP Queue A 6).
+
+Full-state resume keeps the reference's config keys and semantics
+(``trainer.py:121-125, 213-258``) in torch's file format:
+``saving.save_full_state_orbax`` writes ``checkpoints/full_state_last_<name>.pt``
+after every epoch (``torch.save``: the model with its BatchNorm buffers, the
+optimizer's count and moments, the step), and
+``tasks.train_tasks.resume_full_state_from_orbax: <that file>`` restores it.
+The scheduler's horizon is set after the restore, every step's random draws
+(modality dropout, UTAE's and the decoders' dropout) come from a generator
+seeded by (seed, step), and the epoch labels continue from step //
+steps_per_epoch. Three deliberate divergences make a killed-and-resumed run
+retrace an uninterrupted one, as the reference's comment promises
+(``trainer.py:251-255``) but its orbax state does not deliver: the state
+also holds the ReduceLROnPlateau tracker (and cycle_then_plateau's switch),
+the training loader's shuffle continues at the resumed epoch, and the state
+holds steps_per_epoch, so a resume with another value raises instead of
+shifting the epoch labels.
 """
 
 from __future__ import annotations
@@ -17,8 +33,9 @@ import logging
 import math
 import os
 import sys
+import types
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
@@ -30,10 +47,6 @@ from flair_for_aigle_tpu_torch.train.task import array_batch, make_steps
 
 logger = logging.getLogger(__name__)
 
-_NO_FULL_STATE = ("full-state (optimizer + step) resume is not ported to "
-                  "flair_for_aigle_tpu_torch yet (ROADMAP Queue A 9: "
-                  "full-state torch resume)")
-
 
 def check_batchnorm_and_batch_size(config: Dict[str, Any]) -> None:
     """Abort on batch_size 1 (the decoders carry BatchNorm)."""
@@ -43,17 +56,56 @@ def check_batchnorm_and_batch_size(config: Dict[str, Any]) -> None:
         sys.exit(1)
 
 
-def check_full_state_flags(config: Dict[str, Any]) -> None:
-    if (config.get("saving", {}).get("save_full_state_orbax")
-            or config["tasks"].get("train_tasks", {}).get("resume_full_state_from_orbax")):
-        raise NotImplementedError(_NO_FULL_STATE)
+def step_seed(seed: int, step: int) -> int:
+    """The seed of one training step's generator: keyed by (seed, step),
+    not drawn in sequence, so a resumed run draws what an uninterrupted one
+    draws at that step (the reference's ``fold_in(rng, step)``)."""
+    return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+
+
+class _TBWriter:
+    """TensorBoard scalars through ``torch.utils.tensorboard``; a no-op
+    when it does not import (no ``tensorboard`` package). The writer takes
+    TensorBoard's TensorFlow-free path (its ``tensorboard.compat.notf``
+    marker), so it never imports tensorflow, which imports jax where both
+    are installed."""
+
+    def __init__(self, logdir: str):
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            self._writer = None
+        else:
+            self._writer = SummaryWriter(logdir)
+
+    def scalar(self, name: str, value: float, step: int):
+        if self._writer is not None:
+            self._writer.add_scalar(name, float(value), step)
+
+    def flush(self):
+        if self._writer is not None:
+            self._writer.flush()
+
+
+def save_full_state(path: str, state: Dict[str, Any]) -> None:
+    """Write a full training state (``train``'s ``full_state``) atomically."""
+    tmp = f"{path}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+def load_full_state(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def save_state_safetensors(model: torch.nn.Module, path: str) -> None:
     """The model's weights and BatchNorm statistics as a torch-layout
-    safetensors file: the keys and layouts of ``export_torch_state_dict(...,
-    transpose_conv_prefixes=(".up.0",))`` (the ported families hold no
-    transposed convolution)."""
+    safetensors file: the keys and layouts of the JAX package's
+    ``export_torch_state_dict``, transposed convolutions (UTAE's, LinkNet's)
+    in torch's (in, out, kH, kW)."""
     from safetensors.torch import save_file
 
     save_file({k: v.detach().cpu().contiguous()
@@ -74,6 +126,7 @@ class CheckpointCallback:
         self.monitor = saving.get("ckpt_monitor", "val_miou")
         self.mode = saving.get("ckpt_monitor_mode", "max")
         self.save_last = saving.get("ckpt_save_also_last", False)
+        self.save_full = saving.get("save_full_state_orbax", False)
         self.patience = saving.get("ckpt_earlystopping_patience", 20)
         self.dirpath = Path(out_dir, "checkpoints")
         self.dirpath.mkdir(parents=True, exist_ok=True)
@@ -86,7 +139,10 @@ class CheckpointCallback:
     def _is_better(self, value):
         return value > self.best if self.mode == "max" else value < self.best
 
-    def on_epoch_end(self, epoch, metrics, model) -> None:
+    def on_epoch_end(self, epoch, metrics, model,
+                     full_state: Callable[[], Dict[str, Any]] | None = None) -> None:
+        """``full_state()`` gives the training state to write when
+        ``saving.save_full_state_orbax`` is on."""
         value = metrics.get(self.monitor)
         if value is None:
             return
@@ -107,6 +163,9 @@ class CheckpointCallback:
         if self.save_last and is_rank_zero():
             save_state_safetensors(
                 model, str(self.dirpath / f"last_{self.out_model_name}.safetensors"))
+        if self.save_full and full_state is not None and is_rank_zero():
+            save_full_state(str(self.dirpath / f"full_state_last_{self.out_model_name}.pt"),
+                            full_state())
 
 
 def pad_batch_to(batch: dict, size: int) -> dict:
@@ -154,16 +213,33 @@ def _host(acc: Dict[str, Any]):
     return loss_sum, nonfinite, confmats, n
 
 
+def restore_full_state(path: str, model, optimizer, steps_per_epoch: int):
+    """Load a full training state into ``model`` and ``optimizer``; returns
+    (step, scheduler state). Raises when the state was written with another
+    steps_per_epoch: its step would fall on other epoch labels."""
+    state = load_full_state(path)
+    if int(state["steps_per_epoch"]) != steps_per_epoch:
+        raise ValueError(
+            f"{path} was saved at {state['steps_per_epoch']} steps per epoch and "
+            f"this run has {steps_per_epoch}: the resumed epochs would be labelled "
+            f"{int(state['step']) // steps_per_epoch} onwards instead of "
+            f"{int(state['step']) // int(state['steps_per_epoch'])}; resume with the "
+            f"same training split and batch size")
+    model.load_state_dict(state["model"], strict=True)
+    optimizer.load_state_dict(state["optimizer"])
+    return int(state["step"]), state["scheduler"]
+
+
 def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
           aux_loss_fix: bool = False, epoch_hook=None):
     """Fit loop; the model ends holding the last epoch's weights. Returns
     the CheckpointCallback (best checkpoint path). ``epoch_hook(epoch,
     metrics)``, if given, runs after each epoch's checkpointing."""
     check_batchnorm_and_batch_size(config)
-    check_full_state_flags(config)
     hp = config["hyperparams"]
     batch_size = hp["batch_size"]
     num_epochs = hp["num_epochs"]
+    seed = int(hp.get("seed", 0))
 
     data_module.setup("fit")
     train_loader = data_module.train_dataloader()
@@ -181,18 +257,43 @@ def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
             logger.info("Invalid checkpoint path.")
     model.to(device)
     optimizer = make_optimizer(hp, [p for p in model.parameters() if p.requires_grad])
-    scheduler = make_scheduler(hp, hp.get("scheduler_total_steps")
-                               or steps_per_epoch * num_epochs)
-    # the training step's random draws (modality and UTAE dropout), seeded
-    gen = torch.Generator(device=device).manual_seed(int(hp.get("seed", 0)))
+    global_step, sched_state = 0, None
+    resume = config["tasks"]["train_tasks"].get("resume_full_state_from_orbax")
+    if resume:
+        global_step, sched_state = restore_full_state(resume, model, optimizer,
+                                                      steps_per_epoch)
+        logger.info("Resumed full training state from %s (step %d)", resume, global_step)
+    # the horizon AFTER the restore: hyperparams.scheduler_total_steps pins
+    # the original run's total, else restored step + the epochs to run now
+    total_steps = hp.get("scheduler_total_steps") or global_step + steps_per_epoch * num_epochs
+    scheduler = make_scheduler(hp, total_steps)
+    if sched_state is not None:
+        scheduler.load_state_dict(sched_state)
+    if global_step and not hp.get("scheduler_total_steps"):
+        logger.info("scheduler horizon defaulted to resumed step + %d epochs = %d "
+                    "steps; set hyperparams.scheduler_total_steps to pin the "
+                    "original run's schedule instead", num_epochs, total_steps)
+    # every step's random draws (modality, UTAE and decoder dropout) come
+    # from this generator, reseeded by (seed, step) before the step
+    gen = torch.Generator(device=device)
     steps = make_steps(model, config, optimizer, device, aux_loss_fix=aux_loss_fix,
                        generator=gen)
     ckpt_cb = CheckpointCallback(config, out_dir)
-    global_step = 0
-    for epoch in range(num_epochs):
+    tb = _TBWriter(os.path.join(out_dir, "tensorboard_logs_" + config["paths"]["out_model_name"]))
+    epoch_offset = global_step // steps_per_epoch
+    if hasattr(train_loader, "_epoch"):
+        train_loader._epoch = epoch_offset  # the shuffle continues at the resumed epoch
+
+    def full_state() -> Dict[str, Any]:
+        return {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                "optimizer": optimizer.state_dict(), "step": global_step,
+                "steps_per_epoch": steps_per_epoch, "scheduler": scheduler.state_dict()}
+
+    for epoch in range(epoch_offset, epoch_offset + num_epochs):
         acc: Dict[str, Any] = {}
         for batch in train_loader:
             batch = pad_batch_to(array_batch(batch), batch_size)
+            gen.manual_seed(step_seed(seed, global_step))
             m = steps.train_step(batch, scheduler.lr_for_step(global_step))
             _accumulate(acc, m)
             global_step += 1
@@ -201,19 +302,26 @@ def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
             logger.info("NaN or Inf detected in loss at %d step(s) of epoch %d",
                         n_nonfinite, epoch)
         train_metrics = _epoch_metrics(confmats, loss_sum, n_batches, "train")
+        tb.scalar("train_loss", train_metrics["train_loss"], epoch)
+        tb.scalar("train_miou", train_metrics["train_miou"], epoch)
+        tb.scalar("lr", scheduler.lr_for_step(max(global_step - 1, 0)), epoch)
         val_metrics = validate(val_loader, steps, batch_size)
+        for k, v in val_metrics.items():
+            if k.count("_") <= 2:
+                tb.scalar(k, v, epoch)
         scheduler.epoch_end(val_metrics["val_loss"])
         logger.info("epoch %d: train_loss %.4f train_miou %.4f | val_loss %.4f "
                     "val_miou %.4f | lr %.3e", epoch, train_metrics["train_loss"],
                     train_metrics["train_miou"], val_metrics["val_loss"],
                     val_metrics["val_miou"], scheduler.lr_for_step(max(global_step - 1, 0)))
-        ckpt_cb.on_epoch_end(epoch, {**train_metrics, **val_metrics}, model)
+        ckpt_cb.on_epoch_end(epoch, {**train_metrics, **val_metrics}, model, full_state)
         if epoch_hook is not None:
             epoch_hook(epoch, {**train_metrics, **val_metrics})
         if ckpt_cb.should_stop:
             logger.info("Early stopping at epoch %d", epoch)
             break
     validate(val_loader, steps, batch_size)  # final validate (trainers.py:431)
+    tb.flush()
     return ckpt_cb
 
 

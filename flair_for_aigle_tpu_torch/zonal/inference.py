@@ -422,7 +422,7 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
     if (config.get("data_parallel_devices") or 1) > 1:
         raise NotImplementedError(
             "data_parallel_devices > 1: multi-GPU zonal inference is ROADMAP "
-            "Queue A item 11")
+            "Queue A 6")
     margin_px = config["margin"]
     tile_size = config["img_pixels_detection"]
     ref_res = config["reference_resolution"]

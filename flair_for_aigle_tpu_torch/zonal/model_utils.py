@@ -7,11 +7,15 @@ set, and the Sentinel pre-processing keys), and the model build +
 checkpoint load.
 
 Epilogue gate (reference :151-167, with CUDA in place of the TPU):
-``fused_epilogue`` auto|True|False. ``auto`` takes the stride-4 head + fused
-epilogue kernel on CUDA and the full-resolution head on the CPU; ``True``
-takes the stride-4 route everywhere (the epilogue's plain version on the
-CPU). On CUDA the four kernels always carry the path, so ``fused_epilogue:
-false`` and ``attn_kernel: off`` raise there (not ported; ROADMAP).
+``fused_epilogue`` auto|True|False. For a ``*-upernet`` arch whose shape
+fits the epilogue, ``auto`` takes the stride-4 head + fused epilogue kernel
+on CUDA and the full-resolution head on the CPU, and ``True`` takes the
+stride-4 route everywhere (the epilogue's plain version on the CPU). Every
+other arch takes the full-resolution head, then the margin crop and argmax
+or ``class_prob`` (``zonal/inference.py forward_convert``), on either
+device. On CUDA the Swin kernels always carry the encoder, so
+``fused_epilogue: false`` and ``attn_kernel: off`` raise there (not ported;
+ROADMAP).
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from flair_for_aigle_tpu_torch.ops.epilogue import MAX_CLASSES
 logger = logging.getLogger(__name__)
 
 _UNPORTED_ON_CUDA = ("is not available on CUDA in flair_for_aigle_tpu_torch: "
-                     "the main path always runs the hand-written kernels "
-                     "(the plain-XLA-path equivalents are ROADMAP items)")
+                     "the hand-written kernels always carry the Swin encoder "
+                     "and the UPerNet epilogue there (ROADMAP, hard-coded knobs)")
 
 
 def get_resolution(path: str) -> float:
@@ -97,18 +101,18 @@ def prepare_model_config(config: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def use_stride4_epilogue(config: Dict[str, Any], device: torch.device) -> bool:
-    """The epilogue gate; raises on CUDA for the routes not ported there.
-    As in the reference, it reads the arch and the epilogue's fit only, so
-    it holds under fusion; the model takes the stride-4 head only with an
-    active mono modality (``FlairHubModel.stride4``), and a time-series-only
-    model keeps its full-resolution logits."""
+    """The epilogue gate; raises ``ValueError`` on CUDA for the two knobs
+    not ported there. As in the reference, it reads the arch and the epilogue's fit
+    only, so it holds under fusion; the model takes the stride-4 head only
+    with an active mono modality (``FlairHubModel.stride4``), and a
+    time-series-only model keeps its full-resolution logits."""
     flag = config.get("fused_epilogue", "auto")
     on_cuda = device.type == "cuda"
     attn_kernel = config.get("attn_kernel", "auto")  # YAML reads `off` as False
     if on_cuda and (attn_kernel is False or str(attn_kernel).lower() == "off"):
-        raise NotImplementedError(f"attn_kernel: off {_UNPORTED_ON_CUDA}")
+        raise ValueError(f"attn_kernel: off {_UNPORTED_ON_CUDA}")
     if on_cuda and flag is False:
-        raise NotImplementedError(f"fused_epilogue: false {_UNPORTED_ON_CUDA}")
+        raise ValueError(f"fused_epilogue: false {_UNPORTED_ON_CUDA}")
     if not flag:
         return False
     arch_ok = str(config.get("monotemp_arch", "")).endswith("-upernet")
@@ -117,13 +121,7 @@ def use_stride4_epilogue(config: Dict[str, Any], device: torch.device) -> bool:
     n_cls = max((len(t["class_names"]) for t in config.get("tasks", [])
                  if t.get("active")), default=0)
     fit = n_cls <= MAX_CLASSES and tile % 4 == 0 and tile - 2 * margin > 0
-    if arch_ok and fit and (flag is True or on_cuda):
-        return True
-    if on_cuda:
-        raise NotImplementedError(
-            f"the full-resolution head route (arch upernet: {arch_ok}, "
-            f"epilogue shape fits: {fit}) {_UNPORTED_ON_CUDA}")
-    return False
+    return bool(arch_ok and fit and (flag is True or on_cuda))
 
 
 def build_inference_model(config: Dict[str, Any],

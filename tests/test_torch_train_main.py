@@ -150,15 +150,34 @@ def test_predictions_and_metrics_written(run):
 
 
 def test_full_state_flags_raise(tmp_path):
-    from flair_for_aigle_tpu_torch.train.trainer import check_full_state_flags
+    """The full-state flags are ported: they raise only when a resume
+    would shift the epoch labels, i.e. the saved state's steps_per_epoch
+    differs from the run's (the decided Queue C 2 caveat); the model and
+    optimizer are then left untouched."""
+    import torch
 
-    cfg = toy_config(tmp_path, {"train": "a", "val": "b", "test": "c"})
-    check_full_state_flags(cfg)
-    for flags in ({"saving": {**cfg["saving"], "save_full_state_orbax": True}},
-                  {"tasks": {**cfg["tasks"], "train_tasks": {
-                      "resume_full_state_from_orbax": "ckpt"}}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 9"):
-            check_full_state_flags({**cfg, **flags})
+    from flair_for_aigle_tpu_torch.train.trainer import restore_full_state, save_full_state
+
+    path = str(tmp_path / "full_state_last_toy.pt")
+    save_full_state(path, {"model": {}, "optimizer": {}, "step": 6,
+                           "steps_per_epoch": 3, "scheduler": {}})
+
+    class Untouched:
+        def load_state_dict(self, *a, **k):
+            raise AssertionError("loaded despite the mismatch")
+
+    with pytest.raises(ValueError, match="saved at 3 steps per epoch and this run has 2"):
+        restore_full_state(path, Untouched(), Untouched(), steps_per_epoch=2)
+    model = torch.nn.Linear(2, 2)
+    sd = {k: v.clone() + 1 for k, v in model.state_dict().items()}
+    from flair_for_aigle_tpu_torch.train.optim import make_optimizer
+    opt = make_optimizer({"optimizer": "sgd"}, list(model.parameters()))
+    save_full_state(path, {"model": sd, "optimizer": {"kind": "sgd", "count": 4}, "step": 6,
+                           "steps_per_epoch": 3, "scheduler": {"using_plateau": False,
+                                                               "plateau": None}})
+    step, sched = restore_full_state(path, model, opt, steps_per_epoch=3)
+    assert step == 6 and opt.count == 4 and sched["plateau"] is None
+    assert all(torch.equal(model.state_dict()[k], v) for k, v in sd.items())
 
 
 def test_batch_size_one_aborts_training(tmp_path):
