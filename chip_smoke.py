@@ -143,7 +143,27 @@ Phases, one printed line each (any failure raises and exits non-zero):
    backward) and with ``FLAIR_SWIN_FINISH=1`` (K8 in every block); ms/step
    and peak device memory of the kernel, plain and K7 routes in float32
    and with ``compute_dtype: bfloat16``;
-6. tool: the port's A/B tool, ``python -m
+6. multigpu: data parallelism on the one card (``parallel/``). Zonal: the
+   slice's raster and configuration through the engine on one device and
+   with ``devices=[cuda:0, cuda:0]`` (two replicas, 8 tiles each a batch),
+   in bf16 and float32: each replica's launches (the one-device pass's),
+   the two-replica labels' agreement with the one-device labels (bf16 >=
+   0.999, float32 >= 0.9999: a shard's kernel plans may differ, so
+   near-ties may flip) and whether they are byte-identical, both passes'
+   warm tiles/s. Training: one AdamW step of the default configuration
+   (float32, 512 px, global batch 4) from the same weights and seed three
+   ways: (c) no process group, (b) one NCCL rank of world size 1, which
+   must equal (c) bit for bit (both deterministic, in this process), (a)
+   two gloo ranks with CUDA tensors on card 0 (``python3 chip_smoke.py
+   --train-rank <dir>``, each rank under a timeout), against (c): gradient
+   cosine >= 0.9999, every parameter within 3 learning rates, every
+   BatchNorm running statistic within 1e-3 of its tensor's largest
+   magnitude, both ranks' parameters bit-identical, K6's 24 launches a
+   rank. Dry run: ``python -m
+   flair_for_aigle_tpu_torch.tools.dryrun_multichip --world 2 --device
+   cuda --backend gloo`` prints ``dryrun_multichip(2) ok``. The kernels
+   are built before any rank starts; any rank's failure fails the run;
+7. tool: the port's A/B tool, ``python -m
    flair_for_aigle_tpu_torch.tools.exp_attn_dots``, once as a subprocess at
    its defaults: its three JSON lines, the two kernels' agreement and times,
    and its kernel launches.
@@ -1681,11 +1701,11 @@ def slice_config(img: str, weights: str) -> dict:
             "model_weights": weights}
 
 
-def _zonal_pass(cfg: dict, model) -> tuple[float, dict, str]:
+def _zonal_pass(cfg: dict, model, devices=None) -> tuple[float, dict, str]:
     """Wall seconds of one zonal pass (tiling, dataset, inference, stitch,
     D2H, write) with a prebuilt model, as the bench times it
-    (``bench.run_zonal``), the engine's phase timings of that pass and the
-    label raster it wrote."""
+    (``bench.run_zonal``; data parallel over ``devices`` when given), the
+    engine's phase timings of that pass and the label raster it wrote."""
     import torch
 
     from flair_for_aigle_tpu_torch import bench
@@ -1693,7 +1713,7 @@ def _zonal_pass(cfg: dict, model) -> tuple[float, dict, str]:
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, paths = bench.run_zonal(cfg, torch.device(DEVICE), model)
+    _, _, paths = bench.run_zonal(cfg, torch.device(DEVICE), model, devices)
     return time.perf_counter() - t0, dict(LAST_TIMINGS), paths["AERIAL_LABEL-COSIA"]
 
 
@@ -2703,7 +2723,280 @@ def phase_tool() -> dict:
     return launches
 
 
+# the [multigpu] phase: data parallelism on the one card, as two zonal
+# replicas, two training ranks over gloo and one over NCCL, and the dry run
+DP_DEVICES = ["cuda:0", "cuda:0"]
+DP_BATCH = 4  # the training comparison's global batch
+DP_RANK_TIMEOUT = 400  # seconds for the ranks of one run
+
+
+@contextlib.contextmanager
+def launches_per_step(names):
+    """Each ``ZonalStep``'s launches of the named kernels inside the block,
+    in the order the steps first ran: ``[{kernel: count}]`` (the wrappers'
+    own counts, read around every ``forward_convert``)."""
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+
+    fns = {k: fn for k, fn in kernel_fns().items() if k in names}
+    per: dict = {}
+    original = zi.ZonalStep.forward_convert
+
+    def counted(self, batch):
+        before = {k: fn.launches for k, fn in fns.items()}
+        out = original(self, batch)
+        mine = per.setdefault(id(self), dict.fromkeys(fns, 0))
+        for k, fn in fns.items():
+            mine[k] += fn.launches - before[k]
+        return out
+
+    zi.ZonalStep.forward_convert = counted
+    counts: list = []
+    try:
+        yield counts
+    finally:
+        zi.ZonalStep.forward_convert = original
+        counts.extend(per.values())
+
+
+def multigpu_zonal(card: str) -> dict:
+    """The slice's raster and configuration through ``bench.run_zonal`` on
+    one device and on two replicas of the one card (``devices=[cuda:0,
+    cuda:0]``, 8 tiles each a batch), in bf16 and float32: launches per
+    replica, label agreement, warm tiles/s. Returns the two-replica bf16
+    pass's launches."""
+    import numpy as np
+    import torch
+
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+    from flair_for_aigle_tpu_torch.zonal.model_utils import build_inference_model
+
+    img, weights = os.path.join(TMP, "raster.tif"), os.path.join(TMP, "weights.safetensors")
+    names = {"prep", "window_attn", "ffn", "merge", "epilogue"}
+    dp_launches = {}
+    for dtype, bound in (("bfloat16", 0.999), ("float32", 0.9999)):
+        cfg = {**slice_config(img, weights), "compute_dtype": dtype}
+        pcfg = zi.initialize_geometry_and_resolutions(dict(cfg))
+        zi._set_labels(pcfg)
+        model, _ = build_inference_model(pcfg, device=DEVICE)
+        n_tiles = len(zi.generate_patches_from_reference(pcfg))
+        passes = {}
+        for mode, devices in (("one device", None), ("two replicas", DP_DEVICES)):
+            _zonal_pass(cfg, model, devices)  # warm-up (replica copies, autotune)
+            fns = zero_launches(names)
+            with launches_per_step(names) as per:
+                wall, _, out = _zonal_pass(cfg, model, devices)
+            with zi.open_raster(out) as src:
+                labels = src.read().copy()
+            passes[mode] = (wall, labels, per, {k: fn.launches for k, fn in fns.items()})
+        (w1, l1, p1, n1), (w2, l2, p2, n2) = passes["one device"], passes["two replicas"]
+        agree = float((l1 == l2).mean())
+        say("multigpu", f"zonal {dtype}, devices {DP_DEVICES} ({BATCH // 2} tiles a replica a "
+            f"batch) against one device, {n_tiles} tiles: label agreement {agree:.6f} (bound "
+            f">= {bound}), byte-identical {np.array_equal(l1, l2)}; launches per replica "
+            f"{p2} (one-device pass {p1}; bound: each replica the one-device pass's); warm "
+            f"{n_tiles / w1:.2f} tiles/s one device, {n_tiles / w2:.2f} tiles/s two replicas, "
+            f"on {card}")
+        if (agree < bound or len(p1) != 1 or len(p2) != 2 or any(p != p1[0] for p in p2)
+                or not all(n1.values()) or n2 != {k: 2 * v for k, v in n1.items()}):
+            raise AssertionError("the two-replica zonal pass disagrees with the one-device "
+                                 "pass or did not run every kernel on each replica")
+        if dtype == "bfloat16":
+            dp_launches = n2
+        del model
+    return dp_launches
+
+
+def dp_batch():
+    """The training comparison's global batch: DP_BATCH normalised 512 px
+    AERIAL_RGBI patches and one-hot labels of 19 classes in 32 px blocks,
+    from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    blocks = rng.integers(0, N_CLASSES, (DP_BATCH, TRAIN_PX // 32, TRAIN_PX // 32))
+    labels = np.kron(blocks, np.ones((1, 32, 32), np.int64))
+    img = rng.normal(size=(DP_BATCH, 3, TRAIN_PX, TRAIN_PX)).astype(np.float32)
+    img += labels[:, None] * 0.1
+    onehot = (labels[:, None] == np.arange(N_CLASSES)[None, :, None, None])
+    return {"AERIAL_RGBI": img.astype(np.float32), "AERIAL_LABEL-COSIA": onehot.astype(np.float32)}
+
+
+def dp_step(rank: int, world: int) -> dict:
+    """One AdamW step of the default training configuration (float32,
+    swin-base-UPerNet, weights from its seed) on shard ``rank`` of
+    ``world`` of ``dp_batch``, the generator seeded by (seed, 0): the loss,
+    the flat gradients and parameters after the step (host), every
+    BatchNorm running statistic, and the kernels' launches."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.parallel import dist
+    from flair_for_aigle_tpu_torch.parallel.mesh import ShardedGenerator, shard_batch
+    from flair_for_aigle_tpu_torch.train.optim import make_optimizer
+    from flair_for_aigle_tpu_torch.train.stages import build_model
+    from flair_for_aigle_tpu_torch.train.task import make_steps
+    from flair_for_aigle_tpu_torch.train.trainer import step_seed
+
+    cfg = train_config(os.path.join(TMP, "dp"))
+    hp = cfg["hyperparams"]
+    model = build_model(cfg).to(DEVICE)
+    dist.broadcast_module(model)
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer = make_optimizer(hp, params)
+    gen = ShardedGenerator(DEVICE, rank, world)
+    steps = make_steps(model, cfg, optimizer, DEVICE, generator=gen)
+    gen.manual_seed(step_seed(hp["seed"], 0))
+    names = {"prep", "window_attn", "window_attn_bwd", "ffn", "merge"}
+    fns = zero_launches(names)
+    loss, grads, _, _ = steps.loss_and_grads(shard_batch(dp_batch(), rank, world))
+    optimizer.step(grads, hp["learning_rate"])
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "lr": hp["learning_rate"],
+            "arch": cfg["models"]["monotemp_model"]["arch"],
+            "grads": torch.cat([g.flatten() for g in grads]).cpu(),
+            "params": torch.cat([p.detach().flatten() for p in params]).cpu(),
+            "stats": {k: v.detach().cpu() for k, v in model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))},
+            "launches": {k: fn.launches for k, fn in fns.items()}}
+
+
+def train_rank(out_dir: str) -> int:
+    """A rank of the two-rank training comparison (``run_ranks``' torchrun
+    environment): gloo with CUDA tensors, both ranks on card 0."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from flair_for_aigle_tpu_torch.parallel import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist.initialize(device="cuda:0", backend="gloo")
+    rank, world = dist.process_index(), dist.world_size()
+    res = dp_step(rank, world)
+    res["params_sha256"] = hashlib.sha256(res["params"].numpy().tobytes()).hexdigest()
+    if rank == 0:
+        torch.save(res, os.path.join(out_dir, "rank0.pt"))
+    print(json.dumps({"rank": rank, "loss": res["loss"], "launches": res["launches"],
+                      "params_sha256": res["params_sha256"]}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _differ(a: dict, b: dict) -> list:
+    """What two ``dp_step`` results differ in, bit for bit."""
+    import torch
+
+    return [k for k, same in (
+        ("loss", a["loss"] == b["loss"]), ("gradients", torch.equal(a["grads"], b["grads"])),
+        ("parameters", torch.equal(a["params"], b["params"])),
+        ("statistics", all(torch.equal(v, b["stats"][k]) for k, v in a["stats"].items())))
+        if not same]
+
+
+def multigpu_train(card: str) -> dict:
+    """One AdamW step from the same weights and seed three ways: (c) no
+    process group, (b) one NCCL rank (world size 1), (a) two gloo ranks on
+    the one card, each taking half of the global batch. (b) must equal (c)
+    bit for bit; (a) must give a gradient cosine >= 0.9999 against (c),
+    every parameter within 3 learning rates and every BatchNorm running
+    statistic within 1e-3 of its tensor's largest magnitude. Returns the
+    ranks' summed launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from flair_for_aigle_tpu_torch.parallel import dist
+    from flair_for_aigle_tpu_torch.tools.dryrun_multichip import free_port, run_ranks
+
+    out_dir = os.path.join(TMP, "dp")
+    os.makedirs(out_dir, exist_ok=True)
+    # (b) against (c) in one process, so that both take the same library
+    # algorithms; deterministic ones, so that a repeat gives the same bits
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        c = dp_step(0, 1)
+        dist.initialize(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                        device="cuda:0")
+        backend = torch.distributed.get_backend()
+        b = dp_step(0, 1)
+        torch.distributed.destroy_process_group()
+        differ = _differ(b, c)
+        again = _differ(dp_step(0, 1), c) if differ else []
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    say("multigpu", f"train (b) one {backend} rank, world size 1, against (c) no process "
+        f"group: {c['arch']} float32, {TRAIN_PX} px, batch {DP_BATCH}, one AdamW step: "
+        f"loss {b['loss']:.7f} / {c['loss']:.7f}; bit-identical loss, gradients, parameters "
+        f"and BatchNorm statistics: {not differ} (bound: True)")
+    if backend != "nccl" or differ:
+        raise AssertionError(f"the NCCL world-1 step differs from the step with no group in "
+                             f"{differ}; a repeat of (c) differs in {again}")
+    del b
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    outs = run_ranks(lambda r: [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+                                "--train-rank", out_dir], 2, DP_RANK_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = [json.loads([ln for ln in out.splitlines() if ln.startswith('{"rank"')][-1])
+             for out in outs]
+    a = torch.load(os.path.join(out_dir, "rank0.pt"), weights_only=False)
+    cos = F.cosine_similarity(a["grads"].double(), c["grads"].double(), dim=0).item()
+    dparam = (a["params"] - c["params"]).abs().max().item()
+    stat_err = max(((a["stats"][k] - v).abs().max() / v.abs().max().clamp(min=1e-12)).item()
+                   for k, v in c["stats"].items())
+    launches = {k: sum(ln["launches"][k] for ln in lines) for k in lines[0]["launches"]}
+    say("multigpu", f"train (a) two gloo ranks on {DP_DEVICES[0]} ({DP_BATCH // 2} samples "
+        f"each), against (c): loss {a['loss']:.7f} / {c['loss']:.7f}; gradient cosine "
+        f"{cos:.8f} (bound >= 0.9999); largest parameter change {dparam:.3e} (bound <= 3 lr = "
+        f"{3 * c['lr']:.3e}); BatchNorm statistics worst relative error {stat_err:.3e} (bound "
+        f"<= 1e-3, {len(c['stats'])} tensors); the ranks' parameters bit-identical: "
+        f"{lines[0]['params_sha256'] == lines[1]['params_sha256']}; K6 launches per rank "
+        f"{[ln['launches']['window_attn_bwd'] for ln in lines]} (bound: 24 each); ranks' wall "
+        f"{wall:.1f} s (their start included), on {card}")
+    if not (cos >= 0.9999 and dparam <= 3 * c["lr"] and stat_err <= 1e-3
+            and lines[0]["params_sha256"] == lines[1]["params_sha256"]
+            and all(ln["launches"]["window_attn_bwd"] == 24 for ln in lines)
+            and all(all(ln["launches"].values()) for ln in lines)):
+        raise AssertionError("the two-rank step disagrees with the one-process step")
+    return launches
+
+
+def multigpu_dryrun() -> None:
+    """``tools/dryrun_multichip.py`` at W = 2 on the card (two gloo ranks
+    on card 0; the kernels are built already)."""
+    cmd = [sys.executable, "-m", "flair_for_aigle_tpu_torch.tools.dryrun_multichip",
+           "--world", "2", "--device", "cuda", "--backend", "gloo",
+           "--timeout", str(DP_RANK_TIMEOUT)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=DP_RANK_TIMEOUT + 60)
+    ok = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun_multichip(2) ok")]
+    say("multigpu", f"{' '.join(cmd[1:])}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s: {ok[-1] if ok else 'no result'}")
+    if proc.returncode != 0 or not ok:
+        raise RuntimeError(f"the dry run failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+
+
+def phase_multigpu(card: str) -> dict:
+    """Data parallelism on the one card: the zonal engine over two
+    replicas, a training step over two gloo ranks and one NCCL rank, and
+    the dry run. Returns the launches of the two-replica zonal pass and of
+    the two training ranks."""
+    t0 = time.perf_counter()
+    zonal = multigpu_zonal(card)
+    train = multigpu_train(card)
+    multigpu_dryrun()
+    say("multigpu", f"phase {time.perf_counter() - t0:.1f} s")
+    return {k: zonal.get(k, 0) + train.get(k, 0) for k in {*zonal, *train}}
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--train-rank"]:
+        return train_rank(sys.argv[2])
     if not os.path.isdir(os.path.join(REPO, "flair_for_aigle_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
               "(flair_for_aigle_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -2720,6 +3013,7 @@ def main() -> int:
         multimodal, multimodal_train = phase_multimodal(env["card"], write_geotiff)
         families = phase_families(env["card"], write_geotiff)
         train, train_switched = phase_train(env["card"], write_geotiff)
+        multigpu = phase_multigpu(env["card"])
     tool = phase_tool()
     # launches: the main path's runs (zonal, the bench's timed runs, the
     # multimodal zonal run and training step, training stages and CLI), for
@@ -2729,7 +3023,7 @@ def main() -> int:
     # single PyTorch call computes the other, fused functions)
     runs = {"zonal": zonal, "bench": bench, "multimodal": multimodal,
             "multimodal_train": multimodal_train, "families": families, "train": train,
-            "train_switched": train_switched,
+            "train_switched": train_switched, "multigpu": multigpu,
             "tool": tool}
     # K2's bf16 attention core alone, summed over the stages at attn_f32
     # False (the slice's), and its float32 core at attn_f32 True (the

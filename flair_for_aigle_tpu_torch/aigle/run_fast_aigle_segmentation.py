@@ -13,7 +13,8 @@ is built on ``device`` before the loop and ``inference_and_write`` takes
 the device. The run happens on the CUDA card unless the caller asks for
 the CPU (``device="cpu"``, where every kernel wrapper runs its plain
 version), and raises before any work when a card is asked for and there
-is none.
+is none. ``data_parallel_devices: N`` in the model configuration runs
+every raster data parallel over the first N cards (``zonal/inference.py``).
 """
 
 from __future__ import annotations

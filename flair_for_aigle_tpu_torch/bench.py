@@ -106,10 +106,11 @@ def make_cfg(img_path: str, out_dir: str) -> dict:
     }
 
 
-def run_zonal(cfg: dict, device: torch.device, model=None):
+def run_zonal(cfg: dict, device: torch.device, model=None, devices=None):
     """One zonal pass (geometry, tiling, dataset, inference, stitch, write)
-    with a prebuilt model, built here on the first call. Returns (model,
-    tiles, {task: label raster path})."""
+    with a prebuilt model, built here on the first call; ``devices``, a
+    data-parallel mesh for ``inference_and_write`` (the bench itself runs
+    on one card). Returns (model, tiles, {task: label raster path})."""
     cfg = zi.initialize_geometry_and_resolutions(dict(cfg))
     cfg["output_type"] = cfg.get("output_type", "argmax")
     zi._set_labels(cfg)
@@ -121,7 +122,7 @@ def run_zonal(cfg: dict, device: torch.device, model=None):
     loader = BatchedLoader(dataset, batch_size=BATCH, num_workers=cfg.get("num_worker", 1))
     ref_img = open_raster(cfg["modalities"][cfg["reference_modality"]]["input_img_path"])
     output_files, paths = zi.init_outputs(cfg, ref_img)
-    zi.inference_and_write(model, loader, tiles, cfg, output_files, ref_img, device)
+    zi.inference_and_write(model, loader, tiles, cfg, output_files, ref_img, device, devices)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     ref_img.close()

@@ -22,6 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from flair_for_aigle_tpu_torch.ops.resize import resize_bilinear_ac_nhwc
+from flair_for_aigle_tpu_torch.parallel import dist
+from flair_for_aigle_tpu_torch.parallel.mesh import batch_rand, global_shape
 
 
 def _pair(v) -> tuple[int, int]:
@@ -207,7 +209,10 @@ class TorchBatchNorm(nn.Module):
     normalises with the batch's float32 mean and biased variance over every
     axis but the last, and updates the running statistics with momentum
     0.1 and the unbiased variance; in eval mode it uses the running
-    statistics."""
+    statistics. Inside a process group of more than one rank (data
+    parallelism, ``parallel/dist.py``) the training-mode statistics and the
+    unbiased count are the global batch's, summed over the ranks with
+    ``AllReduceSum`` so that the gradient reaches every rank's inputs."""
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -231,9 +236,17 @@ class TorchBatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.ndim - 1))
-            mean = xf.mean(axes)
-            var = ((xf - mean) ** 2).mean(axes)
             n = x.numel() // x.shape[-1]
+            if dist.world_size() > 1:
+                # data parallel: the global batch's statistics, as GSPMD
+                # takes them (two passes: the mean, then the squared
+                # deviations from it); every rank holds an equal shard
+                n *= dist.world_size()
+                mean = dist.AllReduceSum.apply(xf.sum(axes)) / n
+                var = dist.AllReduceSum.apply(((xf - mean) ** 2).sum(axes)) / n
+            else:
+                mean = xf.mean(axes)
+                var = ((xf - mean) ** 2).mean(axes)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
@@ -311,11 +324,14 @@ def avg_pool2d(x: torch.Tensor, kernel_size, stride=None) -> torch.Tensor:
 def xavier_uniform_like(x: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
     """Xavier-uniform noise of ``x``'s shape and dtype, with the fans of
     flax's ``xavier_uniform`` (in axis -2, out axis -1, the leading axes a
-    receptive field): bound sqrt(6 / (fan_in + fan_out))."""
-    receptive = math.prod(x.shape[:-2])
-    fan_in, fan_out = x.shape[-2] * receptive, x.shape[-1] * receptive
+    receptive field): bound sqrt(6 / (fan_in + fan_out)). ``x``'s leading
+    axis is the batch: under a ``ShardedGenerator`` the fans and the draw
+    are the global batch's, and this shard keeps its slice."""
+    shape = global_shape(x.shape, gen)
+    receptive = math.prod(shape[:-2])
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
     bound = math.sqrt(6.0 / (fan_in + fan_out))
-    u = torch.rand(x.shape, generator=gen, device=x.device, dtype=torch.float32)
+    u = batch_rand(x.shape, gen, x.device)
     return (u * (2 * bound) - bound).to(x.dtype)
 
 
@@ -324,11 +340,14 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     """Inverted dropout with draws from ``gen`` (flax ``nn.Dropout``: keep
     with probability 1 - p, scale the kept values by 1 / (1 - p)).
     ``channel_wise`` drops whole channels of each NHWC sample, one draw per
-    (sample, channel) (torch ``Dropout2d``; flax ``broadcast_dims=(1, 2)``)."""
+    (sample, channel) (torch ``Dropout2d``; flax ``broadcast_dims=(1, 2)``).
+    ``x``'s leading axis runs over the samples, batch-major: under a
+    ``ShardedGenerator`` the mask is this shard's slice of the global
+    batch's."""
     if not training or p == 0.0:
         return x
     shape = (x.shape[0], 1, 1, x.shape[-1]) if channel_wise else x.shape
-    keep = torch.rand(shape, generator=gen, device=x.device) >= p
+    keep = batch_rand(shape, gen, x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -228,8 +228,18 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
+    """The stream a kernel on ``t`` launches on: its device's current one.
+    Raises unless ``t`` lies on the calling thread's current CUDA device,
+    the one the C entry points launch on (and set their kernels'
+    attributes for); every wrapper calls this before its launch. A replica
+    on another card runs inside ``torch.cuda.device(its device)``."""
     import torch
 
+    current = torch.cuda.current_device()
+    if t.device.index != current:
+        raise RuntimeError(
+            f"kernel launch on a tensor on {t.device} while cuda:{current} is the "
+            f"current device: run it inside torch.cuda.device({t.device})")
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

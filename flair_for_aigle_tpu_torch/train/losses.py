@@ -7,7 +7,8 @@ the task weights and apply ``per_modality_exceptions``. The loss is torch
 ``nn.CrossEntropyLoss(weight=w)``: sum(w[t] * nll) / sum(w[t]), except that
 targets are clamped into [0, C) for the pick and for ``w[t]`` alike, as the
 reference clamps its gathers (``losses.py:57-68``); ``F.cross_entropy``
-would raise on such targets.
+would raise on such targets. Under data parallelism sum(w[t]) runs over
+the global batch (``sum_over_group``), as GSPMD takes it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from flair_for_aigle_tpu_torch.parallel.dist import sum_over_group
 
 
 def compute_default_weights(task_config: Dict[str, Any]) -> np.ndarray:
@@ -46,10 +49,12 @@ def build_loss_weights(config: Dict[str, Any]) -> Dict[str, np.ndarray]:
 def weighted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                            weights: torch.Tensor) -> torch.Tensor:
     """logits (B, C, H, W); targets (B, H, W) integer; weights (C,).
-    Returns the float32 scalar loss."""
+    Returns the float32 scalar loss. Under data parallelism (a process
+    group of more than one rank) the denominator is the global batch's
+    weight sum, so the ranks' losses sum to the global batch's loss."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=1)
     tc = targets.long().clamp(0, lf.shape[1] - 1)
     picked = torch.gather(lf, 1, tc[:, None])[:, 0]
     w = weights.to(lf.device, torch.float32)[tc]
-    return (w * (lse - picked)).sum() / torch.clamp(w.sum(), min=1e-12)
+    return (w * (lse - picked)).sum() / torch.clamp(sum_over_group(w.sum()), min=1e-12)

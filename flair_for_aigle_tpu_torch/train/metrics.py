@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flair_for_aigle_tpu_torch.parallel.dist import sum_over_group
+
 
 def confusion_matrix(preds: torch.Tensor, targets: torch.Tensor,
                      num_classes: int) -> torch.Tensor:
@@ -40,13 +42,14 @@ def iou_from_confmat(confmat: np.ndarray):
 
 def per_class_mean_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean unweighted CE per class over the pixels of that class (0 for
-    absent classes), from the same forward as the loss."""
+    absent classes), from the same forward as the loss; under data
+    parallelism over the global batch's pixels."""
     n_cls = logits.shape[1]
     logp = torch.log_softmax(logits.float(), dim=1)
     valid = (targets >= 0) & (targets < n_cls)
     tc = targets.long().clamp(0, n_cls - 1)
     nll = -torch.gather(logp, 1, tc[:, None])[:, 0]
     onehot = torch.nn.functional.one_hot(tc, n_cls).float() * valid[..., None]
-    per_class_sum = torch.einsum("bhw,bhwc->c", nll, onehot)
-    counts = onehot.sum(dim=(0, 1, 2))
+    per_class_sum = sum_over_group(torch.einsum("bhw,bhwc->c", nll, onehot))
+    counts = sum_over_group(onehot.sum(dim=(0, 1, 2)))
     return torch.where(counts > 0, per_class_sum / torch.clamp(counts, min=1), 0.0)

@@ -6,6 +6,11 @@ build the model with seeded random weights, optionally initialise it from a
 checkpoint, train, reload the best checkpoint. ``predict_stage``:
 metrics-only, or predict with the PredictionWriter. The data module is the
 port's copy of the JAX package's framework-free ``FlairDataModule``.
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) both stages join the process
+group (``parallel/dist.py initialize``) before the model is built: a CUDA
+``device`` becomes ``cuda:LOCAL_RANK`` over NCCL, ``"cpu"`` runs over gloo,
+and the run is data parallel (``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -19,10 +24,10 @@ import numpy as np
 import torch
 
 from flair_for_aigle_tpu_torch.data.dataset import FlairDataModule
-from flair_for_aigle_tpu_torch.device import resolve_device
 from flair_for_aigle_tpu_torch.models.checkpoint import load_checkpoint
 from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
 from flair_for_aigle_tpu_torch.models.layers import init_weights
+from flair_for_aigle_tpu_torch.parallel.dist import initialize
 from flair_for_aigle_tpu_torch.train.trainer import (
     load_state_safetensors,
     predict,
@@ -75,7 +80,7 @@ def training_stage(config: Dict, data_module, out_dir: Path, device="cuda",
     none; ``"cpu"`` runs the plain versions); returns the model holding the
     best checkpoint's weights. ``epoch_hook(epoch, metrics)`` is passed on
     to ``train``."""
-    device = resolve_device(device)
+    device = initialize(device=device)
     start = datetime.datetime.now()
     np.random.seed(config["hyperparams"]["seed"])
     logger.info("input sizes from one training batch: %s",
@@ -96,7 +101,7 @@ def training_stage(config: Dict, data_module, out_dir: Path, device="cuda",
 def predict_stage(config: Dict, data_module, out_dir_predict: Path,
                   trained: Optional[FlairHubModel] = None, device="cuda") -> None:
     """Metrics-only, or predict on ``device`` (as ``training_stage``)."""
-    device = resolve_device(device)
+    device = initialize(device=device)
     out_dir_predict = Path(out_dir_predict)
     if config["tasks"].get("metrics_only", False) and not config["tasks"].get("predict", False):
         logger.info("[ ] Metrics-only mode: loading predictions from disk ...")

@@ -11,6 +11,15 @@ the intended aux loss with ``aux_loss_weight`` scaling. Modality dropout
 is on when any ``modality_dropout`` value is positive (the values only
 switch it on, as in ``task.py:57-59``); it acts with more than one
 modality, and draws, like UTAE's dropout, from the steps' generator.
+
+Under data parallelism (a ``torch.distributed`` group of more than one
+rank, each holding an equal shard of the global batch) the steps compute
+what one device computes on the global batch, as GSPMD does for the JAX
+package: each rank's loss is its share of the global loss
+(``train/losses.py``), the gradients are summed over the ranks before the
+optimizer step, and the reported loss and confusion matrices are the
+global ones; the generator is then a ``parallel/mesh.py ShardedGenerator``
+that draws the global batch's masks and noise.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from flair_for_aigle_tpu_torch.parallel.dist import all_reduce_grads, sum_over_group
 from flair_for_aigle_tpu_torch.train.losses import (
     build_loss_weights,
     weighted_cross_entropy,
@@ -111,24 +121,27 @@ class Steps:
 
     def loss_and_grads(self, batch):
         """Training-mode forward + backward: (loss, grads in ``self.params``
-        order, preds, targets). Updates the BatchNorm running statistics,
-        touches no parameter."""
+        order, preds, targets); the loss and the gradients are the global
+        batch's under data parallelism, the preds and targets this rank's.
+        Updates the BatchNorm running statistics, touches no parameter."""
         self.model.train()
         b = to_device(batch, self.device)
         logits_tasks, logits_aux = self.model(self.cast_inputs(b),
                                               apply_mod_dropout=self.mod_dropout,
                                               generator=self.generator)
         loss, preds, targets = self.compute_loss(logits_tasks, logits_aux, b)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        return loss.detach(), grads, preds, targets
+        grads = all_reduce_grads(torch.autograd.grad(loss, self.params, allow_unused=True))
+        return sum_over_group(loss.detach()), grads, preds, targets
 
     def train_step(self, batch, lr: float) -> Dict[str, Any]:
         loss, grads, preds, targets = self.loss_and_grads(batch)
         self.optimizer.step(grads, lr)
-        return {"loss": loss,
-                "confmats": {t: confusion_matrix(preds[t], targets[t],
-                                                 self.nclasses[t])
-                             for t in self.labels}}
+        return {"loss": loss, "confmats": self.confmats(preds, targets)}
+
+    def confmats(self, preds, targets) -> Dict[str, torch.Tensor]:
+        """Each task's confusion matrix, summed over the group."""
+        return {t: sum_over_group(confusion_matrix(preds[t], targets[t], self.nclasses[t]))
+                for t in self.labels}
 
     @torch.no_grad()
     def eval_step(self, batch) -> Dict[str, Any]:
@@ -136,10 +149,7 @@ class Steps:
         b = to_device(batch, self.device)
         logits_tasks, logits_aux = self.model(self.cast_inputs(b))
         loss, preds, targets = self.compute_loss(logits_tasks, logits_aux, b)
-        return {"loss": loss,
-                "confmats": {t: confusion_matrix(preds[t], targets[t],
-                                                 self.nclasses[t])
-                             for t in self.labels},
+        return {"loss": sum_over_group(loss), "confmats": self.confmats(preds, targets),
                 "per_class_loss": {t: per_class_mean_loss(logits_tasks[t],
                                                           targets[t])
                                    for t in self.labels}}

@@ -1,13 +1,24 @@
 """Training / prediction drivers (port of ``flair_for_aigle_tpu/train/
 trainer.py``; the reference replaced Lightning's Trainer by an explicit
-loop, and so does this module, on one device).
+loop, and so does this module).
 
 Ported: ModelCheckpoint (monitor, top-1 + optional last), EarlyStopping,
 the BatchNorm batch-size-1 abort, weights-only resume from a checkpoint,
 full-state resume, TensorBoard scalars, the final validate pass, and
 checkpoints written as torch-layout safetensors with the keys of the JAX
-package's ``export_torch_state_dict``. Not yet: data parallelism over
-several GPUs (ROADMAP Queue A 6).
+package's ``export_torch_state_dict``.
+
+Data parallelism: inside a ``torch.distributed`` group of W ranks
+(``parallel/dist.py initialize``, e.g. under ``torchrun``), every rank
+reads the same global batch in the loader's deterministic order, pads it
+to the batch size and keeps its contiguous shard (``parallel/mesh.py``);
+the steps sum what GSPMD sums for the JAX package (``train/task.py``), so
+a step equals the one-device step on the global batch. Rank 0's weights
+are broadcast after the build and any resume; checkpoints, the full state
+and TensorBoard are written by rank 0 only. ``batch_size`` must divide by
+W: a ``ValueError`` otherwise, where the JAX trainer takes gcd(batch,
+devices) devices and leaves the rest idle. ``predict`` splits the batches
+between the ranks, the PredictionWriter sums the confusion matrices.
 
 Full-state resume keeps the reference's config keys and semantics
 (``trainer.py:121-125, 213-258``) in torch's file format:
@@ -40,7 +51,9 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from flair_for_aigle_tpu_torch.parallel import dist
 from flair_for_aigle_tpu_torch.parallel.dist import is_rank_zero
+from flair_for_aigle_tpu_torch.parallel.mesh import ShardedGenerator, pad_batch_to, shard_batch
 from flair_for_aigle_tpu_torch.train.metrics import iou_from_confmat
 from flair_for_aigle_tpu_torch.train.optim import make_optimizer, make_scheduler
 from flair_for_aigle_tpu_torch.train.task import array_batch, make_steps
@@ -66,20 +79,23 @@ def step_seed(seed: int, step: int) -> int:
 
 class _TBWriter:
     """TensorBoard scalars through ``torch.utils.tensorboard``; a no-op
-    when it does not import (no ``tensorboard`` package). The writer takes
-    TensorBoard's TensorFlow-free path (its ``tensorboard.compat.notf``
-    marker), so it never imports tensorflow, which imports jax where both
-    are installed."""
+    when it does not import (no ``tensorboard`` package) and when
+    ``logdir`` is None (ranks other than 0). The writer takes TensorBoard's
+    TensorFlow-free path (its ``tensorboard.compat.notf`` marker), so it
+    never imports tensorflow, which imports jax where both are
+    installed."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str | None):
+        self._writer = None
+        if logdir is None:
+            return
         sys.modules.setdefault("tensorboard.compat.notf",
                                types.ModuleType("tensorboard.compat.notf"))
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
-            self._writer = None
-        else:
-            self._writer = SummaryWriter(logdir)
+            return
+        self._writer = SummaryWriter(logdir)
 
     def scalar(self, name: str, value: float, step: int):
         if self._writer is not None:
@@ -168,18 +184,6 @@ class CheckpointCallback:
                             full_state())
 
 
-def pad_batch_to(batch: dict, size: int) -> dict:
-    """Pad the leading axis of every array to ``size`` by repeating the last
-    row (``parallel/mesh.py:58``), so a ragged final batch gets the
-    reference's treatment."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] < size:
-            v = np.concatenate([v] + [v[-1:]] * (size - v.shape[0]), axis=0)
-        out[k] = v
-    return out
-
-
 def _epoch_metrics(confmats: Dict[str, np.ndarray], loss_sum, n_batches,
                    prefix: str) -> Dict[str, float]:
     out = {f"{prefix}_loss": float(loss_sum / max(n_batches, 1))}
@@ -240,6 +244,10 @@ def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
     batch_size = hp["batch_size"]
     num_epochs = hp["num_epochs"]
     seed = int(hp.get("seed", 0))
+    rank, world = dist.process_index(), dist.world_size()
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must be divisible by the {world} "
+                         "data-parallel ranks (each takes an equal shard of every batch)")
 
     data_module.setup("fit")
     train_loader = data_module.train_dataloader()
@@ -263,6 +271,7 @@ def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
         global_step, sched_state = restore_full_state(resume, model, optimizer,
                                                       steps_per_epoch)
         logger.info("Resumed full training state from %s (step %d)", resume, global_step)
+    dist.broadcast_module(model)  # every rank starts from rank 0's weights
     # the horizon AFTER the restore: hyperparams.scheduler_total_steps pins
     # the original run's total, else restored step + the epochs to run now
     total_steps = hp.get("scheduler_total_steps") or global_step + steps_per_epoch * num_epochs
@@ -274,12 +283,14 @@ def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
                     "steps; set hyperparams.scheduler_total_steps to pin the "
                     "original run's schedule instead", num_epochs, total_steps)
     # every step's random draws (modality, UTAE and decoder dropout) come
-    # from this generator, reseeded by (seed, step) before the step
-    gen = torch.Generator(device=device)
+    # from this generator, reseeded by (seed, step) before the step; each
+    # rank draws the global batch's and keeps its shard's
+    gen = ShardedGenerator(device, rank, world)
     steps = make_steps(model, config, optimizer, device, aux_loss_fix=aux_loss_fix,
                        generator=gen)
     ckpt_cb = CheckpointCallback(config, out_dir)
-    tb = _TBWriter(os.path.join(out_dir, "tensorboard_logs_" + config["paths"]["out_model_name"]))
+    tb = _TBWriter(os.path.join(out_dir, "tensorboard_logs_" + config["paths"]["out_model_name"])
+                   if is_rank_zero() else None)
     epoch_offset = global_step // steps_per_epoch
     if hasattr(train_loader, "_epoch"):
         train_loader._epoch = epoch_offset  # the shuffle continues at the resumed epoch
@@ -292,7 +303,7 @@ def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
     for epoch in range(epoch_offset, epoch_offset + num_epochs):
         acc: Dict[str, Any] = {}
         for batch in train_loader:
-            batch = pad_batch_to(array_batch(batch), batch_size)
+            batch = shard_batch(pad_batch_to(array_batch(batch), batch_size), rank, world)
             gen.manual_seed(step_seed(seed, global_step))
             m = steps.train_step(batch, scheduler.lr_for_step(global_step))
             _accumulate(acc, m)
@@ -322,26 +333,38 @@ def train(config: Dict[str, Any], data_module, model, out_dir: str, device,
             break
     validate(val_loader, steps, batch_size)  # final validate (trainers.py:431)
     tb.flush()
+    dist.barrier()  # rank 0's checkpoints are on disk before any rank reloads one
     return ckpt_cb
 
 
 def validate(val_loader, steps, batch_size) -> Dict[str, float]:
+    """The validation metrics over the global batches (each rank evaluates
+    its shard; the steps sum the loss and the confusion matrices)."""
+    rank, world = dist.process_index(), dist.world_size()
     acc: Dict[str, Any] = {}
     for batch in val_loader:
-        _accumulate(acc, steps.eval_step(pad_batch_to(array_batch(batch), batch_size)))
+        batch = shard_batch(pad_batch_to(array_batch(batch), batch_size), rank, world)
+        _accumulate(acc, steps.eval_step(batch))
     loss_sum, _, confmats, n_batches = _host(acc)
     return _epoch_metrics(confmats, loss_sum, n_batches, "val")
 
 
 def predict(config: Dict[str, Any], data_module, model, out_dir: str, device) -> None:
-    """Prediction driver with the PredictionWriter (trainers.py:436-461)."""
+    """Prediction driver with the PredictionWriter (trainers.py:436-461).
+    Under data parallelism rank r predicts the batches r, r + W, ... and
+    writes their files; the writer sums the confusion matrices over the
+    ranks (``all_sum_host``) and rank 0 writes the metrics, as the
+    reference's DDP ranks do."""
     from flair_for_aigle_tpu_torch.writer.prediction_writer import PredictionWriter
 
     data_module.setup("predict")
     loader = data_module.predict_dataloader()
     steps = make_steps(model.to(device), config, None, device)
     writer = PredictionWriter(config, output_dir=out_dir)
-    for batch in loader:
+    rank, world = dist.process_index(), dist.world_size()
+    for i, batch in enumerate(loader):
+        if i % world != rank:
+            continue
         preds = {k: v.cpu().numpy() for k, v in steps.predict_step(batch).items()}
         writer.write_on_batch_end(preds, batch)
     writer.on_predict_epoch_end()

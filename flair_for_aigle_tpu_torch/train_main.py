@@ -7,6 +7,15 @@ repository's ``train_main.py``).
 Same YAML schema as ``train_main.py``; runs on the CUDA card (the kernels)
 unless ``--device cpu`` asks for the CPU (their plain versions), and stops
 with an error when ``cuda`` is asked for and there is no card.
+
+Data-parallel training over N cards of one host:
+
+    torchrun --nproc_per_node N -m flair_for_aigle_tpu_torch.train_main --config <yaml>
+
+Each process joins the group before the model is built (``cuda`` means
+``cuda:LOCAL_RANK`` over NCCL, ``--device cpu`` runs the ranks over gloo)
+and takes an equal shard of every batch; ``hyperparams.batch_size`` is the
+global batch and must divide by N.
 """
 
 from __future__ import annotations
@@ -16,7 +25,7 @@ import logging
 import sys
 from pathlib import Path
 
-from flair_for_aigle_tpu_torch.device import resolve_device
+from flair_for_aigle_tpu_torch.parallel.dist import initialize, is_rank_zero
 from flair_for_aigle_tpu_torch.train.stages import (
     build_data_module,
     get_datasets,
@@ -37,7 +46,7 @@ def main(argv=None) -> None:
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="Run on the CUDA card (default) or on the CPU")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    device = initialize(device=args.device)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s - %(name)s - %(message)s")
     config, out_dir = config_io.setup_environment(args)
     paths = config["paths"]
@@ -48,7 +57,7 @@ def main(argv=None) -> None:
         messaging.start_msg()
         dict_train, dict_val, dict_test = get_datasets(config)
         config_display.print_recap(config, dict_train, dict_val, dict_test)
-        if config["saving"]["cp_csv_and_conf_to_output"]:
+        if config["saving"]["cp_csv_and_conf_to_output"] and is_rank_zero():
             config_io.copy_csv_and_config(config, out_dir, args)
         dm = build_data_module(config, dict_train, dict_val, dict_test)
         trained = None

@@ -14,12 +14,25 @@ Tiles are processed bottom-up row-major (reference :732-742) and stitched
 one tile at a time in that order, which keeps the reference's
 last-write-wins seams.
 
+Data parallelism (``data_parallel_devices: N``, or ``devices=``; the JAX
+engine's ``shard_map`` over a ``dp`` mesh): one process keeps a model
+replica and a ``ZonalStep`` on each device of the mesh (the first N cards,
+``parallel/mesh.py make_mesh``, which raises when fewer exist), splits
+every batch into N contiguous shards, runs each shard's forward inside
+``torch.cuda.device(its device)`` (the kernels launch on the current
+device) so that the cards work concurrently, gathers the uint8 tiles to
+the canvas device in batch order and stitches them as one device would:
+the labels are the one-device run's. The device-resident rasters are
+copied to every replica's device, the host loader's batches are sharded.
+
 Host modules (geo, tiling, windowed dataset, config) are the port's own
 copies of the JAX package's framework-free ones.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import os
 import time
@@ -47,6 +60,12 @@ from flair_for_aigle_tpu_torch.zonal.dataset import BatchedLoader, MultiModalSli
 from flair_for_aigle_tpu_torch.zonal.slicing import generate_patches_from_reference
 from flair_for_aigle_tpu_torch.ops import epilogue
 from flair_for_aigle_tpu_torch.ops.resize import scipy_zoom0_index
+from flair_for_aigle_tpu_torch.parallel.mesh import (
+    DataParallelMesh,
+    canonical_device,
+    make_mesh,
+    shard_batch,
+)
 from flair_for_aigle_tpu_torch.zonal.model_utils import (
     build_inference_model,
     compute_patch_sizes,
@@ -414,15 +433,40 @@ _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int16): torch.int1
                  np.dtype(np.float32): torch.float32}
 
 
+def zonal_mesh(config: Dict, device: torch.device, devices=None) -> DataParallelMesh:
+    """The engine's ``dp`` axis: ``devices`` when given (JAX ``mesh=``),
+    else ``data_parallel_devices`` of ``device``'s type (the first N cards,
+    or N CPU replicas), else ``device`` alone."""
+    if devices is not None:
+        return DataParallelMesh(devices)
+    n_dp = config.get("data_parallel_devices") or 1
+    if n_dp > 1:
+        return make_mesh(n_dp, device_type=device.type)
+    return DataParallelMesh([device])
+
+
 def inference_and_write(model, dataloader, tiles, config: Dict,
                         output_files: Dict[str, WindowedWriter], ref_img,
-                        device: torch.device) -> None:
-    """Run batched inference, stitch on the device, land each canvas once."""
+                        device: torch.device, devices=None) -> None:
+    """Run batched inference, stitch on the device, land each canvas once.
+    ``model`` lies on ``device``, which holds the canvases. Data parallel
+    over ``devices`` or ``data_parallel_devices`` (``zonal_mesh``): each
+    entry of the mesh holds a replica (``model`` itself for the first entry
+    on ``device``, a copy loaded from its state elsewhere, two on a device
+    listed twice), its ``ZonalStep`` and its copy of the resident rasters;
+    each batch's shards run in mesh order."""
     LAST_TIMINGS.clear()
-    if (config.get("data_parallel_devices") or 1) > 1:
-        raise NotImplementedError(
-            "data_parallel_devices > 1: multi-GPU zonal inference is ROADMAP "
-            "Queue A 6")
+    device = canonical_device(device)
+    mesh = zonal_mesh(config, device, devices)
+    bsz = dataloader.batch_size
+    if bsz % mesh.dp:
+        raise ValueError(
+            f"batch_size {bsz} must be divisible by data_parallel_devices {mesh.dp} "
+            "(an equal shard of each batch for every replica)")
+    shard_rows = bsz // mesh.dp
+    own = mesh.devices.index(device) if device in mesh.devices else None
+    replicas = [model if i == own else copy.deepcopy(model).to(dev)
+                for i, dev in enumerate(mesh.devices)]
     margin_px = config["margin"]
     tile_size = config["img_pixels_detection"]
     ref_res = config["reference_resolution"]
@@ -447,10 +491,23 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
             with open_raster(config["modalities"][mod]["input_img_path"]) as src:
                 dtype = np.dtype(src.dtypes[0])
             device_norm[mod] = _norm_spec(config["modalities"][mod], dtype) or ("cast",)
-    step = ZonalStep(
-        model, config["output_type"], margin_px, tile_size, scale_num, scale_den,
+    steps = [ZonalStep(
+        replica, config["output_type"], margin_px, tile_size, scale_num, scale_den,
         torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else torch.float32,
-        device_norm, device)
+        device_norm, dev) for dev, replica in zip(mesh.devices, replicas)]
+
+    def forward_shards(shards) -> Dict[str, torch.Tensor]:
+        """{task: uint8 tiles} of a batch given as its shards (each on its
+        mesh device, in mesh order): every shard's forward is issued before
+        any output is gathered to ``device``."""
+        outs = []
+        for dev, step, shard in zip(mesh.devices, steps, shards):
+            # the kernels launch on the current device: make it the shard's
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                outs.append(step.forward_convert(shard))
+        if len(outs) == 1:
+            return outs[0]
+        return {t: torch.cat([o[t].to(device) for o in outs]) for t in outs[0]}
 
     inner = tile_size - 2 * margin_px
     th = int(round(inner * scale_num / scale_den)) if needs_rescale else inner
@@ -498,21 +555,23 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
                 win = from_bounds(*row["geometry"].bounds, transform=tr).round()
                 offs[i] = (int(win.row_off) + margin_px, int(win.col_off) + margin_px)
             in_offs_all[mod] = offs
-        bsz = dataloader.batch_size
-        extras = {t: torch.zeros((bsz, 1, tile_size, tile_size), dtype=torch.float32,
-                                 device=device) for t in config["labels"]}
+        extras = [{t: torch.zeros((shard_rows, 1, tile_size, tile_size),
+                                  dtype=torch.float32, device=dev)
+                   for t in config["labels"]} for dev in mesh.devices]
         fmt, fmb = future_frontiers(order, tile_tops, tile_bots, img_h[tasks[0]])
         batch_starts = list(range(0, n_total, bsz))
         need_lo = [max(0, int(min(in_offs_all[m][order[s:s + bsz], 0].min()
                                   for m in plan["mods"])) - margin_px)
                    for s in batch_starts]
-        bufs = {}
+        # a margin-padded raster per modality on every replica's device
+        bufs = [{} for _ in mesh.devices]
         for mod in plan["mods"]:
             r = readers[mod]
             n_ch = len(config["modalities"][mod].get("channels") or range(r.count))
-            bufs[mod] = torch.zeros(
-                (n_ch, r.height + 2 * margin_px, r.width + 2 * margin_px),
-                dtype=_TORCH_DTYPES[np.dtype(r.dtypes[0])], device=device)
+            for i, dev in enumerate(mesh.devices):
+                bufs[i][mod] = torch.zeros(
+                    (n_ch, r.height + 2 * margin_px, r.width + 2 * margin_px),
+                    dtype=_TORCH_DTYPES[np.dtype(r.dtypes[0])], device=dev)
         height = readers[plan["mods"][0]].height
         width = readers[plan["mods"][0]].width
         itemsize = max(np.dtype(readers[m].dtypes[0]).itemsize for m in plan["mods"])
@@ -531,10 +590,15 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
                 valid = len(idxs)
                 if valid < bsz:
                     idxs = np.concatenate([idxs, np.full(bsz - valid, idxs[-1], idxs.dtype)])
-                batch = dict(extras)
-                for mod in plan["mods"]:
-                    batch[mod] = _gather_tiles(bufs[mod], in_offs_all[mod][idxs], tile_size)
-                step.stitch(step.forward_convert(batch), out_offsets(idxs, valid), canvases)
+                shards = []
+                for i in range(mesh.dp):
+                    ids = idxs[i * shard_rows:(i + 1) * shard_rows]
+                    shard = dict(extras[i])
+                    for mod in plan["mods"]:
+                        shard[mod] = _gather_tiles(bufs[i][mod], in_offs_all[mod][ids],
+                                                   tile_size)
+                    shards.append(shard)
+                ZonalStep.stitch(forward_shards(shards), out_offsets(idxs, valid), canvases)
                 consumed += valid
                 c = min(consumed, n_total)
                 stream.advance(canvases, fmt[c], fmb[c])
@@ -549,8 +613,9 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
                 if arr.ndim == 2:
                     arr = arr[None]
                 t1 = time.perf_counter()
-                bufs[mod][:, y0 + margin_px:y0 + margin_px + h,
-                          margin_px:margin_px + width].copy_(torch.from_numpy(arr))
+                for dev_bufs in bufs:
+                    dev_bufs[mod][:, y0 + margin_px:y0 + margin_px + h,
+                                  margin_px:margin_px + width].copy_(torch.from_numpy(arr))
                 t_read += t1 - t0
                 t_put += time.perf_counter() - t1
             t0 = time.perf_counter()
@@ -579,17 +644,23 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
         for batch in dataloader:
             valid = batch.pop("valid")
             indices = np.asarray(batch["index"]).reshape(-1)
-            jb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
-                  if isinstance(v, np.ndarray) and k != "index"
-                  and not k.endswith("_RAW") and k not in config["labels"]}
+            host = {k: v for k, v in batch.items()
+                    if isinstance(v, np.ndarray) and k != "index"
+                    and not k.endswith("_RAW") and k not in config["labels"]}
             if device_labels is None:
-                device_labels = {
-                    t: torch.zeros((len(indices), 1) + (tuple(np.shape(batch[t])[-2:])
-                                                       if t in batch else (tile_size, tile_size)),
-                                   dtype=torch.float32, device=device)
-                    for t in config["labels"]}
-            jb.update(device_labels)
-            step.stitch(step.forward_convert(jb), out_offsets(indices, valid), canvases)
+                device_labels = [{
+                    t: torch.zeros((len(indices) // mesh.dp, 1)
+                                   + (tuple(np.shape(batch[t])[-2:])
+                                      if t in batch else (tile_size, tile_size)),
+                                   dtype=torch.float32, device=dev)
+                    for t in config["labels"]} for dev in mesh.devices]
+            shards = []
+            for i, dev in enumerate(mesh.devices):
+                shard = {k: torch.from_numpy(v).to(dev)
+                         for k, v in shard_batch(host, i, mesh.dp).items()}
+                shard.update(device_labels[i])
+                shards.append(shard)
+            ZonalStep.stitch(forward_shards(shards), out_offsets(indices, valid), canvases)
             consumed += int(valid)
             c = min(consumed, n_total)
             stream.advance(canvases, fmt[c], fmb[c])
@@ -653,11 +724,14 @@ def postpro_outputs(temp_paths: Dict[str, str], config: Dict) -> None:
             logger.info("[ok] Converted to COG: %s", cog_path)
 
 
-def run_inference(config_path, device="cuda") -> Dict[str, str]:
+def run_inference(config_path, device="cuda", devices=None) -> Dict[str, str]:
     """Standalone zonal entry point: config (YAML path or dict) -> written
     rasters {task: path}. Runs on ``device``: the CUDA card (the kernels) by
     default, raising when there is none; ``"cpu"`` runs their plain
-    versions."""
+    versions. ``data_parallel_devices: N`` in the config runs data parallel
+    over the first N cards (N CPU replicas with ``device="cpu"``);
+    ``devices``, a list of devices, sets the mesh instead (a device may
+    repeat)."""
     device = resolve_device(device)
     start_total = time.time()
     config = prep_config(config_path)
@@ -673,7 +747,7 @@ def run_inference(config_path, device="cuda") -> Dict[str, str]:
         config["modalities"][config["reference_modality"]]["input_img_path"])
     output_files, temp_paths = init_outputs(config, ref_img)
     inference_and_write(model, dataloader, tiles, config, output_files, ref_img,
-                        device)
+                        device, devices)
     postpro_outputs(temp_paths, config)
     logger.info("[ok] Total time: %.2fs; rasters: %s", time.time() - start_total,
                 list(temp_paths.values()))

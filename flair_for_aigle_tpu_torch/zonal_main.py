@@ -4,7 +4,9 @@
 
 Takes the same YAML schema as the JAX package's ``zonal_main.py``; runs on
 the CUDA card unless ``--device cpu`` asks for the CPU, and stops with an
-error when ``cuda`` is asked for and there is no card.
+error when ``cuda`` is asked for and there is no card. ``data_parallel_devices:
+N`` in the YAML runs data parallel over the first N cards (``zonal/inference.py``),
+and raises when fewer exist.
 """
 
 from __future__ import annotations
