@@ -89,10 +89,20 @@ Phases, one printed line each (any failure raises and exits non-zero):
    then a pass of the same raster with ``FLAIR_SWIN_FINISH=1`` (K8 in every
    block, K3 in none): its launches, its label agreement with the default
    pass and both passes' tiles/s;
+   profile: ``utils/profiling.py profile_trace`` around one zonal batch of
+   the slice (bf16, batch 16): its Chrome trace names K2's core and K3's
+   and K4's kernels;
    bench: the port's bench (``flair_for_aigle_tpu_torch/bench.py``) at its
    defaults (5000 x 5000 at 0.2 m/px, 144 tiles, batch 16, bf16): its JSON
    line, km2/h > 0, the tile count, labels < 19, and the launches of K1,
    K2, K3, K5 and K4 during its timed runs;
+   codec: the bench's raster at batch 16, bf16, one warm pass each with
+   ``pack_d2h: false``, ``d2h_codec: pack5`` and ``auto``: the three label
+   rasters byte-identical, per pass tiles/s, the codec's mode, D2H bytes,
+   finalize wait and unpack seconds and the unpack route (native for the
+   packed passes); ``StripeCodec`` on two piecewise-constant canvases on
+   the card, its rle-small and rle-mid tiers landing byte for byte, every
+   ``encode`` under ``torch.cuda.set_sync_debug_mode("error")``;
    multimodal: the FLAIR-HUB fusion model at full width, swin-base-UPerNet
    on the slice's raster fused with a UTAE (the zonal multitemp defaults)
    on a Sentinel-2 time series over the same extent (41 x 41 px, 12
@@ -143,6 +153,13 @@ Phases, one printed line each (any failure raises and exits non-zero):
    backward) and with ``FLAIR_SWIN_FINISH=1`` (K8 in every block); ms/step
    and peak device memory of the kernel, plain and K7 routes in float32
    and with ``compute_dtype: bfloat16``;
+   remat: ``models.monotemp_model.remat`` on the same configuration: one
+   float32 step with and without it on the default route and under each
+   fused-block switch (gradient cosine >= 0.9999, largest absolute
+   difference, the forward kernels launched twice with remat), ms/step
+   and peak device memory of each, and one float32 efficientnet-b4-U-Net++
+   step with and without remat whose BatchNorm running statistics must be
+   equal;
 6. multigpu: data parallelism on the one card (``parallel/``). Zonal: the
    slice's raster and configuration through the engine on one device and
    with ``devices=[cuda:0, cuda:0]`` (two replicas, 8 tiles each a batch),
@@ -2531,7 +2548,7 @@ def _route_step(cfg, batch, plain: bool, bf16: bool, env=None):
     return ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def phase_train(card: str, write_geotiff) -> tuple[dict, dict]:
+def phase_train(card: str, write_geotiff) -> tuple:
     import torch
 
     from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
@@ -2647,7 +2664,7 @@ def phase_train(card: str, write_geotiff) -> tuple[dict, dict]:
             f"{d} {r} {ms:.1f} ms {gib:.2f} GiB" for (d, r), (ms, gib) in timing.items()))
     return ({k: launches[k] + cli_launches.get(k, 0) for k in launches},
             {"ffn_bwd": step_launches["FLAIR_FFN_BWD=kernel"]["ffn_bwd"],
-             "finish": step_launches["FLAIR_SWIN_FINISH=1"]["finish"]})
+             "finish": step_launches["FLAIR_SWIN_FINISH=1"]["finish"]}, cfg, batch)
 
 
 def _cli_run(cfg: dict, root: str, pandas_ok: bool) -> dict:
@@ -2994,6 +3011,274 @@ def phase_multigpu(card: str) -> dict:
     return {k: zonal.get(k, 0) + train.get(k, 0) for k in {*zonal, *train}}
 
 
+# --- the stripe D2H codec, per-block remat, the profiler ----------------------
+
+# the [codec] phase's passes: the engine's codec keys (zonal/inference.py
+# d2h_codec_choice); the port's default for an absent pack_d2h is raw
+CODEC_PASSES = {"raw": {"pack_d2h": False},
+                "pack5": {"pack_d2h": True, "d2h_codec": "pack5"},
+                "auto": {"pack_d2h": True, "d2h_codec": "auto"}}
+
+
+def codec_tiers() -> None:
+    """``StripeCodec`` with RLE on two piecewise-constant 2048 x 5000
+    canvases on the card (the bench's width, inside a canvas padded as the
+    engine pads it), four stripes of 512 rows each: 8 horizontal class
+    layers (8 runs a stripe: the rle-small tier) and 40 vertical bands of
+    125 px (20480 runs a stripe: rle-mid). Every ``encode`` runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises); the
+    stripes are separated by a synchronise, standing for the batches that
+    separate them in a run, so the first probe's count lands before the
+    next encode. Each stripe lands byte for byte."""
+    import numpy as np
+    import torch
+
+    from flair_for_aigle_tpu_torch import bench
+    from flair_for_aigle_tpu_torch.zonal.stripes import StripeCodec
+
+    w, rows = bench.KM2_SIDE_PX, 4 * 512
+    y = torch.arange(rows, device=DEVICE)[:, None]
+    x = torch.arange(w, device=DEVICE)[None, :]
+    for name, img, tier in (("8 layers", (y // 64 % N_CLASSES).expand(rows, w), "small"),
+                            ("40 bands", (x // 125 % N_CLASSES).expand(rows, w), "mid")):
+        canvas = torch.zeros((1, rows + 432, w + 432), dtype=torch.uint8, device=DEVICE)
+        canvas[0, :rows, :w] = img.to(torch.uint8)
+        codec = StripeCodec(True, True, {"T": w})
+        recs = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                recs.append(codec.encode(canvas, "T", i * 512, (i + 1) * 512))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        codec.plan_all(recs)
+        dst = np.zeros((1, rows, w), np.uint8)
+        nbytes = sum(codec.decode_into(r, dst[:, r["y0"]:r["y0"] + r["h"]])[0] for r in recs)
+        same = np.array_equal(dst, canvas[:, :rows, :w].cpu().numpy())
+        tiers = [r.get("tier") for r in recs]
+        say("codec", f"StripeCodec on the card, {name} ({rows} x {w}): mode {codec.mode}, "
+            f"tiers {tiers}, runs {[r['nr'] for r in recs]}, {nbytes} bytes fetched against "
+            f"{rows * w} raw; byte-identical {same}; encode under sync debug mode 'error': "
+            "no host sync")
+        if not same or codec.mode != "rle" or set(tiers) != {tier}:
+            raise AssertionError(f"StripeCodec's {tier} tier did not land the {name} canvas")
+
+
+def phase_codec() -> dict:
+    """The bench's 5000 x 5000 raster (written by the bench phase) at batch
+    16, bf16, under the three codec settings: a warm-up pass each, then one
+    timed pass each with the launch counts at 0 just before the first and
+    read after the last. The three label rasters must be byte-identical,
+    and the pack5 and auto passes must unpack natively. Then the RLE tiers
+    on synthetic canvases (``codec_tiers``). Returns the timed passes'
+    launches."""
+    import numpy as np
+    import torch
+
+    from flair_for_aigle_tpu_torch import bench
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+
+    img = os.path.join(TMP, "bench", "km2.tif")
+    cfgs = {}
+    for name, keys in CODEC_PASSES.items():
+        cfgs[name] = {**bench.make_cfg(img, os.path.join(TMP, "codec", name)), **keys}
+        os.makedirs(cfgs[name]["output_path"], exist_ok=True)
+    model = None
+    for cfg in cfgs.values():
+        model, _, _ = bench.run_zonal(cfg, torch.device(DEVICE), model)
+    fns = zero_launches({"prep", "window_attn", "ffn", "merge", "epilogue"})
+    labels = {}
+    for name, cfg in cfgs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, n_tiles, paths = bench.run_zonal(cfg, torch.device(DEVICE), model)
+        wall = time.perf_counter() - t0
+        t = dict(zi.LAST_TIMINGS)
+        with zi.open_raster(paths["AERIAL_LABEL-COSIA"]) as src:
+            labels[name] = src.read().copy()
+        say("codec", f"{name} ({cfg.get('pack_d2h')}, {cfg.get('d2h_codec', '-')}): "
+            f"{n_tiles / wall:.2f} tiles/s ({wall:.4f} s); d2h_codec_mode "
+            f"{t.get('d2h_codec_mode')}, rle_probes {t.get('rle_probes', 0)}, d2h_bytes "
+            f"{t.get('d2h_bytes')}, finalize_plan_s {t.get('finalize_plan_s')}, "
+            f"finalize_wait_s {t.get('finalize_wait_s')}, finalize_unpack_s "
+            f"{t.get('finalize_unpack_s')}, unpack_route {t.get('unpack_route', '-')}, "
+            f"finalize_s {t.get('finalize_s')}, dispatch_s {t.get('dispatch_s')} on {bench.card(torch.device(DEVICE))}")
+        if name != "raw" and t.get("unpack_route") != "native":
+            raise AssertionError(f"{name}: the packed stripes unpacked by "
+                                 f"{t.get('unpack_route')}, not natively")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    same = all(np.array_equal(labels["raw"], labels[n]) for n in ("pack5", "auto"))
+    say("codec", f"label rasters {labels['raw'].shape} byte-identical across raw, pack5 and "
+        f"auto: {same}; launches during the timed passes {launches}")
+    if not same or not all(launches.values()):
+        raise AssertionError("the codecs' rasters differ, or a kernel did not run")
+    codec_tiers()
+    return launches
+
+
+def _with_remat(cfg: dict, flag: bool, arch: str | None = None) -> dict:
+    c = copy.deepcopy(cfg)
+    c["models"]["monotemp_model"]["remat"] = flag
+    if arch:
+        c["models"]["monotemp_model"]["arch"] = arch
+    return c
+
+
+def _statistics(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def remat_batchnorm(batch) -> None:
+    """One float32 AdamW step of efficientnet-b4-U-Net++ (the default
+    training configuration otherwise) with and without remat, from the
+    same weights on the same batch, cuDNN deterministic: the loss and
+    every BatchNorm running statistic equal bit for bit."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.train.optim import make_optimizer
+    from flair_for_aigle_tpu_torch.train.stages import build_model
+    from flair_for_aigle_tpu_torch.train.task import make_steps
+
+    cfg = train_config(os.path.join(TMP, "train"))
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for flag in (False, True):
+            c = _with_remat(cfg, flag, "efficientnet_b4-unetplusplus")
+            model = build_model(c).to(DEVICE)
+            opt = make_optimizer(c["hyperparams"], model.parameters())
+            m = make_steps(model, c, opt, DEVICE).train_step(batch, c["hyperparams"][
+                "learning_rate"])
+            torch.cuda.synchronize()
+            out[flag] = (float(m["loss"]), _statistics(model))
+            del model, opt
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, s0), (l1, s1) = out[False], out[True]
+    differ = [k for k in s0 if not torch.equal(s0[k], s1[k])]
+    worst = max((s0[k] - s1[k]).abs().max().item() for k in s0)
+    say("remat", f"efficientnet_b4-unetplusplus float32 step at batch 5: loss {l0:.6f} without "
+        f"remat, {l1:.6f} with; {len(s0)} BatchNorm running statistics, {len(differ)} differ "
+        f"(largest difference {worst:.3e}; bound: all equal)")
+    if differ or l0 != l1:
+        raise AssertionError(f"remat changed the BatchNorm statistics: {differ[:4]}")
+
+
+def phase_remat(card: str, cfg: dict, batch) -> dict:
+    """``models.monotemp_model.remat`` on the default training
+    configuration (swin-base-UPerNet, 512 px, batch 5, float32): one step's
+    gradients with and without remat, from the same weights on the same
+    batch, on the default route and under each fused-block switch (cosine
+    >= 0.9999, largest absolute difference; the launch counts at 0 just
+    before each remat step: the forward kernels run twice, in the forward
+    and in the recompute); ms/step and peak device memory of each route
+    with and without remat; then the EfficientNet BatchNorm check
+    (``remat_batchnorm``). Returns the remat steps' launches."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.train.stages import build_model
+    from flair_for_aigle_tpu_torch.train.task import make_steps
+
+    t_phase = time.perf_counter()
+    plain = build_model(cfg).to(DEVICE)
+    rem = build_model(_with_remat(cfg, True)).to(DEVICE)
+    rem.load_state_dict(plain.state_dict())
+    names = ("prep", "window_attn", "window_attn_bwd", "ffn", "merge", "ffn_bwd", "finish")
+    launches: dict = {}
+    routes = (("kernels", None), ("FLAIR_FFN_BWD=kernel", SWITCHED["ffn_bwd"]),
+              ("FLAIR_SWIN_FINISH=1", SWITCHED["finish"]))
+    for route, env in routes:
+        res = {}
+        with switch(*env) if env else contextlib.nullcontext():
+            for flag, model in ((False, plain), (True, rem)):
+                steps = make_steps(model, _with_remat(cfg, flag), None, DEVICE)
+                fns = zero_launches(names)
+                loss, grads, _, _ = steps.loss_and_grads(batch)
+                torch.cuda.synchronize()
+                res[flag] = (loss.item(), torch.cat([g.flatten() for g in grads]).double(),
+                             {k: fn.launches for k, fn in fns.items()})
+                del grads, steps
+        (l0, g0, n0), (l1, g1, n1) = res[False], res[True]
+        cos = torch.nn.functional.cosine_similarity(g0, g1, dim=0).item()
+        diff = (g0 - g1).abs().max().item()
+        say("remat", f"gradients, one float32 step at batch 5, {route}: loss {l0:.6f} without "
+            f"remat, {l1:.6f} with; cosine {cos:.9f} (bound >= 0.9999), largest absolute "
+            f"difference {diff:.3e} (largest gradient {g0.abs().max().item():.3e}); launches "
+            f"without {n0}, with {n1}")
+        if not cos >= 0.9999 or n1["window_attn"] != 2 * n0["window_attn"] or \
+                n1["window_attn_bwd"] != n0["window_attn_bwd"]:
+            raise AssertionError(f"{route}: remat's gradients or launches are wrong")
+        for k, v in n1.items():
+            launches[k] = launches.get(k, 0) + v
+        del res, g0, g1
+    # nothing of the gradient checks may stay allocated: the timed steps'
+    # peak memory counts every live tensor
+    del plain, rem
+    torch.cuda.empty_cache()
+    timing = {}
+    for route, env in routes:
+        for flag in (False, True):
+            timing[(route, flag)] = _route_step(_with_remat(cfg, flag), batch, False, False, env)
+    say("remat", f"train_step at batch 5, float32, on {card} ({STEPS_TIMED} steps after "
+        f"{STEPS_WARM}; ms/step, peak GiB): " + "; ".join(
+            f"{r} {'remat' if f else 'no remat'} {ms:.1f} ms {gib:.2f} GiB"
+            for (r, f), (ms, gib) in timing.items()))
+    remat_batchnorm(batch)
+    say("remat", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# kernels the profile trace must name: K2's bf16 core, K3's LayerNorm and
+# products, K4
+PROFILE_KERNELS = {"K2 core": "attn_core_bf16_kernel", "K3 LayerNorm": "ffn_ln_kernel",
+                   "K3 products": "gemm_mma_kernel", "K4": "epilogue_kernel"}
+
+
+def phase_profile() -> dict:
+    """``utils/profiling.py profile_trace`` around one zonal batch (the
+    slice's model, weights and raster, bf16, batch 16, after a warm-up
+    batch): its Chrome trace must name K2's core and K3's and K4's kernels.
+    Returns the batch's launches (counts at 0 just before it)."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.utils.profiling import profile_trace
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+    from flair_for_aigle_tpu_torch.zonal.model_utils import build_inference_model
+
+    cfg = slice_config(os.path.join(TMP, "raster.tif"), os.path.join(TMP, "weights.safetensors"))
+    pcfg = zi.initialize_geometry_and_resolutions(dict(cfg))
+    zi._set_labels(pcfg)
+    model, _ = build_inference_model(pcfg, device="cuda")
+    mod = cfg["modalities"]["AERIAL_RGBI"]["normalization"]
+    step = _step(model, {"AERIAL_RGBI": ("custom", mod["means"], mod["stds"])})
+    batch = one_batch(synthetic_raster(0))
+    _labels(step, batch, torch.bfloat16)
+    torch.cuda.synchronize()
+    logdir = os.path.join(TMP, "profile")
+    shutil.rmtree(logdir, ignore_errors=True)
+    fns = zero_launches({"prep", "window_attn", "ffn", "merge", "epilogue"})
+    t0 = time.perf_counter()
+    with profile_trace(logdir):
+        _labels(step, batch, torch.bfloat16)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    files = glob.glob(os.path.join(logdir, "trace_*.json"))
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: sum(v in n for n in kernels) for k, v in PROFILE_KERNELS.items()}
+    say("profile", f"profile_trace around one zonal batch ({BATCH} tiles, bf16): "
+        f"{os.path.relpath(files[0], REPO)}, {os.path.getsize(files[0])} bytes, "
+        f"{len(events)} events, {len(kernels)} distinct kernels; kernel names naming "
+        f"{found}; launches {launches}; {wall:.2f} s with the profiler on")
+    if len(files) != 1 or not all(found.values()) or not all(launches.values()):
+        raise AssertionError(f"the trace does not name the port's kernels: {found}")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2])
@@ -3009,10 +3294,14 @@ def main() -> int:
     stats = phase_kernels()
     with host_io() as (write_geotiff, io_desc):
         zonal = phase_slice(env["card"], write_geotiff, io_desc)
+        profile = phase_profile()
         bench = phase_bench(write_geotiff)
+        codec = phase_codec()
         multimodal, multimodal_train = phase_multimodal(env["card"], write_geotiff)
         families = phase_families(env["card"], write_geotiff)
-        train, train_switched = phase_train(env["card"], write_geotiff)
+        train, train_switched, train_cfg, train_batch = phase_train(env["card"], write_geotiff)
+        remat = phase_remat(env["card"], train_cfg, train_batch)
+        del train_batch
         multigpu = phase_multigpu(env["card"])
     tool = phase_tool()
     # launches: the main path's runs (zonal, the bench's timed runs, the
@@ -3024,7 +3313,7 @@ def main() -> int:
     runs = {"zonal": zonal, "bench": bench, "multimodal": multimodal,
             "multimodal_train": multimodal_train, "families": families, "train": train,
             "train_switched": train_switched, "multigpu": multigpu,
-            "tool": tool}
+            "tool": tool, "codec": codec, "remat": remat, "profile": profile}
     # K2's bf16 attention core alone, summed over the stages at attn_f32
     # False (the slice's), and its float32 core at attn_f32 True (the
     # training configuration's, with its bound at 3xTF32's rate beside),

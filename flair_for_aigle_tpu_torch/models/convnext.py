@@ -7,7 +7,9 @@ is a 7x7 depthwise conv, LayerNorm (eps 1e-6; on NHWC the channels-first
 LayerNorm of timm is the last-axis one), the 4x MLP with exact GELU, the
 layer scale ``gamma`` (init 1e-6) and the residual. The forward returns
 smp's TimmUniversalEncoder pyramid ``[x, zero-channel dummy at stride 2,
-s4, s8, s16, s32]``, as the Swin encoder does.
+s4, s8, s16, s32]``, as the Swin encoder does. ``remat=True`` recomputes
+each block in the backward (``models/layers.py remat``, JAX
+``convnext.py:79``), in training mode only.
 """
 
 from __future__ import annotations
@@ -17,7 +19,13 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from flair_for_aigle_tpu_torch.models.layers import MLP, TorchConv, TorchLayerNorm
+from flair_for_aigle_tpu_torch.models.layers import (
+    MLP,
+    TorchConv,
+    TorchLayerNorm,
+    remat,
+    remat_active,
+)
 
 
 class ConvNeXtBlock(nn.Module):
@@ -39,8 +47,9 @@ class ConvNeXtBlock(nn.Module):
 
 class ConvNeXtEncoder(nn.Module):
     def __init__(self, in_channels: int = 3, dims: Sequence[int] = (96, 192, 384, 768),
-                 depths: Sequence[int] = (3, 3, 9, 3)):
+                 depths: Sequence[int] = (3, 3, 9, 3), remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.out_channels = (in_channels, 0, *dims)
         self.stem = nn.Sequential(TorchConv(in_channels, dims[0], 4, 4, 0),
                                   TorchLayerNorm(dims[0], eps=1e-6))
@@ -57,9 +66,14 @@ class ConvNeXtEncoder(nn.Module):
         b, h, w, _ = x.shape
         feats = [x, x.new_zeros(b, h // 2, w // 2, 0)]
         y = self.stem(x)
+        rm = remat_active(self, self.remat)
         for stage in self.stages:
             if hasattr(stage, "downsample"):
                 y = stage.downsample(y)
-            y = stage.blocks(y)
+            if rm:
+                for block in stage.blocks:
+                    y = remat(block, y)
+            else:
+                y = stage.blocks(y)
             feats.append(y)
         return feats

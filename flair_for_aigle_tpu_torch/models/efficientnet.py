@@ -8,7 +8,10 @@ width multiplier through ``_make_divisible`` (divisor 8, round limit 0.9),
 repeats by ``ceil(r * depth_mult)``; the SE width is round(block input *
 0.25). Native (not ``tf_``) variants: symmetric k // 2 padding, BN eps
 1e-5, SiLU. The forward returns smp's pyramid ``[x, s2, s4, s8, s16,
-s32]``, each the output of the last stage at that reduction.
+s32]``, each the output of the last stage at that reduction. ``remat=True``
+recomputes each DS / IR block in the backward (``models/layers.py remat``,
+JAX ``efficientnet.py:190-191``), in training mode only; the recompute
+leaves the BatchNorm running statistics as the forward set them.
 """
 
 from __future__ import annotations
@@ -20,7 +23,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flair_for_aigle_tpu_torch.models.layers import TorchBatchNorm, TorchConv
+from flair_for_aigle_tpu_torch.models.layers import (
+    TorchBatchNorm,
+    TorchConv,
+    remat,
+    remat_active,
+)
 
 # b0 stage specs: (kernel, stride, expansion, channels, repeats)
 _BASE_STAGES = (
@@ -148,8 +156,10 @@ class IrBlock(nn.Module):
 
 class EfficientNetEncoder(nn.Module):
     def __init__(self, in_channels: int = 3, stem_channels: int = _BASE_STEM,
-                 stages: Sequence[tuple[int, int, int, int, int]] = _BASE_STAGES):
+                 stages: Sequence[tuple[int, int, int, int, int]] = _BASE_STAGES,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.taps = _tap_indices(stages)
         self.out_channels = (in_channels, *(stages[i][3] for i in self.taps))
         self.conv_stem = TorchConv(in_channels, stem_channels, 3, 2, 1, bias=False)
@@ -168,8 +178,13 @@ class EfficientNetEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         feats = [x]
         y = F.silu(self.bn1(self.conv_stem(x)))
+        rm = remat_active(self, self.remat)
         for i, stage in enumerate(self.blocks):
-            y = stage(y)
+            if rm:
+                for block in stage:
+                    y = remat(block, y)
+            else:
+                y = stage(y)
             if i in self.taps:
                 feats.append(y)
         return feats

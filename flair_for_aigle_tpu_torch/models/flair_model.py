@@ -243,7 +243,8 @@ class FlairHubModel(nn.Module):
         for mod in plan["active_mono"]:
             self.encoders[mod] = _SegModel(make_encoder(
                 spec.encoder_name, plan["channels"][mod],
-                attn_f32=mcfg.get("attn_f32", True), output_stride=os_, depth=depth))
+                attn_f32=mcfg.get("attn_f32", True), output_stride=os_, depth=depth,
+                remat=mcfg.get("remat", False)))
             enc_ch[mod] = self.encoders[mod].seg_model.out_channels
             if plan["aux_losses"].get(mod):
                 for task in labels:

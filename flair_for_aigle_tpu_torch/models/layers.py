@@ -16,10 +16,12 @@ drawn from an explicit ``torch.Generator``; see ``init_weights``.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from flair_for_aigle_tpu_torch.ops.resize import resize_bilinear_ac_nhwc
 from flair_for_aigle_tpu_torch.parallel import dist
@@ -203,6 +205,62 @@ class TorchLayerNorm(nn.Module):
         return out.to(x.dtype)
 
 
+class _Remat:
+    """One checkpointed call of a block: ``recompute`` is False while its
+    forward runs and True while autograd recomputes it for the backward;
+    ``sums`` holds the group sums its BatchNorms took in the forward, in
+    call order, which the recompute replays (``next_sum``)."""
+
+    def __init__(self):
+        self.calls = 0
+        self.recompute = False
+        self.sums: list = []
+        self.i = 0
+
+    def next_sum(self) -> torch.Tensor:
+        y = self.sums[self.i]
+        self.i += 1
+        return y
+
+
+class _Current(threading.local):
+    call: _Remat | None = None  # the checkpointed call this thread runs
+
+
+_CURRENT = _Current()
+
+
+def remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under ``torch.utils.checkpoint`` (flax ``nn.checkpoint``,
+    the JAX package's ``remat``): the block's activations are dropped after
+    the forward and recomputed in the backward, custom autograd kernels
+    included. The recompute leaves the BatchNorm running statistics as the
+    forward left them and replays its group sums instead of all-reducing
+    again (``TorchBatchNorm``), so a step matches the step without remat.
+    The RNG state is not saved: no block that runs here draws random
+    numbers (the port's dropouts draw from explicit generators, which
+    ``checkpoint`` would not restore)."""
+    call = _Remat()
+
+    def run(x):
+        call.recompute = call.calls > 0
+        call.calls += 1
+        call.i = 0
+        outer, _CURRENT.call = _CURRENT.call, call
+        try:
+            return block(x)
+        finally:
+            _CURRENT.call = outer
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def remat_active(module: nn.Module, flag: bool) -> bool:
+    """Whether ``module``'s blocks run under ``remat``: asked for, in
+    training mode, with autograd recording."""
+    return flag and module.training and torch.is_grad_enabled()
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm over the last (channel) axis, torch semantics
     (``flair_for_aigle_tpu/models/layers.py:229``). In training mode it
@@ -212,7 +270,11 @@ class TorchBatchNorm(nn.Module):
     statistics. Inside a process group of more than one rank (data
     parallelism, ``parallel/dist.py``) the training-mode statistics and the
     unbiased count are the global batch's, summed over the ranks with
-    ``AllReduceSum`` so that the gradient reaches every rank's inputs."""
+    ``AllReduceSum`` so that the gradient reaches every rank's inputs.
+    Inside a block that ``remat`` recomputes, the recompute updates no
+    running statistic and replays the forward's group sums
+    (``dist.ReplayedSum``), so the statistics and the collectives are a
+    step without remat's."""
 
     def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -237,24 +299,37 @@ class TorchBatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.ndim - 1))
             n = x.numel() // x.shape[-1]
+            call = _CURRENT.call
             if dist.world_size() > 1:
                 # data parallel: the global batch's statistics, as GSPMD
                 # takes them (two passes: the mean, then the squared
                 # deviations from it); every rank holds an equal shard
                 n *= dist.world_size()
-                mean = dist.AllReduceSum.apply(xf.sum(axes)) / n
-                var = dist.AllReduceSum.apply(((xf - mean) ** 2).sum(axes)) / n
+                mean = _group_sum(xf.sum(axes), call) / n
+                var = _group_sum(((xf - mean) ** 2).sum(axes), call) / n
             else:
                 mean = xf.mean(axes)
                 var = ((xf - mean) ** 2).mean(axes)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            if call is None or not call.recompute:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(m * mean)
+                    self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - mean) * inv + self.bias).to(x.dtype)
+
+
+def _group_sum(x: torch.Tensor, call: _Remat | None) -> torch.Tensor:
+    """The sum of ``x`` over the group; inside ``remat``, the forward keeps
+    it and the recompute replays it."""
+    if call is not None and call.recompute:
+        return dist.ReplayedSum.apply(x, call.next_sum())
+    y = dist.AllReduceSum.apply(x)
+    if call is not None:
+        call.sums.append(y.detach())
+    return y
 
 
 class TorchGroupNorm(nn.Module):

@@ -147,7 +147,7 @@ class TimmUniversalEncoder(nn.Module):
     """smp's timm wrapper: backbone params under a ``model.`` sub-level."""
 
     def __init__(self, encoder_name: str, in_channels: int,
-                 attn_f32: bool = True):
+                 attn_f32: bool = True, remat: bool = False):
         super().__init__()
         name = _strip_tu(encoder_name)
         spec, cspec, espec = swin_spec(name), convnext_spec(name), effnet_spec(name)
@@ -156,11 +156,11 @@ class TimmUniversalEncoder(nn.Module):
             self.model = SwinTransformerEncoder(
                 in_channels=in_channels, embed_dim=ed, depths=depths,
                 num_heads=heads, window_size=win, patch_size=patch,
-                attn_f32=attn_f32)
+                attn_f32=attn_f32, remat=remat)
         elif cspec is not None:
-            self.model = ConvNeXtEncoder(in_channels, *cspec)
+            self.model = ConvNeXtEncoder(in_channels, *cspec, remat=remat)
         elif espec is not None:
-            self.model = EfficientNetEncoder(in_channels, *espec)
+            self.model = EfficientNetEncoder(in_channels, *espec, remat=remat)
         else:
             raise _unknown_encoder_error(encoder_name)
 
@@ -173,10 +173,12 @@ class TimmUniversalEncoder(nn.Module):
 
 
 def make_encoder(encoder_name: str, in_channels: int, attn_f32: bool = True,
-                 output_stride: int = 32, depth: int = 5) -> nn.Module:
+                 output_stride: int = 32, depth: int = 5, remat: bool = False) -> nn.Module:
     """Encoder with smp's internal naming. ``output_stride`` < 32 (smp's
     make_dilated) and ``depth`` < 5 (a truncated encoder) are ResNet's
-    only; the timm encoders raise ``ValueError`` as smp's does."""
+    only; the timm encoders raise ``ValueError`` as smp's does. ``remat``
+    (per-block recompute in training) reaches the timm encoders only, as
+    in the JAX package: ResNet takes none."""
     name = _strip_tu(encoder_name)
     if name in _RESNET_SPECS:
         return ResNetEncoder(name, in_channels, output_stride=output_stride, depth=depth)
@@ -189,7 +191,7 @@ def make_encoder(encoder_name: str, in_channels: int, attn_f32: bool = True,
             raise ValueError(
                 f"encoder '{name}' does not support encoder_depth={depth}; "
                 f"PSPNet needs a resnet encoder")
-        return TimmUniversalEncoder(name, in_channels, attn_f32=attn_f32)
+        return TimmUniversalEncoder(name, in_channels, attn_f32=attn_f32, remat=remat)
     raise _unknown_encoder_error(name)
 
 

@@ -34,6 +34,8 @@ from flair_for_aigle_tpu_torch.models.layers import (
     TorchConv,
     TorchLayerNorm,
     TorchLinear,
+    remat,
+    remat_active,
 )
 from flair_for_aigle_tpu_torch.ops import ffn, finish, merge, prep, window_attn
 from flair_for_aigle_tpu_torch.ops.prep import window_reverse
@@ -194,14 +196,19 @@ class _Stage(nn.Module):
 
 
 class SwinTransformerEncoder(nn.Module):
-    """timm-1.x Swin with smp-TimmUniversalEncoder-style 6-feature output."""
+    """timm-1.x Swin with smp-TimmUniversalEncoder-style 6-feature output.
+
+    ``remat=True`` recomputes each block in the backward
+    (``models/layers.py remat``, JAX ``swin.py:402``): activation memory
+    for a second forward of the blocks, in training mode only."""
 
     def __init__(self, in_channels: int = 3, embed_dim: int = 128,
                  depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (4, 8, 16, 32),
                  window_size: int = 12, patch_size: int = 4,
-                 attn_f32: bool = True):
+                 attn_f32: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.in_channels = in_channels
         self.embed_dim = embed_dim
         self.depths = tuple(depths)
@@ -220,10 +227,11 @@ class SwinTransformerEncoder(nn.Module):
         b, h, w, _ = x.shape
         feats = [x, x.new_zeros((b, h // 2, w // 2, 0))]
         y = self.patch_embed.norm(self.patch_embed.proj(x))
+        rm = remat_active(self, self.remat)
         for stage in self.layers:
             if hasattr(stage, "downsample"):
                 y = stage.downsample(y)
             for block in stage.blocks:
-                y = block(y.contiguous())
+                y = remat(block, y.contiguous()) if rm else block(y.contiguous())
             feats.append(y)
         return feats

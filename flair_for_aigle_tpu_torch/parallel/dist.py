@@ -109,6 +109,24 @@ class AllReduceSum(torch.autograd.Function):
         return g
 
 
+class ReplayedSum(torch.autograd.Function):
+    """``y``, the group sum that an earlier ``AllReduceSum`` of the same
+    values returned, as a function of this rank's ``x``: the forward sends
+    nothing, the backward is ``AllReduceSum``'s. A checkpointed block's
+    recompute (``models/layers.py remat``) replays its BatchNorms' sums so,
+    sparing the forward collective a second time."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return y.clone()
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        g = grad.clone()
+        dist.all_reduce(g)
+        return g, None
+
+
 def all_reduce_grads(grads) -> tuple:
     """The gradients summed over the group (one all_reduce of their flat
     concatenation), None where a gradient is None; ``grads`` itself in a

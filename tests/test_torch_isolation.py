@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither jax nor the JAX package
 (statically, by an AST scan of every module and of chip_smoke.py, and at run
-time, in a fresh interpreter that imports every module of the port); its
+time, in a fresh interpreter that imports every module of the port), and
+has a counterpart of every module of the JAX package but the Pallas ones; its
 entry points run on the CUDA card unless the caller asks for the CPU, and
 raise before doing any work when there is no card; and its copies of the
 JAX package's host modules give the same tiles and the same first training
@@ -68,10 +69,15 @@ MULTIMODAL = ["models.layers", "models.utae", "models.flair_model", "models.chec
               "zonal.model_utils", "zonal.legacy", "train.task", "train.trainer"]
 
 
+# the stripe D2H codec and the profiling hooks
+CODEC = ["ops.pack", "ops.rle", "zonal.stripes", "utils.profiling"]
+
+
 def test_importing_every_module_of_the_port_leaves_jax_out():
     modules = sorted(".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
                      for p in PORT.rglob("*.py"))
-    assert {f"flair_for_aigle_tpu_torch.{m}" for m in HOST_TAIL + MULTIMODAL} <= set(modules)
+    assert {f"flair_for_aigle_tpu_torch.{m}" for m in HOST_TAIL + MULTIMODAL + CODEC} <= \
+        set(modules)
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -86,6 +92,18 @@ def test_importing_every_module_of_the_port_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LEAKED []" in proc.stdout, proc.stdout
     assert int(proc.stdout.split()[1]) >= len(modules)
+
+
+def test_the_port_has_a_counterpart_of_every_jax_module():
+    """The two packages' file lists differ only by the Pallas files (ported
+    under ``ops/*.py`` + ``csrc/``) and the port's own additions."""
+    jax_pkg = REPO / "flair_for_aigle_tpu"
+    jax_files = {p.relative_to(jax_pkg).as_posix() for p in jax_pkg.rglob("*.py")
+                 if "__pycache__" not in p.parts}
+    port_files = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    missing = sorted(f for f in jax_files - port_files if not f.startswith("ops/pallas/"))
+    assert not missing, missing
+    assert {"ops/pack.py", "ops/rle.py", "utils/profiling.py"} <= port_files
 
 
 class _Untouched:
