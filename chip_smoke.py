@@ -78,7 +78,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
    had before K5's producer joined the GEMM's body, and no spill; K6's
    float32 weight gradients (dWqkv, dWproj) at the four stages at the
    training batch 5 in its own plan's partials, each stage's worst ratio
-   to 2e-3 + 2e-3 |ref| against the float64 product;
+   to 2e-3 + 2e-3 |ref| against the float64 product; K2 and K6 at attn_f32
+   True on scores 200 past exp's range (the min(s, 80) clamp: one spike a
+   score row, then every score) at T = 144 in both dtypes (``clamp_lines``:
+   finite, and on the spike case within their bounds);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -163,11 +166,21 @@ Phases, one printed line each (any failure raises and exits non-zero):
 6. multigpu: data parallelism on the one card (``parallel/``). Zonal: the
    slice's raster and configuration through the engine on one device and
    with ``devices=[cuda:0, cuda:0]`` (two replicas, 8 tiles each a batch),
-   in bf16 and float32: each replica's launches (the one-device pass's),
-   the two-replica labels' agreement with the one-device labels (bf16 >=
-   0.999, float32 >= 0.9999: a shard's kernel plans may differ, so
-   near-ties may flip) and whether they are byte-identical, both passes'
-   warm tiles/s. Training: one AdamW step of the default configuration
+   in bf16 and float32: first, layer by layer, one batch's first 8 tiles
+   as a replica's batch against the same tiles' rows of the batch of 16
+   (``replica_diagnosis``, once with ``ops/resize.py``'s products through
+   cuBLAS's default kernels and once as shipped, through cuBLASLt:
+   forward hooks on every module and the kernel wrappers; the first output
+   that differs, the share of each output that differs, the calls at
+   fault, every kernel call again on its inputs' first rows, the PSP
+   pools' products through cuBLAS and cuBLASLt); then
+   each replica's launches (the one-device pass's), the two-replica labels
+   byte-identical to the one-device labels, the diagnosis batch's logits
+   byte-identical and every kernel call bit-identical on the shard's rows,
+   both passes' warm tiles/s; in bf16 40 alternating pairs of one
+   batch's forward with the resize products through cuBLAS and through
+   cuBLASLt (CUDA-event and host ms, reported). Training: one AdamW step
+   of the default configuration
    (float32, 512 px, global batch 4) from the same weights and seed three
    ways: (c) no process group, (b) one NCCL rank of world size 1, which
    must equal (c) bit for bit (both deterministic, in this process), (a)
@@ -180,6 +193,20 @@ Phases, one printed line each (any failure raises and exits non-zero):
    flair_for_aigle_tpu_torch.tools.dryrun_multichip --world 2 --device
    cuda --backend gloo`` prints ``dryrun_multichip(2) ok``. The kernels
    are built before any rank starts; any rank's failure fails the run;
+   class_prob: ``run_inference`` with ``output_type: class_prob`` on the
+   slice's raster, configuration and checkpoint (19 bands): K4's
+   class_prob epilogue once a batch (``launches_class_prob``), >= 99 % of
+   the bytes within 2 uint8 steps of the plain versions' pass, the argmax
+   over the bands equal to the argmax pass's labels wherever the top-two
+   gap exceeds 2 steps, warm tiles/s;
+   zonal_main: the port's CLI, ``zonal_main.main(["--config", path])``,
+   on ``configs/config_model_zonal_segmentation.yaml`` with the slice's
+   raster and checkpoint (swin-base-UPerNet, 512 px, margin 40, bf16,
+   ``attn_f32: True``, batch 8, ``pack_d2h`` with ``d2h_codec: auto``):
+   every K2 launch in bf16 at attn_f32 True, the codec's mode rle or
+   pack5, >= 99 % label agreement with the same file under the plain
+   versions, the agreement with the slice's attn_f32 False pass and warm
+   tiles/s at batch 8 (``launches_zonal_main``);
 7. tool: the port's A/B tool, ``python -m
    flair_for_aigle_tpu_torch.tools.exp_attn_dots``, once as a subprocess at
    its defaults: its three JSON lines, the two kernels' agreement and times,
@@ -1500,6 +1527,93 @@ def _compare_grads(name, grad_names, case, got, want, f32: bool, t_k, t_p, stats
     torch.cuda.synchronize()
 
 
+def spike_bias(nh: int, t: int, g, value: float | None = 200.0):
+    """(nh, T, T) float32 bias on the card: N(0, 0.5) with one +``value``
+    spike in every score row, scattered across columns and heads (the
+    reference's case, tests/test_window_attn_kernel.py:236-240); ``value``
+    None: every score at +200."""
+    import torch
+
+    if value is None:
+        return torch.full((nh, t, t), 200.0, device=DEVICE)
+    bias = torch.randn((nh, t, t), generator=g, device=DEVICE) * 0.5
+    rows = torch.arange(t, device=DEVICE)
+    for h in range(nh):
+        bias[h, rows, (rows * 7 + h) % t] = value
+    return bias
+
+
+def clamp_lines(stats, g) -> None:
+    """K2 and K6 under attn_f32 (the min(s, 80) clamp of the float32
+    softmax) on the spike case at T = 144 (window 12, shift 6, a 2 x 3
+    window grid at batch 2, C = 128, 4 heads), bf16 and float32, against
+    their plain versions: every output finite; K2 within 4 bf16 units
+    (float32: 1e-4) at its largest magnitude, K6's gradients but dbias within
+    the card suite's bounds (float32 2e-3 of each one's largest magnitude,
+    bf16 a median relative error < 0.04); then every score at +200: all
+    finite. dbias vanishes on the spike case (each score row's softmax is
+    one-hot, so ds = p (dp - sum p dp) cancels to rounding): the plain
+    version's must be below 1e-6 and the kernel's within the reference's
+    absolute 1e-3 on this case (tests/test_window_attn_kernel.py:266-270).
+    Goes into ``stats['window_attn']['clamp']``."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import window_attn
+
+    c, nh, grid = 128, 4, (2, 3)
+    bnw = 2 * grid[0] * grid[1]
+    kw = dict(num_heads=nh, window_size=WS, shift_size=SS, grid_hw=grid, attn_f32=True)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dts = "bf16" if dtype == torch.bfloat16 else "f32"
+        x, gy = (torch.randn((bnw, T, c), generator=g, device=DEVICE).to(dtype)
+                 for _ in range(2))
+        p = (torch.randn((3 * c, c), generator=g, device=DEVICE) * 0.05,
+             torch.randn(3 * c, generator=g, device=DEVICE) * 0.05,
+             torch.randn((c, c), generator=g, device=DEVICE) * 0.05,
+             torch.randn(c, generator=g, device=DEVICE) * 0.05)
+        res = {}
+        for case, value in (("spike", 200.0), ("saturated", None)):
+            ap = (*p, spike_bias(nh, T, g, value))
+            got = window_attn.fused_window_attention(x, *ap, **kw)
+            grads = window_attn.fused_window_attention_backward(gy, x, *ap, **kw)
+            want = window_attn.fused_window_attention_reference(x, *ap, **kw)
+            want_g = window_attn.fused_window_attention_backward_reference(gy, x, *ap, **kw)
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in (got, *grads))
+            err = (got.float() - want.float()).abs().max().item()
+            scale = max(1.0, want.float().abs().max().item())
+            bound = (4 * 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4) * scale
+            gerr = []
+            for a, b in zip(grads[:5], want_g[:5]):
+                a, b = a.float(), b.float()
+                gerr.append((a - b).abs().max().item() / max(b.abs().max().item(), 1e-6)
+                            if dtype == torch.float32 else
+                            ((a - b).abs() / b.abs().clamp(min=1e-2)).median().item())
+            gbound = 2e-3 if dtype == torch.float32 else 0.04
+            # dbias vanishes on the spike case (one-hot softmax rows: ds
+            # cancels to rounding): the plain version's is below 1e-6, the
+            # kernel's residue within the reference's absolute 1e-3 there
+            dbias_ref = want_g[5].float().abs().max().item()
+            dbias_err = (grads[5].float() - want_g[5].float()).abs().max().item()
+            ok = finite and (case == "saturated" or (
+                err <= bound and max(gerr) < gbound and dbias_ref <= 1e-6 and dbias_err <= 1e-3))
+            res[case] = {"finite": finite, "fwd_err": err, "fwd_bound": bound,
+                         "bwd_worst": max(gerr), "bwd_bound": gbound, "dbias_err": dbias_err}
+            say("kernel", f"clamp {case} ({'one +200 spike a score row' if value else 'every score +200'}) "
+                f"T {T} {dts} attn_f32=True: K2 and K6 finite {finite}; K2 max_abs_err {err:.3e} "
+                f"(bound {bound:.3e}), K6's dx, dwqkv, dbqkv, dwproj, dbproj worst "
+                + ("relative error" if dtype == torch.float32 else "median relative error")
+                + f" {max(gerr):.3e} (bound {gbound}), dbias max_abs_err {dbias_err:.3e} (plain "
+                f"{dbias_ref:.1e}; bound: plain <= 1e-6, kernel within 1e-3)"
+                + (" (saturated: finiteness only)" if value is None else "")
+                + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K2 / K6 on the clamp's {case} case")
+        out[dts] = res
+    stats["window_attn"]["clamp"] = out
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns per-kernel stats
     (times and bounds summed over the stages, in the dtype of the path each
@@ -1647,6 +1761,8 @@ def phase_kernels() -> dict:
             bwd_core_lines(stats, f"B2 {hw}x{hw}x{c}", x.shape[0], c, nh, nwh, randn, dtype)
     # K6's float32 weight gradients at the training batch against float64
     wgrad_lines(stats, randn)
+    # the min(s, 80) clamp: K2 and K6 on scores 200 past exp's range
+    clamp_lines(stats, g)
 
     # K4: epilogue at (B, 19, 128, 128), margin 40, at batch 2 and at the
     # zonal batch, both dtypes, both output types
@@ -1782,30 +1898,40 @@ def _labels(step, batch, dtype, plain: bool = False):
         return step.forward_convert(batch)["AERIAL_LABEL-COSIA"]
 
 
-def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
-    import numpy as np
-    import torch
+def slice_inputs(write_geotiff) -> tuple:
+    """The slice's raster (``synthetic_raster(0)`` at RES, EPSG:2154) and
+    its random weights from a seeded torch.Generator, written as a
+    checkpoint that run_inference loads like a published one: (raster
+    path, weights path, raster, transform)."""
     from safetensors.torch import save_file
 
     from flair_for_aigle_tpu_torch.zonal import inference as zi
     from flair_for_aigle_tpu_torch.zonal.model_utils import build_inference_model
 
-    say("slice", f"host IO: {io_desc}")
-    os.makedirs(TMP, exist_ok=True)
+    os.makedirs(os.path.join(TMP, "out"), exist_ok=True)
     img = os.path.join(TMP, "raster.tif")
     raster = synthetic_raster(0)
     transform = zi.from_origin(700000.0, 6600000.0, RES, RES)
     write_geotiff(img, raster, transform, "EPSG:2154", compress="lzw", tile_size=512)
     weights = os.path.join(TMP, "weights.safetensors")
-    cfg = slice_config(img, weights)
-    # random weights from a seeded torch.Generator, written as a checkpoint
-    # that run_inference loads like a published one
-    seed_cfg = zi.initialize_geometry_and_resolutions(dict(cfg))
+    seed_cfg = zi.initialize_geometry_and_resolutions(dict(slice_config(img, weights)))
     zi._set_labels(seed_cfg)
     seed_model, _ = build_inference_model({**seed_cfg, "model_weights": ""},
                                           device="cpu", seed=0)
     save_file({k: v.contiguous() for k, v in seed_model.state_dict().items()}, weights)
-    del seed_model
+    return img, weights, raster, transform
+
+
+def phase_slice(card: str, write_geotiff, io_desc: str) -> dict:
+    import numpy as np
+    import torch
+
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+    from flair_for_aigle_tpu_torch.zonal.model_utils import build_inference_model
+
+    say("slice", f"host IO: {io_desc}")
+    img, weights, raster, transform = slice_inputs(write_geotiff)
+    cfg = slice_config(img, weights)
 
     # the user entry point, with every launch count at 0 just before it
     fns = zero_launches({"prep", "window_attn", "ffn", "merge", "epilogue"})
@@ -2775,12 +2901,271 @@ def launches_per_step(names):
         counts.extend(per.values())
 
 
+# the zonal path's kernel wrappers (``kernel_fns``) and how many of their
+# leading positional arguments hold the batch's rows (the rest are
+# parameters)
+ROW_ARGS = {"prep": 1, "window_attn": 1, "ffn": 2, "merge": 1, "finish": 2, "epilogue": 1}
+
+
+@contextlib.contextmanager
+def wrapped_kernels(names, around):
+    """Inside the block each named kernel wrapper (``kernel_fns``) is
+    replaced on its module by a shim that returns ``around(name, wrapper,
+    args, kwargs)``. A wrapper counts its launches on its module's name for
+    it, which then names the shim: they go back to its own count after."""
+    fns = {k: fn for k, fn in kernel_fns().items() if k in names}
+    shims = {}
+    for key, fn in fns.items():
+        def shim(*args, _key=key, _fn=fn, **kwargs):
+            return around(_key, _fn, args, kwargs)
+        shim.launches = 0
+        shims[key] = shim
+        setattr(sys.modules[fn.__module__], fn.__name__, shim)
+    try:
+        yield shims
+    finally:
+        for key, fn in fns.items():
+            setattr(sys.modules[fn.__module__], fn.__name__, fn)
+            fn.launches += shims[key].launches
+
+
+def _tensors(v) -> list:
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, dict):
+        return [t for x in v.values() for t in _tensors(x)]
+    if isinstance(v, (list, tuple)):
+        return [t for x in v for t in _tensors(x)]
+    return []
+
+
+def _first_rows(v, full_rows: int, rows: int):
+    """``v`` with every tensor whose leading dimension is ``full_rows`` (or a
+    multiple, as windows are of tiles) cut to its share of ``rows`` of them."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        n = v.shape[0] if v.dim() else 0
+        return v[:n * rows // full_rows] if n and n % full_rows == 0 else v
+    if isinstance(v, dict):
+        return {k: _first_rows(x, full_rows, rows) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_first_rows(x, full_rows, rows) for x in v)
+    return v
+
+
+@contextlib.contextmanager
+def captured(model, keep_args: bool):
+    """Every module of ``model`` (forward hooks: in the order the calls
+    end) and every kernel wrapper of the zonal path, in call order:
+    ``[{"name", "kernel", "ins", "outs", "call"}]``; ``call`` re-runs the
+    module or the wrapper on the arguments given (kept when ``keep_args``)."""
+    recs: list = []
+    handles = []
+    stack: list = []  # the module calls under way, by call number
+    calls = iter(range(1 << 62))
+
+    def pre(m, args):
+        stack.append(next(calls))
+
+    for name, mod in model.named_modules():
+        def hook(m, args, kwargs, out, name=name or "model"):
+            call = stack.pop()
+            recs.append({"name": name, "kernel": None, "ins": _tensors(args),
+                         "outs": _tensors(out), "call": m, "id": call, "within": tuple(stack),
+                         "args": args if keep_args else None, "kwargs": kwargs})
+        handles.append(mod.register_forward_pre_hook(pre))
+        handles.append(mod.register_forward_hook(hook, with_kwargs=True))
+    def record(key, fn, args, kwargs):
+        out = fn(*args, **kwargs)
+        recs.append({"name": f"kernel {key}", "kernel": key,
+                     "ins": _tensors(args[:ROW_ARGS[key]]), "outs": _tensors(out),
+                     "call": fn, "id": None, "within": tuple(stack),
+                     "args": args if keep_args else None, "kwargs": kwargs})
+        return out
+
+    try:
+        with wrapped_kernels(ROW_ARGS, record):
+            yield recs
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _share_differing(shard: list, full: list) -> tuple[float, float]:
+    """(share of elements that differ, largest difference) between the
+    shard's tensors and the first rows of the full batch's."""
+    n = diff = 0
+    worst = 0.0
+    for a, b in zip(shard, full):
+        b = b[:a.shape[0]] if a.dim() and b.dim() and b.shape[0] != a.shape[0] else b
+        if a.shape != b.shape:
+            return float("nan"), float("nan")
+        ne = a != b
+        n += a.numel()
+        diff += int(ne.sum())
+        if ne.any():
+            worst = max(worst, (a.float() - b.float()).abs().max().item())
+    return diff / max(n, 1), worst
+
+
+@contextlib.contextmanager
+def resize_through_cublas():
+    """``ops/resize.py``'s products through cuBLAS's default kernels inside
+    the block, as the port ran them before it took cuBLASLt for them."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import resize
+
+    @contextlib.contextmanager
+    def cublas(device):
+        saved = torch.backends.cuda.preferred_blas_library()
+        torch.backends.cuda.preferred_blas_library("cublas")
+        try:
+            yield
+        finally:
+            torch.backends.cuda.preferred_blas_library(saved)
+
+    shipped = resize._batch_invariant_blas
+    resize._batch_invariant_blas = cublas
+    try:
+        yield
+    finally:
+        resize._batch_invariant_blas = shipped
+
+
+def replica_diagnosis(step, batch: dict, rows: int) -> dict:
+    """Layer by layer, what a replica's shard (the first ``rows`` tiles of
+    ``batch``, as its own batch) computes against the same tiles as the
+    first rows of the one-device batch: for every module of the model and
+    every kernel wrapper, in forward order, whether its inputs are
+    bit-identical and the share of its outputs that differ, and the calls
+    at fault. Then each kernel call of the full batch again on its own
+    inputs' first rows (its output there must equal the full call's rows
+    bit for bit: a kernel's row may not depend on the rows sharing its
+    launch), and the PSP pools' products alone (``pool_products``).
+    Returns the findings."""
+    import torch
+
+    full_rows = next(iter(batch.values())).shape[0]
+    shard = {k: v[:rows] for k, v in batch.items()}
+    with captured(step.model, False) as rec_s:
+        lab_s = step.forward_convert(shard)
+    with captured(step.model, True) as rec_f:
+        lab_f = step.forward_convert(batch)
+    torch.cuda.synchronize()
+    if [r["name"] for r in rec_s] != [r["name"] for r in rec_f]:
+        raise AssertionError("the shard and the full batch ran different modules")
+    # a call is at fault where its inputs agree and its output differs, and
+    # no call made inside it (a submodule, a kernel) is at fault: then its
+    # own code outside those calls made the difference
+    table, culprits, inner = [], [], set()
+    for s, f in zip(rec_s, rec_f):
+        same_in = _share_differing(s["ins"], f["ins"])[0] == 0
+        share, worst = _share_differing(s["outs"], f["outs"])
+        table.append((f["name"], same_in, share, worst))
+        if share and same_in:
+            if f["id"] not in inner:
+                culprits.append(f)
+            inner.update(f["within"])
+    first = next((t for t in table if t[2]), None)
+    task = next(iter(lab_f))
+    labels = _share_differing([lab_s[task]], [lab_f[task]])[0]
+    logits = next(t for t in table if t[0] == "model")
+    # each kernel call of the full batch on its own inputs' first rows
+    kernels: dict = {}
+    for f in rec_f:
+        if f["kernel"] is None:
+            continue
+        k = ROW_ARGS[f["kernel"]]
+        n = f["args"][0].shape[0]
+        args = [_first_rows(a, n, n * rows // full_rows) if i < k else a
+                for i, a in enumerate(f["args"])]
+        with torch.no_grad():
+            out = f["call"](*args, **f["kwargs"])
+        d = kernels.setdefault(f["kernel"], [0, 0])
+        d[0] += 1
+        d[1] += _share_differing(_tensors(out), f["outs"])[0] == 0
+    return {"table": table, "first": first, "culprits": [f["name"] for f in culprits],
+            "kernels": kernels, "labels": labels, "logits": logits[2],
+            "pool_products": pool_products(rec_f, rows, full_rows)}
+
+
+def pool_products(rec_f: list, rows: int, full_rows: int) -> dict:
+    """The PSP module's adaptive pools (``ops/resize.py``: two float32
+    einsums over the deepest feature) on the shard's rows against the full
+    batch's, through cuBLAS's default kernels and through cuBLASLt (the
+    route ``_apply_hw`` takes on the card): {backend: {pool size: share of
+    the pooled values that differ}}."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import resize
+
+    psp = next(f for f in rec_f if f["name"].endswith("decoder.psp"))
+    x = psp["ins"][0]
+    h, w = x.shape[-3], x.shape[-2]
+    out = {}
+    for backend in ("cublas", "cublaslt"):
+        saved = torch.backends.cuda.preferred_blas_library()
+        torch.backends.cuda.preferred_blas_library(backend)
+        res = {}
+        try:
+            for size in (1, 2, 3, 6):
+                mh = torch.as_tensor(resize._pool_matrix(h, size), device=x.device)
+                mw = torch.as_tensor(resize._pool_matrix(w, size), device=x.device)
+
+                def pool(v):
+                    v = torch.einsum("oh,...hwc->...owc", mh, v.float())
+                    return torch.einsum("pw,...owc->...opc", mw, v)
+
+                n = x.shape[0] * rows // full_rows
+                res[size] = _share_differing([pool(x[:n])], [pool(x)])[0]
+        finally:
+            torch.backends.cuda.preferred_blas_library(saved)
+        out[backend] = res
+    return out
+
+
+def diagnosis_lines(diag: dict, dtype: str) -> None:
+    first = diag["first"]
+    dtype = f"{dtype}, {diag['route']}"
+    say("multigpu", f"per-layer diagnosis {dtype}, tiles 0-{BATCH // 2 - 1} as a replica's batch "
+        f"of {BATCH // 2} against rows 0-{BATCH // 2 - 1} of the one-device batch of {BATCH}: "
+        f"{len(diag['table'])} module and kernel outputs; first differing in forward order: "
+        + (f"{first[0]} (inputs bit-identical {first[1]}, share {first[2]:.3e}, largest "
+           f"difference {first[3]:.3e})" if first else "none")
+        + f"; logits byte-identical {diag['logits'] == 0} (share differing "
+        f"{diag['logits']:.3e}); labels differing {diag['labels']:.3e}")
+    say("multigpu", f"per-layer diagnosis {dtype}: calls at fault (inputs agree, output "
+        f"differs, no call inside them at fault: their own code made the difference): "
+        f"{diag['culprits'][:12]}{' ...' if len(diag['culprits']) > 12 else ''} "
+        f"({len(diag['culprits'])}); each kernel call again on its inputs' first rows, "
+        f"bit-identical to the full call's rows (calls, identical): {diag['kernels']}")
+    say("multigpu", f"per-layer diagnosis {dtype}: the PSP module's adaptive pools (two float32 "
+        f"einsums, ops/resize.py _apply_hw) on the shard's rows against the full batch's, share "
+        f"of pooled values differing by pool size: " + "; ".join(
+            f"{b} " + ", ".join(f"{k}x{k} {v:.3e}" for k, v in r.items())
+            for b, r in diag["pool_products"].items()))
+    differing = [(n, s) for n, _, s, _ in diag["table"] if s]
+    say("multigpu", f"per-layer diagnosis {dtype}: share differing per output, forward order "
+        f"({len(differing)} of {len(diag['table'])} differ): "
+        + ", ".join(f"{n} {s:.2e}" for n, s in differing[:40])
+        + (" ..." if len(differing) > 40 else ""))
+    os.makedirs(TMP, exist_ok=True)
+    name = f"replica_diagnosis_{dtype.replace(', ', '_').replace(' ', '_')}.json"
+    with open(os.path.join(TMP, name), "w") as f:
+        json.dump(diag, f, indent=0, default=str)
+
+
 def multigpu_zonal(card: str) -> dict:
     """The slice's raster and configuration through ``bench.run_zonal`` on
     one device and on two replicas of the one card (``devices=[cuda:0,
-    cuda:0]``, 8 tiles each a batch), in bf16 and float32: launches per
-    replica, label agreement, warm tiles/s. Returns the two-replica bf16
-    pass's launches."""
+    cuda:0]``, 8 tiles each a batch), in bf16 and float32: the per-layer
+    diagnosis of a replica's batch (``replica_diagnosis``), launches per
+    replica, byte identity of the labels, warm tiles/s. Returns the
+    two-replica bf16 pass's launches."""
     import numpy as np
     import torch
 
@@ -2790,12 +3175,26 @@ def multigpu_zonal(card: str) -> dict:
     img, weights = os.path.join(TMP, "raster.tif"), os.path.join(TMP, "weights.safetensors")
     names = {"prep", "window_attn", "ffn", "merge", "epilogue"}
     dp_launches = {}
-    for dtype, bound in (("bfloat16", 0.999), ("float32", 0.9999)):
+    batch = one_batch(synthetic_raster(0))
+    for dtype in ("bfloat16", "float32"):
         cfg = {**slice_config(img, weights), "compute_dtype": dtype}
         pcfg = zi.initialize_geometry_and_resolutions(dict(cfg))
         zi._set_labels(pcfg)
         model, _ = build_inference_model(pcfg, device=DEVICE)
         n_tiles = len(zi.generate_patches_from_reference(pcfg))
+        # layer by layer: a replica's batch of 8 against the same tiles'
+        # rows of the one-device batch of 16
+        mod = cfg["modalities"]["AERIAL_RGBI"]["normalization"]
+        step = _step(model, {"AERIAL_RGBI": ("custom", mod["means"], mod["stds"])})
+        step.compute_dtype = getattr(torch, dtype)
+        with resize_through_cublas():
+            before = replica_diagnosis(step, batch, BATCH // 2)
+        diagnosis_lines({**before, "route": "resize products through cuBLAS"}, dtype)
+        diag = replica_diagnosis(step, batch, BATCH // 2)
+        diagnosis_lines({**diag, "route": "as shipped (cuBLASLt)"}, dtype)
+        if dtype == "bfloat16":
+            resize_route_times(step, batch, card)
+        del step
         passes = {}
         for mode, devices in (("one device", None), ("two replicas", DP_DEVICES)):
             _zonal_pass(cfg, model, devices)  # warm-up (replica copies, autotune)
@@ -2807,20 +3206,60 @@ def multigpu_zonal(card: str) -> dict:
             passes[mode] = (wall, labels, per, {k: fn.launches for k, fn in fns.items()})
         (w1, l1, p1, n1), (w2, l2, p2, n2) = passes["one device"], passes["two replicas"]
         agree = float((l1 == l2).mean())
+        same = bool(np.array_equal(l1, l2))
+        kernels_same = all(c == n for c, n in diag["kernels"].values())
         say("multigpu", f"zonal {dtype}, devices {DP_DEVICES} ({BATCH // 2} tiles a replica a "
-            f"batch) against one device, {n_tiles} tiles: label agreement {agree:.6f} (bound "
-            f">= {bound}), byte-identical {np.array_equal(l1, l2)}; launches per replica "
+            f"batch) against one device, {n_tiles} tiles: label agreement {agree:.6f}, "
+            f"byte-identical {same} (bound: byte-identical); the diagnosis batch: logits "
+            f"byte-identical {diag['logits'] == 0}, every kernel call bit-identical on the "
+            f"shard's rows {kernels_same} (bound: both); launches per replica "
             f"{p2} (one-device pass {p1}; bound: each replica the one-device pass's); warm "
             f"{n_tiles / w1:.2f} tiles/s one device, {n_tiles / w2:.2f} tiles/s two replicas, "
             f"on {card}")
-        if (agree < bound or len(p1) != 1 or len(p2) != 2 or any(p != p1[0] for p in p2)
+        if (not same or diag["logits"] or not kernels_same or len(p1) != 1 or len(p2) != 2
+                or any(p != p1[0] for p in p2)
                 or not all(n1.values()) or n2 != {k: 2 * v for k, v in n1.items()}):
-            raise AssertionError("the two-replica zonal pass disagrees with the one-device "
+            raise AssertionError("the two-replica zonal pass differs from the one-device "
                                  "pass or did not run every kernel on each replica")
         if dtype == "bfloat16":
             dp_launches = n2
         del model
     return dp_launches
+
+
+def resize_route_times(step, batch: dict, card: str, pairs: int = 40) -> None:
+    """One batch's forward and epilogue (``forward_convert``) with
+    ``ops/resize.py``'s products through cuBLAS's default kernels and
+    through cuBLASLt (as shipped), ``pairs`` of each, alternating which
+    runs first: CUDA-event ms and host ms of each (reported, no bound)."""
+    import statistics
+
+    import torch
+
+    for route in (resize_through_cublas, contextlib.nullcontext):
+        with route():
+            step.forward_convert(batch)
+    ms: dict = {"cuBLAS": [], "cuBLASLt": []}
+    host: dict = {"cuBLAS": [], "cuBLASLt": []}
+    for i in range(pairs):
+        for name in ("cuBLAS", "cuBLASLt") if i % 2 == 0 else ("cuBLASLt", "cuBLAS"):
+            with resize_through_cublas() if name == "cuBLAS" else contextlib.nullcontext():
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.record()
+                step.forward_convert(batch)
+                b.record()
+                host[name].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                ms[name].append(a.elapsed_time(b))
+    say("multigpu", f"one batch of {BATCH} through forward_convert, the resize products through "
+        f"cuBLAS against cuBLASLt, {pairs} alternating pairs: " + "; ".join(
+            f"{k} CUDA events median {statistics.median(v):.3f} ms (quartiles "
+            f"{statistics.quantiles(v, n=4)[0]:.3f}-{statistics.quantiles(v, n=4)[2]:.3f}), host "
+            f"median {statistics.median(host[k]):.3f} ms" for k, v in ms.items())
+        + f"; cuBLASLt faster in {sum(b < a for a, b in zip(*ms.values()))} of {pairs} pairs, "
+        f"on {card}")
 
 
 def dp_batch():
@@ -3279,6 +3718,187 @@ def phase_profile() -> dict:
     return launches
 
 
+# --- class_prob and the repository's own zonal configuration -----------------
+
+ZONAL_YAML = os.path.join(REPO, "configs", "config_model_zonal_segmentation.yaml")
+
+
+def _raster(path: str):
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+
+    with zi.open_raster(path) as src:
+        return src.read().copy(), src.count
+
+
+def phase_class_prob(card: str) -> tuple[dict, object]:
+    """``output_type: class_prob`` on the slice's raster, configuration and
+    checkpoint (swin-base-UPerNet, bf16, batch 16, 19 classes: a 19-band
+    2048 x 2048 canvas): ``run_inference`` with the launch counts at 0 just
+    before it (K4's class_prob epilogue once a batch), then, with a
+    prebuilt model, a warm-up and a timed pass, the same pass under
+    ``plain_versions()`` and an argmax pass. Bounds (bf16): >= 99 % of the
+    bytes within 2 uint8 steps of the plain pass (the epilogue's bf16
+    contract); the argmax over the bands equals the argmax pass's labels
+    wherever the class_prob top-two gap exceeds 2 steps. Returns the run's
+    launches and the argmax pass's labels."""
+    import numpy as np
+    import torch
+
+    from flair_for_aigle_tpu_torch import bench
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+
+    t0 = time.perf_counter()
+    img, weights = os.path.join(TMP, "raster.tif"), os.path.join(TMP, "weights.safetensors")
+    cfg = {**slice_config(img, weights), "output_type": "class_prob",
+           "output_path": os.path.join(TMP, "class_prob")}
+    os.makedirs(cfg["output_path"], exist_ok=True)
+    fns = zero_launches({"prep", "window_attn", "ffn", "merge", "epilogue"})
+    paths = zi.run_inference(dict(cfg))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    probs, count = _raster(paths["AERIAL_LABEL-COSIA"])
+    n_tiles = len(zi.generate_patches_from_reference(
+        zi.initialize_geometry_and_resolutions(dict(cfg))))
+    n_batches = -(-n_tiles // BATCH)
+    if (count != N_CLASSES or probs.shape != (N_CLASSES, SIDE, SIDE)
+            or launches["epilogue"] != n_batches or not all(launches.values())):
+        raise AssertionError(f"the class_prob pass wrote {probs.shape} in {count} bands or "
+                             f"did not run K4 once a batch: {launches}")
+    model, _, _ = bench.run_zonal(cfg, torch.device(DEVICE))
+    wall, _, out = _zonal_pass(cfg, model)
+    probs_k, _ = _raster(out)
+    with plain_versions():
+        _, _, out = _zonal_pass(_out_dir(cfg, "plain"), model)
+    probs_p, _ = _raster(out)
+    _, _, out = _zonal_pass({**_out_dir(cfg, "argmax"), "output_type": "argmax"}, model)
+    labels, _ = _raster(out)
+    steps = np.abs(probs_k.astype(np.int16) - probs_p.astype(np.int16))
+    within2 = float((steps <= 2).mean())
+    top2 = np.sort(probs_k, axis=0)[-2:].astype(np.int16)
+    clear = (top2[1] - top2[0]) > 2
+    top = np.argmax(probs_k, axis=0)
+    mism = int((top[clear] != labels[0][clear]).sum())
+    sums = np.abs(probs_k.astype(np.int32).sum(axis=0) - 255).max()
+    say("class_prob", f"run_inference output_type class_prob, {n_tiles} tiles at batch {BATCH} "
+        f"bf16: {probs.shape} uint8 in {count} bands, identical to the timed pass "
+        f"{np.array_equal(probs, probs_k)}; launches during it {launches} (bound: epilogue "
+        f"{n_batches}, once a batch); bytes within 2 uint8 steps of the plain versions' pass "
+        f"{within2:.6f} (bound >= 0.99), largest step {int(steps.max())}; argmax over the bands "
+        f"against the argmax pass's labels where the top-two gap > 2 steps ({float(clear.mean()):.4f} "
+        f"of the pixels): {mism} differ (bound 0); bands' sum within {int(sums)} of 255; warm "
+        f"{n_tiles / wall:.2f} tiles/s ({wall:.3f} s) on {card}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if within2 < 0.99 or mism:
+        raise AssertionError("the class_prob pass disagrees with the plain versions' or with "
+                             "the argmax pass")
+    return launches, labels
+
+
+def _out_dir(cfg: dict, suffix: str) -> dict:
+    """``cfg`` writing into a sibling of its output directory, made here."""
+    path = f"{cfg['output_path']}_{suffix}"
+    os.makedirs(path, exist_ok=True)
+    return {**cfg, "output_path": path}
+
+
+def zonal_yaml(path: str, out_dir: str, **changes) -> dict:
+    """The repository's zonal YAML with the input raster (the slice's),
+    ``model_weights`` (the slice's seeded checkpoint) and ``output_path``
+    changed, and ``changes`` on top; written to ``path``."""
+    import yaml
+
+    with open(ZONAL_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["modalities"]["AERIAL_RGBI"]["input_img_path"] = os.path.join(TMP, "raster.tif")
+    cfg.update(model_weights=os.path.join(TMP, "weights.safetensors"), output_path=out_dir,
+               **changes)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return cfg
+
+
+@contextlib.contextmanager
+def k2_modes():
+    """K2's launches inside the block by (dtype, attn_f32): ``{(dtype,
+    attn_f32): launches}``."""
+    modes: dict = {}
+
+    def tally(key, fn, args, kwargs):
+        before = shims[key].launches
+        out = fn(*args, **kwargs)
+        mode = (str(args[0].dtype).replace("torch.", ""), kwargs.get("attn_f32", True))
+        modes[mode] = modes.get(mode, 0) + shims[key].launches - before
+        return out
+
+    with wrapped_kernels({"window_attn"}, tally) as shims:
+        yield modes
+
+
+def phase_zonal_main(card: str, argmax_labels) -> dict:
+    """The repository's own zonal configuration
+    (``configs/config_model_zonal_segmentation.yaml``: swin-base-UPerNet,
+    512 px, margin 40, bf16, ``attn_f32: True``, batch 8, ``pack_d2h:
+    True``, ``d2h_codec: auto``) on the slice's raster and checkpoint,
+    through the port's CLI in process (``zonal_main.main(["--config",
+    path])``), with the launch counts at 0 just before it: K2 in bf16 at
+    attn_f32 True, the codec on (``d2h_codec_mode``); the same file under
+    ``plain_versions()``: label agreement >= 0.99; agreement with the
+    slice's attn_f32 False pass (reported); warm tiles/s at batch 8 with a
+    prebuilt model. Returns the CLI run's launches."""
+    import numpy as np
+    import torch
+
+    from flair_for_aigle_tpu_torch import bench, zonal_main
+    from flair_for_aigle_tpu_torch.zonal.config import load_config
+    from flair_for_aigle_tpu_torch.zonal import inference as zi
+
+    t0 = time.perf_counter()
+    root = os.path.join(TMP, "zonal_main")
+    path = os.path.join(root, "zonal.yaml")
+    cfg = zonal_yaml(path, os.path.join(root, "out"))
+    fns = zero_launches({"prep", "window_attn", "ffn", "merge", "epilogue"})
+    with k2_modes() as modes:
+        zonal_main.main(["--config", path])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    timings = dict(zi.LAST_TIMINGS)
+    out = glob.glob(os.path.join(root, "out", "*_AERIAL_LABEL-COSIA_argmax_i.tif"))
+    labels, count = _raster(out[0])
+    plain_path = os.path.join(root, "plain.yaml")
+    zonal_yaml(plain_path, os.path.join(root, "plain"))
+    with plain_versions():
+        zonal_main.main(["--config", plain_path])
+    out = glob.glob(os.path.join(root, "plain", "*_AERIAL_LABEL-COSIA_argmax_i.tif"))
+    plain, _ = _raster(out[0])
+    agree = float((labels == plain).mean())
+    agree_slice = float((labels == argmax_labels).mean())
+    # warm tiles/s at the file's batch with a prebuilt model
+    run_cfg = _out_dir(load_config(path), "timed")
+    model, n_tiles, _ = bench.run_zonal(run_cfg, torch.device(DEVICE))
+    wall, phases, _ = _zonal_pass(run_cfg, model)
+    n_batches = -(-n_tiles // cfg["batch_size"])
+    say("zonal_main", f"python -m flair_for_aigle_tpu_torch.zonal_main --config <{os.path.basename(ZONAL_YAML)} "
+        f"with the slice's raster and checkpoint>: compute_dtype {cfg['compute_dtype']}, "
+        f"attn_f32 {cfg['attn_f32']}, batch_size {cfg['batch_size']}, pack_d2h {cfg['pack_d2h']}, "
+        f"d2h_codec {cfg['d2h_codec']}; {labels.shape} uint8 in {count} band, labels "
+        f"{int(labels.min())}..{int(labels.max())}; launches {launches}, K2 by (dtype, "
+        f"attn_f32) {modes} (bound: all 24 a batch x {n_batches} batches in bfloat16 at "
+        f"attn_f32 True); d2h_codec_mode {timings.get('d2h_codec_mode')}, d2h_bytes "
+        f"{timings.get('d2h_bytes')}; label agreement with the plain versions on the same file "
+        f"{agree:.6f} (bound >= 0.99); with the slice's attn_f32 False pass at batch {BATCH} "
+        f"{agree_slice:.6f} (reported); warm {n_tiles / wall:.2f} tiles/s at batch "
+        f"{cfg['batch_size']} ({wall:.3f} s; dispatch_s {phases.get('dispatch_s', 0):.4f}) on "
+        f"{card}; phase {time.perf_counter() - t0:.1f} s")
+    if (modes != {("bfloat16", True): 24 * n_batches} or not all(launches.values())
+            or timings.get("d2h_codec_mode") not in ("rle", "pack5") or agree < 0.99
+            or count != 1 or labels.max() >= N_CLASSES):
+        raise AssertionError("the zonal CLI on the repository's configuration did not run K2 "
+                             "at attn_f32 True in bf16 with the codec on, or disagrees with the "
+                             "plain versions")
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--train-rank"]:
         return train_rank(sys.argv[2])
@@ -3303,6 +3923,9 @@ def main() -> int:
         remat = phase_remat(env["card"], train_cfg, train_batch)
         del train_batch
         multigpu = phase_multigpu(env["card"])
+        class_prob, argmax_labels = phase_class_prob(env["card"])
+        zonal_main = phase_zonal_main(env["card"], argmax_labels)
+        del argmax_labels
     tool = phase_tool()
     # launches: the main path's runs (zonal, the bench's timed runs, the
     # multimodal zonal run and training step, training stages and CLI), for
@@ -3313,7 +3936,8 @@ def main() -> int:
     runs = {"zonal": zonal, "bench": bench, "multimodal": multimodal,
             "multimodal_train": multimodal_train, "families": families, "train": train,
             "train_switched": train_switched, "multigpu": multigpu,
-            "tool": tool, "codec": codec, "remat": remat, "profile": profile}
+            "tool": tool, "codec": codec, "remat": remat, "profile": profile,
+            "class_prob": class_prob, "zonal_main": zonal_main}
     # K2's bf16 attention core alone, summed over the stages at attn_f32
     # False (the slice's), and its float32 core at attn_f32 True (the
     # training configuration's, with its bound at 3xTF32's rate beside),
@@ -3328,6 +3952,7 @@ def main() -> int:
             f"{key}_blocks_per_sm": info["blocks_per_sm"]})
     extra["window_attn"]["core_f32_bound_3xtf32_ms"] = stats["window_attn_core_f32"][
         "bound_3xtf32_ms"]
+    extra["window_attn"]["clamp"] = stats["window_attn"]["clamp"]
     # K6's bf16 and float32 cores alone, summed over the stages at attn_f32
     # True (the training configuration's), with their resources at T = 144
     extra["window_attn_bwd"] = {}

@@ -108,6 +108,7 @@ def make_cfg(img_path: str, out_dir: str) -> dict:
 
 def run_zonal(cfg: dict, device: torch.device, model=None, devices=None):
     """One zonal pass (geometry, tiling, dataset, inference, stitch, write)
+    at the config's ``batch_size`` (the bench's BATCH where it has none)
     with a prebuilt model, built here on the first call; ``devices``, a
     data-parallel mesh for ``inference_and_write`` (the bench itself runs
     on one card). Returns (model, tiles, {task: label raster path})."""
@@ -119,7 +120,8 @@ def run_zonal(cfg: dict, device: torch.device, model=None, devices=None):
     if model is None:
         model, _ = build_inference_model(cfg, device=device, seed=0)
     dataset = zi.prep_dataset(cfg, tiles, patch_sizes)
-    loader = BatchedLoader(dataset, batch_size=BATCH, num_workers=cfg.get("num_worker", 1))
+    loader = BatchedLoader(dataset, batch_size=cfg.get("batch_size", BATCH),
+                           num_workers=cfg.get("num_worker", 1))
     ref_img = open_raster(cfg["modalities"][cfg["reference_modality"]]["input_img_path"])
     output_files, paths = zi.init_outputs(cfg, ref_img)
     zi.inference_and_write(model, loader, tiles, cfg, output_files, ref_img, device, devices)

@@ -9,6 +9,7 @@ products, which reproduces the reference's summation order.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
@@ -78,14 +79,36 @@ def _pool_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
+@contextmanager
+def _batch_invariant_blas(device: torch.device):
+    """On a CUDA device, the products inside the block go through cuBLASLt.
+    The two einsums of ``_apply_hw`` fold the batch into a product's N (or
+    its batch count), and cuBLAS's default heuristics chose their kernel,
+    and so their float32 summation, by it: on the H100 the 3 x 3 PSP pool of
+    swin-base-UPerNet at batch 8 differed from the same tiles' rows at
+    batch 16, so a zonal replica's labels differed from the one-device
+    run's. Through cuBLASLt every row came out bit-identical
+    (``chip_smoke.py`` ``[multigpu]``). The CPU is left as it is."""
+    if device.type != "cuda":
+        yield
+        return
+    saved = torch.backends.cuda.preferred_blas_library()
+    torch.backends.cuda.preferred_blas_library("cublaslt")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_blas_library(saved)
+
+
 def _apply_hw(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
     """out[o, p] = sum_h sum_w mh[o, h] x[h, w] mw[p, w] over (..., H, W, C),
-    float32, rows first."""
+    float32, rows first; each row independent of the others in its batch."""
     xf = x.float()
     mh_t = torch.as_tensor(mh, device=x.device)
     mw_t = torch.as_tensor(mw, device=x.device)
-    out = torch.einsum("oh,...hwc->...owc", mh_t, xf)
-    out = torch.einsum("pw,...owc->...opc", mw_t, out)
+    with _batch_invariant_blas(x.device):
+        out = torch.einsum("oh,...hwc->...owc", mh_t, xf)
+        out = torch.einsum("pw,...owc->...opc", mw_t, out)
     return out.to(x.dtype)
 
 

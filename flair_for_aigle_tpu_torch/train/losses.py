@@ -4,11 +4,13 @@
 Class-weight vectors: per task ``value_weights.default`` broadcast +
 ``default_exceptions`` overrides (zero weight = ignore); aux losses clone
 the task weights and apply ``per_modality_exceptions``. The loss is torch
-``nn.CrossEntropyLoss(weight=w)``: sum(w[t] * nll) / sum(w[t]), except that
-targets are clamped into [0, C) for the pick and for ``w[t]`` alike, as the
-reference clamps its gathers (``losses.py:57-68``); ``F.cross_entropy``
-would raise on such targets. Under data parallelism sum(w[t]) runs over
-the global batch (``sum_over_group``), as GSPMD takes it.
+``nn.CrossEntropyLoss(weight=w)``: sum(w[t] * nll) / sum(w[t]), except for
+targets outside [0, C), on which ``F.cross_entropy`` would raise. There the
+reference's gathers decide: the logit pick clamps t into [0, C), while the
+weight pick ``weights[t]`` follows numpy indexing, so t in [-C, -1] reads
+w[C + t] and any other t is clamped (``losses.py:57-68``). Under data
+parallelism sum(w[t]) runs over the global batch (``sum_over_group``), as
+GSPMD takes it.
 """
 
 from __future__ import annotations
@@ -53,8 +55,11 @@ def weighted_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     group of more than one rank) the denominator is the global batch's
     weight sum, so the ranks' losses sum to the global batch's loss."""
     lf = logits.float()
+    c = lf.shape[1]
+    t = targets.long()
     lse = torch.logsumexp(lf, dim=1)
-    tc = targets.long().clamp(0, lf.shape[1] - 1)
-    picked = torch.gather(lf, 1, tc[:, None])[:, 0]
-    w = weights.to(lf.device, torch.float32)[tc]
+    picked = torch.gather(lf, 1, t.clamp(0, c - 1)[:, None])[:, 0]
+    # the weight pick as JAX's weights[t]: t in [-C, -1] wraps to C + t
+    tw = torch.where((t < 0) & (t >= -c), t + c, t).clamp(0, c - 1)
+    w = weights.to(lf.device, torch.float32)[tw]
     return (w * (lse - picked)).sum() / torch.clamp(sum_over_group(w.sum()), min=1e-12)

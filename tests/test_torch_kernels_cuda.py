@@ -41,7 +41,11 @@ three blocks per SM per head, two grouped. K1 (16-byte lane groups) and
 K5 (one gemm_mma.cuh launch whose A is gathered and normalised as it
 lands) at swin-base's stage geometries and ragged shapes, twice
 bit-identical; K1's kernel at every swin width and K5's GEMM at every tile
-without spill at the blocks per SM their launch bounds promise.
+without spill at the blocks per SM their launch bounds promise. The
+clamp of the attn_f32 softmax: K2, K6 and both dtypes' cores on scores
+200 past exp's range (one spike a row; every score) at T = 16 and 144,
+finite and within the bounds above. The UPerNet's pools and resizes: a
+batch's first 8 tiles alone give that batch's rows bit for bit.
 """
 
 import pytest
@@ -169,10 +173,117 @@ def test_window_attn_core_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
     assert window_attn.window_attention_core.launches == 2
     assert got.shape == (bnw * t, c) and got.dtype == dtype
     assert torch.equal(got, again)
-    assert torch.isfinite(got).all()
+    _check_core(got, want, dtype)
+
+
+def _check_core(got, want, dtype):
+    """K2's core against its plain version: finite; within 4 bf16 units
+    (float32: 1e-4) at the largest magnitude, and in bf16 at most 1 % of
+    the outputs differing at all."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
     _assert_close(got, want, dtype)
     if dtype == torch.bfloat16:
         assert (got != want).float().mean().item() <= 0.01
+
+
+# the clamp cases: the reference test's geometry (T = 16) and the
+# swin-base window (T = 144), both shifted, C = 128, 4 heads
+SPIKE_GEOMS = [(4, 2, (2, 3), 128, 4), (12, 6, (2, 3), 128, 4)]
+
+
+def _assert_vanishing(got, want):
+    """A gradient that is zero in exact arithmetic on the spike case: each
+    score row's softmax is one-hot, so ds = p (dp - sum p dp) cancels to
+    rounding, and so do dq, dk and dbias. The plain version (autograd
+    through the clamp) returns them below 1e-6; the kernel's rounding
+    residue must stay within the reference's absolute tolerance on this
+    case, 1e-3 (tests/test_window_attn_kernel.py:266-270): a bound relative
+    to their own largest magnitude would measure nothing but rounding."""
+    assert want.float().abs().max().item() <= 1e-6
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("attn_f32", [True, False])
+@pytest.mark.parametrize("ws,ss,grid,c,nh", SPIKE_GEOMS)
+def test_window_attn_kernels_on_spiked_scores(dev, dtype, attn_f32, ws, ss, grid, c, nh):
+    """Scores 200 past the softmax's range (the min(s, 80) clamp under
+    attn_f32, the row max without it): K2 and K6 finite and within the
+    bounds of test_window_attn_kernel and test_window_attn_backward_kernel
+    against their plain versions; dbias, which vanishes there, within
+    ``_assert_vanishing``'s."""
+    from chip_smoke import spike_bias
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    t = ws * ws
+    bnw = 2 * grid[0] * grid[1]
+    x = torch.randn((bnw, t, c), generator=g, device=dev).to(dtype)
+    gy = torch.randn((bnw, t, c), generator=g, device=dev).to(dtype)
+    p = (torch.randn((3 * c, c), generator=g, device=dev) * 0.05,
+         torch.randn(3 * c, generator=g, device=dev) * 0.05,
+         torch.randn((c, c), generator=g, device=dev) * 0.05,
+         torch.randn(c, generator=g, device=dev) * 0.05, spike_bias(nh, t, g))
+    kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=attn_f32)
+    got = window_attn.fused_window_attention(x, *p, **kw)
+    want = window_attn.fused_window_attention_reference(x, *p, **kw)
+    grads = window_attn.fused_window_attention_backward(gy, x, *p, **kw)
+    want_grads = window_attn.fused_window_attention_backward_reference(gy, x, *p, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _assert_close(got, want, dtype)
+    _assert_grads_close(grads[:5], want_grads[:5], dtype)
+    _assert_vanishing(grads[5], want_grads[5])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("attn_f32", [True, False])
+@pytest.mark.parametrize("ws,ss,grid,c,nh", SPIKE_GEOMS)
+def test_window_attn_cores_on_spiked_scores(dev, dtype, attn_f32, ws, ss, grid, c, nh):
+    """Both K2 cores and both K6 cores alone on the spike case, within the
+    bounds of test_window_attn_core_kernel and
+    test_window_attn_bwd_core_kernel; K6's dq, dk and dbias, which vanish
+    there, within ``_assert_vanishing``'s."""
+    from chip_smoke import spike_bias
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    t = ws * ws
+    bnw = 2 * grid[0] * grid[1]
+    qkv = torch.randn((bnw * t, 3 * c), generator=g, device=dev).to(dtype)
+    do = torch.randn((bnw * t, c), generator=g, device=dev).to(dtype)
+    bias = spike_bias(nh, t, g)
+    kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=attn_f32)
+    _check_core(window_attn.window_attention_core(qkv, bias, **kw),
+                window_attn.window_attention_core_reference(qkv, bias, **kw), dtype)
+    _check_bwd_core(window_attn.window_attention_core_backward(qkv, do, bias, **kw),
+                    window_attn.window_attention_core_backward_reference(qkv, do, bias, **kw),
+                    dtype, attn_f32, c, vanishing=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ws,ss,grid,c,nh", SPIKE_GEOMS)
+def test_window_attn_kernels_on_saturated_scores_stay_finite(dev, dtype, ws, ss, grid, c, nh):
+    """Every score at +200 under attn_f32: the clamped softmax saturates to
+    uniform and K2, K6 and their cores stay finite (only finiteness, as
+    tests/test_window_attn_kernel.py:275 asserts)."""
+    from chip_smoke import spike_bias
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    t = ws * ws
+    bnw = grid[0] * grid[1]
+    x, gy = (torch.randn((bnw, t, c), generator=g, device=dev).to(dtype) for _ in range(2))
+    p = (torch.randn((3 * c, c), generator=g, device=dev) * 0.05,
+         torch.zeros(3 * c, device=dev), torch.randn((c, c), generator=g, device=dev) * 0.05,
+         torch.zeros(c, device=dev), spike_bias(nh, t, g, None))
+    kw = dict(num_heads=nh, window_size=ws, shift_size=ss, grid_hw=grid, attn_f32=True)
+    outs = [window_attn.fused_window_attention(x, *p, **kw),
+            *window_attn.fused_window_attention_backward(gy, x, *p, **kw)]
+    qkv = x.reshape(-1, c) @ p[0].to(dtype).t()
+    outs.append(window_attn.window_attention_core(qkv, p[4], **kw))
+    outs += window_attn.window_attention_core_backward(qkv, gy.reshape(-1, c), p[4], **kw)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(o.float()).all() for o in outs)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -367,6 +478,30 @@ def test_finish_gather_resources(dev, dtype, c):
     assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= info["min_blocks"], info
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_resize_products_do_not_depend_on_the_batch(dev, dtype):
+    """The UPerNet's pools and resizes (``ops/resize.py``, two float32
+    einsums through cuBLASLt on the card) at swin-base@512's zonal shapes:
+    the first 8 tiles alone give bit for bit the rows of the batch of 16,
+    and the call leaves the preferred BLAS as it found it."""
+    from flair_for_aigle_tpu_torch.ops import resize
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    before = torch.backends.cuda.preferred_blas_library()
+    x = torch.randn((16, 16, 16, 1024), generator=g, device=dev).to(dtype)
+    for size in (1, 2, 3, 6):
+        full = resize.adaptive_avg_pool_nhwc(x, size, size)
+        assert torch.equal(resize.adaptive_avg_pool_nhwc(x[:8], size, size), full[:8]), size
+    for h, c in ((16, 256), (32, 256), (64, 256)):
+        y = torch.randn((16, h, h, c), generator=g, device=dev).to(dtype)
+        full = resize.resize_bilinear_nhwc(y, 128, 128)
+        assert torch.equal(resize.resize_bilinear_nhwc(y[:8], 128, 128), full[:8]), h
+    z = torch.randn((16, 1, 1, 256), generator=g, device=dev).to(dtype)
+    full = resize.resize_bilinear_ac_nhwc(z, 16, 16)
+    assert torch.equal(resize.resize_bilinear_ac_nhwc(z[:8], 16, 16), full[:8])
+    assert torch.backends.cuda.preferred_blas_library() == before
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.randn((4, 144, 64), device=dev)
     w = torch.randn((192, 64), device=dev)
@@ -530,7 +665,21 @@ def test_window_attn_bwd_core_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
     assert [a.shape for a in got] == [a.shape for a in want]
     assert [a.dtype for a in got] == [a.dtype for a in want]
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _check_bwd_core(got, want, dtype, attn_f32, c)
+
+
+def _check_bwd_core(got, want, dtype, attn_f32, c, vanishing=False):
+    """K6's core against its plain version, at the bounds of
+    test_window_attn_bwd_core_kernel; with ``vanishing`` (the spike case)
+    dq, dk and dbias at ``_assert_vanishing``'s."""
+    torch.cuda.synchronize()
     o, dqkv, dbias, dbqkv = got
+    if vanishing:
+        for a, b in ((dqkv[:, :2 * c], want[1][:, :2 * c]), (dbias, want[2])):
+            _assert_vanishing(a, b)
+        got = (o, dqkv[:, 2 * c:], None, dbqkv)
+        want = (want[0], want[1][:, 2 * c:], None, want[3])
+        o, dqkv, dbias, dbqkv = got
 
     def rel(ref):
         return 1e-4 * ref.abs().max().item()
@@ -540,10 +689,11 @@ def test_window_attn_bwd_core_kernel(dev, dtype, attn_f32, ws, ss, grid, c, nh):
         assert (o != want[0]).float().mean().item() <= 0.01
     pairs = [(o, want[0], act(want[0]))]
     pairs += [(dqkv[:, i * c:(i + 1) * c], want[1][:, i * c:(i + 1) * c],
-               act(want[1][:, i * c:(i + 1) * c])) for i in range(3)]
-    pairs += [(dbias, want[2], rel(want[2]) if attn_f32 or dtype == torch.float32
-               else _ulps(want[2], 4)),
-              (dbqkv, want[3], rel(want[3]))]
+               act(want[1][:, i * c:(i + 1) * c])) for i in range(dqkv.shape[1] // c)]
+    if dbias is not None:
+        pairs.append((dbias, want[2], rel(want[2]) if attn_f32 or dtype == torch.float32
+                      else _ulps(want[2], 4)))
+    pairs.append((dbqkv, want[3], rel(want[3])))
     for a, b, tol in pairs:
         assert torch.isfinite(a.float()).all()
         assert (a.float() - b.float()).abs().max().item() <= tol

@@ -4,7 +4,8 @@ by ``export_torch_state_dict``. Three AdamW steps under one_cycle_lr;
 compared after each: the loss, the BatchNorm running statistics, the
 parameters and the confusion matrices; the gradients at the first step;
 then an eval step. Also the schedules and the weighted cross-entropy with
-out-of-range targets against the JAX functions.
+out-of-range targets against the JAX functions, negative targets among them
+(their loss weight wraps to w[C + t] as JAX's gather does).
 
 Tolerances (float32, the two frameworks sum in other orders): loss 1e-4
 relative; gradients 1e-3 of each tensor's largest magnitude plus 1e-6 of
@@ -207,6 +208,54 @@ def test_weighted_cross_entropy_out_of_range_targets_matches_jax():
     want_torch = torch.nn.CrossEntropyLoss(weight=torch.from_numpy(w))(
         torch.from_numpy(logits), torch.from_numpy(inside)).item()
     assert abs(got - want_torch) <= 1e-5 * abs(want_torch)
+
+
+def _loss_and_logit_grad_jax(logits, targets, w):
+    f = lambda lg: jlosses.weighted_cross_entropy(lg, jnp.asarray(targets), jnp.asarray(w))
+    loss, grad = jax.value_and_grad(f)(jnp.asarray(logits))
+    return float(loss), np.asarray(grad)
+
+
+def _loss_and_logit_grad_port(logits, targets, w):
+    lg = torch.from_numpy(logits).requires_grad_(True)
+    loss = losses.weighted_cross_entropy(lg, torch.from_numpy(targets), torch.from_numpy(w))
+    loss.backward()
+    return loss.item(), lg.grad.numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_weighted_cross_entropy_negative_targets_wrap_the_weight_as_jax(seed):
+    """Targets in [-C-2, C+2]: the logit pick clamps t into [0, C), the
+    weight pick follows JAX's ``weights[t]``, which reads w[C + t] for t in
+    [-C, -1] and clamps any other t. The loss and its gradient with respect
+    to the logits agree with the JAX function to 1e-6 relative (float32)."""
+    rng = np.random.default_rng(seed)
+    c = N_CLS
+    logits = rng.normal(size=(2, c, 8, 8)).astype(np.float32)
+    targets = rng.integers(-c - 2, c + 3, (2, 8, 8))
+    w = rng.uniform(0.5, 4.0, c).astype(np.float32)
+    want, want_g = _loss_and_logit_grad_jax(logits, targets, w)
+    got, got_g = _loss_and_logit_grad_port(logits, targets, w)
+    assert (targets < 0).any() and (targets >= c).any()
+    assert abs(got - want) <= 1e-6 * abs(want), (got, want)
+    assert np.abs(got_g - want_g).max() <= 1e-6 * np.abs(want_g).max()
+
+
+def test_weighted_cross_entropy_negative_target_weights_are_jax_gathers():
+    """The negative-target case spelled out: C = 5, w = [0, 10, 20, 30, 40];
+    each pixel's loss weight is what JAX's ``weights[t]`` gathers."""
+    w = np.array([0, 10, 20, 30, 40], np.float32)
+    targets = np.array([-7, -5, -1, 0, 4, 5, 9])
+    want_w = np.asarray(jnp.asarray(w)[jnp.asarray(targets)])
+    assert want_w.tolist() == [0, 0, 40, 0, 40, 40, 40]
+    # one pixel per target, uniform logits: the loss is log(C) whatever the
+    # weights, so compare the per-pixel weights through the gradient
+    logits = np.zeros((len(targets), 5, 1, 1), np.float32)
+    _, want_g = _loss_and_logit_grad_jax(logits, targets[:, None, None], w)
+    _, got_g = _loss_and_logit_grad_port(logits, targets[:, None, None], w)
+    np.testing.assert_allclose(got_g, want_g, rtol=0, atol=1e-7)
+    pixel_w = np.abs(got_g).sum(axis=(1, 2, 3)) * want_w.sum() / (2 * (1 - 1 / 5))
+    np.testing.assert_allclose(pixel_w, want_w, rtol=1e-5)
 
 
 def test_batchnorm_training_mode_matches_jax():
