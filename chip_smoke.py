@@ -3493,7 +3493,7 @@ def codec_tiers() -> None:
                 torch.cuda.set_sync_debug_mode("default")
         codec.plan_all(recs)
         dst = np.zeros((1, rows, w), np.uint8)
-        nbytes = sum(codec.decode_into(r, dst[:, r["y0"]:r["y0"] + r["h"]])[0] for r in recs)
+        nbytes = sum(codec.decode_into(r, dst[:, r["y0"]:r["y0"] + r["h"]]) for r in recs)
         same = np.array_equal(dst, canvas[:, :rows, :w].cpu().numpy())
         tiers = [r.get("tier") for r in recs]
         say("codec", f"StripeCodec on the card, {name} ({rows} x {w}): mode {codec.mode}, "

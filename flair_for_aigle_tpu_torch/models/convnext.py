@@ -26,6 +26,7 @@ from flair_for_aigle_tpu_torch.models.layers import (
     remat,
     remat_active,
 )
+from flair_for_aigle_tpu_torch.utils import profiling
 
 
 class ConvNeXtBlock(nn.Module):
@@ -67,13 +68,12 @@ class ConvNeXtEncoder(nn.Module):
         feats = [x, x.new_zeros(b, h // 2, w // 2, 0)]
         y = self.stem(x)
         rm = remat_active(self, self.remat)
-        for stage in self.stages:
-            if hasattr(stage, "downsample"):
-                y = stage.downsample(y)
-            if rm:
+        for i, stage in enumerate(self.stages):
+            with profiling.span(f"model.encoder.stage{i + 1}"):
+                if hasattr(stage, "downsample"):
+                    y = stage.downsample(y)
                 for block in stage.blocks:
-                    y = remat(block, y)
-            else:
-                y = stage.blocks(y)
+                    with profiling.span("model.encoder.block"):
+                        y = remat(block, y) if rm else block(y)
             feats.append(y)
         return feats

@@ -42,6 +42,7 @@ from flair_for_aigle_tpu_torch.models.monotemp import (
 )
 from flair_for_aigle_tpu_torch.models.utae import UTAE, UTAE_TRANSPOSE_CONV_PATTERNS
 from flair_for_aigle_tpu_torch.ops.resize import resize_bilinear_nhwc
+from flair_for_aigle_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -317,45 +318,47 @@ class FlairHubModel(nn.Module):
         logits_tasks: dict[str, torch.Tensor] = {}
         logits_aux: dict[str, torch.Tensor] = {}
 
-        for mod in plan["active_mono"]:
-            fmaps[mod] = self.encoders[mod].seg_model(batch[mod].permute(0, 2, 3, 1))
-            if plan["aux_losses"].get(mod):
-                for task in labels:
-                    out = self.aux_decoders[f"{mod}__{task}"].seg_model(
-                        *fmaps[mod], generator=generator)
-                    out = resize_bilinear_nhwc(out, img_size, img_size)
-                    logits_aux[f"aux_{mod}_{task}"] = out.permute(0, 3, 1, 2)
-        for mod in plan["active_multi"]:
-            lg, maps = self.encoders[mod](batch[mod].permute(0, 1, 3, 4, 2),
-                                          batch_positions=batch.get(mod.replace("TS", "DATES")),
-                                          generator=generator)
-            lg = resize_bilinear_nhwc(lg, img_size, img_size)
-            logits_tasks[mod] = lg
-            fmaps[mod] = maps
-            if plan["aux_losses"].get(mod):
-                for task in labels:
-                    aux = self.aux_decoders[f"{mod}__{task}"](lg)
-                    logits_aux[f"aux_{mod}_{task}"] = aux.permute(0, 3, 1, 2)
+        with profiling.span("model.encoder"):
+            for mod in plan["active_mono"]:
+                fmaps[mod] = self.encoders[mod].seg_model(batch[mod].permute(0, 2, 3, 1))
+                if plan["aux_losses"].get(mod):
+                    for task in labels:
+                        out = self.aux_decoders[f"{mod}__{task}"].seg_model(
+                            *fmaps[mod], generator=generator)
+                        out = resize_bilinear_nhwc(out, img_size, img_size)
+                        logits_aux[f"aux_{mod}_{task}"] = out.permute(0, 3, 1, 2)
+            for mod in plan["active_multi"]:
+                lg, maps = self.encoders[mod](batch[mod].permute(0, 1, 3, 4, 2),
+                                              batch_positions=batch.get(mod.replace("TS", "DATES")),
+                                              generator=generator)
+                lg = resize_bilinear_nhwc(lg, img_size, img_size)
+                logits_tasks[mod] = lg
+                fmaps[mod] = maps
+                if plan["aux_losses"].get(mod):
+                    for task in labels:
+                        aux = self.aux_decoders[f"{mod}__{task}"](lg)
+                        logits_aux[f"aux_{mod}_{task}"] = aux.permute(0, 3, 1, 2)
 
-        if apply_mod_dropout:
-            fmaps = self.drop_modalities(fmaps, generator)
+        with profiling.span("model.decoder"):
+            if apply_mod_dropout:
+                fmaps = self.drop_modalities(fmaps, generator)
 
-        if plan["active_mono"]:
-            fused = self.fusion_handler(fmaps, fmaps[plan["active_mono"][0]])
-        else:
-            fused = self.fusion_handler(logits_tasks, logits_tasks[plan["active_multi"][0]])
-
-        out_tasks = {}
-        for task in labels:
             if plan["active_mono"]:
-                out = self.main_decoders[task].seg_model(*fused, generator=generator)
-                if not self.stride4:
-                    out = resize_bilinear_nhwc(out, img_size, img_size)
-            elif len(labels) > 1:
-                out = self.main_decoders[task](fused)
+                fused = self.fusion_handler(fmaps, fmaps[plan["active_mono"][0]])
             else:
-                out = fused
-            out_tasks[task] = out if self.stride4 else out.permute(0, 3, 1, 2)
+                fused = self.fusion_handler(logits_tasks, logits_tasks[plan["active_multi"][0]])
+
+            out_tasks = {}
+            for task in labels:
+                if plan["active_mono"]:
+                    out = self.main_decoders[task].seg_model(*fused, generator=generator)
+                    if not self.stride4:
+                        out = resize_bilinear_nhwc(out, img_size, img_size)
+                elif len(labels) > 1:
+                    out = self.main_decoders[task](fused)
+                else:
+                    out = fused
+                out_tasks[task] = out if self.stride4 else out.permute(0, 3, 1, 2)
         return out_tasks, logits_aux
 
 

@@ -39,6 +39,7 @@ from flair_for_aigle_tpu_torch.models.layers import (
 )
 from flair_for_aigle_tpu_torch.ops import ffn, finish, merge, prep, window_attn
 from flair_for_aigle_tpu_torch.ops.prep import window_reverse
+from flair_for_aigle_tpu_torch.utils import profiling
 
 
 @lru_cache(maxsize=None)
@@ -105,9 +106,10 @@ class WindowAttention(nn.Module):
     def position_bias(self, ws: int) -> torch.Tensor:
         """(nh, T, T) float32 bias gathered from the table."""
         t = ws * ws
-        idx = torch.as_tensor(
-            _relative_position_index(ws, ws, self.table_window).reshape(-1),
-            device=self.relative_position_bias_table.device)
+        with profiling.blocked():  # a copy from pageable memory waits for the card
+            idx = torch.as_tensor(
+                _relative_position_index(ws, ws, self.table_window).reshape(-1),
+                device=self.relative_position_bias_table.device)
         bias = self.relative_position_bias_table[idx].reshape(t, t, -1)
         return bias.permute(2, 0, 1).float()
 
@@ -228,10 +230,12 @@ class SwinTransformerEncoder(nn.Module):
         feats = [x, x.new_zeros((b, h // 2, w // 2, 0))]
         y = self.patch_embed.norm(self.patch_embed.proj(x))
         rm = remat_active(self, self.remat)
-        for stage in self.layers:
-            if hasattr(stage, "downsample"):
-                y = stage.downsample(y)
-            for block in stage.blocks:
-                y = remat(block, y.contiguous()) if rm else block(y.contiguous())
+        for i, stage in enumerate(self.layers):
+            with profiling.span(f"model.encoder.stage{i + 1}"):
+                if hasattr(stage, "downsample"):
+                    y = stage.downsample(y)
+                for block in stage.blocks:
+                    with profiling.span("model.encoder.block"):
+                        y = remat(block, y.contiguous()) if rm else block(y.contiguous())
             feats.append(y)
         return feats

@@ -15,6 +15,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from flair_for_aigle_tpu_torch.utils import profiling
+
 
 def _torch_bilinear_weights(in_size: int, out_size: int):
     """Source indices + lerp weights for align_corners=False."""
@@ -104,8 +106,9 @@ def _apply_hw(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
     """out[o, p] = sum_h sum_w mh[o, h] x[h, w] mw[p, w] over (..., H, W, C),
     float32, rows first; each row independent of the others in its batch."""
     xf = x.float()
-    mh_t = torch.as_tensor(mh, device=x.device)
-    mw_t = torch.as_tensor(mw, device=x.device)
+    with profiling.blocked():  # copies from pageable memory wait for the card
+        mh_t = torch.as_tensor(mh, device=x.device)
+        mw_t = torch.as_tensor(mw, device=x.device)
     with _batch_invariant_blas(x.device):
         out = torch.einsum("oh,...hwc->...owc", mh_t, xf)
         out = torch.einsum("pw,...owc->...opc", mw_t, out)
@@ -137,8 +140,9 @@ def resize_nearest_nhwc(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor
     if out_h % h == 0 and out_w % w == 0:
         out = torch.repeat_interleave(x, out_h // h, dim=-3)
         return torch.repeat_interleave(out, out_w // w, dim=-2)
-    ih = torch.as_tensor(_torch_nearest_index(h, out_h), device=x.device)
-    iw = torch.as_tensor(_torch_nearest_index(w, out_w), device=x.device)
+    with profiling.blocked():  # copies from pageable memory wait for the card
+        ih = torch.as_tensor(_torch_nearest_index(h, out_h), device=x.device)
+        iw = torch.as_tensor(_torch_nearest_index(w, out_w), device=x.device)
     return x.index_select(-3, ih).index_select(-2, iw)
 
 

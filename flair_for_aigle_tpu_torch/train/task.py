@@ -38,6 +38,7 @@ from flair_for_aigle_tpu_torch.train.metrics import (
     confusion_matrix,
     per_class_mean_loss,
 )
+from flair_for_aigle_tpu_torch.utils import profiling
 
 
 def array_batch(batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -123,20 +124,31 @@ class Steps:
         """Training-mode forward + backward: (loss, grads in ``self.params``
         order, preds, targets); the loss and the gradients are the global
         batch's under data parallelism, the preds and targets this rank's.
-        Updates the BatchNorm running statistics, touches no parameter."""
+        Updates the BatchNorm running statistics, touches no parameter.
+        Spans ``train.h2d``, ``train.forward`` (model and loss) and
+        ``train.backward`` (gradients and their sum over the group), the
+        last two timed on the device too while a profiler session is on."""
         self.model.train()
-        b = to_device(batch, self.device)
-        logits_tasks, logits_aux = self.model(self.cast_inputs(b),
-                                              apply_mod_dropout=self.mod_dropout,
-                                              generator=self.generator)
-        loss, preds, targets = self.compute_loss(logits_tasks, logits_aux, b)
-        grads = all_reduce_grads(torch.autograd.grad(loss, self.params, allow_unused=True))
-        return sum_over_group(loss.detach()), grads, preds, targets
+        with profiling.span("train.h2d"):
+            b = to_device(batch, self.device)
+        with profiling.span("train.forward", device=self.device):
+            logits_tasks, logits_aux = self.model(self.cast_inputs(b),
+                                                  apply_mod_dropout=self.mod_dropout,
+                                                  generator=self.generator)
+            loss, preds, targets = self.compute_loss(logits_tasks, logits_aux, b)
+        with profiling.span("train.backward", device=self.device):
+            grads = all_reduce_grads(torch.autograd.grad(loss, self.params, allow_unused=True))
+            loss = sum_over_group(loss.detach())
+        return loss, grads, preds, targets
 
+    @profiling.span("train.step")
     def train_step(self, batch, lr: float) -> Dict[str, Any]:
         loss, grads, preds, targets = self.loss_and_grads(batch)
-        self.optimizer.step(grads, lr)
-        return {"loss": loss, "confmats": self.confmats(preds, targets)}
+        with profiling.span("train.optimizer"):
+            self.optimizer.step(grads, lr)
+        with profiling.span("train.confmat"):
+            confmats = self.confmats(preds, targets)
+        return {"loss": loss, "confmats": confmats}
 
     def confmats(self, preds, targets) -> Dict[str, torch.Tensor]:
         """Each task's confusion matrix, summed over the group."""

@@ -71,6 +71,7 @@ from flair_for_aigle_tpu_torch.zonal.model_utils import (
     build_inference_model,
     compute_patch_sizes,
 )
+from flair_for_aigle_tpu_torch.utils import profiling
 from flair_for_aigle_tpu_torch.zonal.stripes import (
     LAST_TIMINGS,
     StripeCodec,
@@ -91,6 +92,7 @@ def overwrite_config(config, model_ckpt_path, model_threshold_filepath,
     return config
 
 
+@profiling.span("zonal.geometry")
 def initialize_geometry_and_resolutions(config: Dict) -> Dict:
     """Reference modality (finest resolution), bounds and tile geometry."""
     modalities = config["modalities"]
@@ -153,6 +155,7 @@ def _set_labels(config: Dict) -> None:
     }
 
 
+@profiling.span("zonal.dataset")
 def prep_dataset(config: Dict, tiles, patch_sizes: Dict[str, int]
                  ) -> MultiModalSlicedDataset:
     active = [m for m, a in config["modalities"]["inputs"].items() if a]
@@ -173,6 +176,7 @@ def prep_dataset(config: Dict, tiles, patch_sizes: Dict[str, int]
     )
 
 
+@profiling.span("zonal.outputs")
 def init_outputs(config: Dict, ref_img, raster_index=None):
     """One canvas-backed writer per active task (reference :168)."""
     output_files, temp_paths = {}, {}
@@ -376,8 +380,10 @@ class ZonalStep:
         return v.float()
 
     @torch.no_grad()
+    @profiling.span("zonal.forward", "forward_s")
     def forward_convert(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """{task: uint8 (B, 1 or K, th, tw)} for one batch."""
+        """{task: uint8 (B, 1 or K, th, tw)} for one batch (spans
+        ``model.encoder``, ``model.decoder`` and ``zonal.epilogue``)."""
         cast = {}
         for k, v in batch.items():
             v = self._apply_norm(k, v)
@@ -387,22 +393,23 @@ class ZonalStep:
         logits_tasks, _ = self.model(cast)
         m, ts = self.margin, self.tile_size
         out = {}
-        for task, logits in logits_tasks.items():
-            if self.model.stride4:
-                pred = epilogue.upsample_crop_convert(
-                    logits.permute(0, 3, 1, 2).contiguous(), margin=m, scale=4,
-                    output_type=self.output_type)
-            else:
-                lg = logits[:, :, m:ts - m, m:ts - m].float()
-                if self.output_type == "argmax":
-                    pred = torch.argmax(lg, dim=1).to(torch.uint8)[:, None]
+        with profiling.span("zonal.epilogue"):
+            for task, logits in logits_tasks.items():
+                if self.model.stride4:
+                    pred = epilogue.upsample_crop_convert(
+                        logits.permute(0, 3, 1, 2).contiguous(), margin=m, scale=4,
+                        output_type=self.output_type)
                 else:
-                    probs = torch.softmax(lg, dim=1)
-                    pred = torch.round(probs * 255).to(torch.uint8)
-            if self.rescale_idx is not None:
-                pred = pred.index_select(-2, self.rescale_idx).index_select(
-                    -1, self.rescale_idx)
-            out[task] = pred
+                    lg = logits[:, :, m:ts - m, m:ts - m].float()
+                    if self.output_type == "argmax":
+                        pred = torch.argmax(lg, dim=1).to(torch.uint8)[:, None]
+                    else:
+                        probs = torch.softmax(lg, dim=1)
+                        pred = torch.round(probs * 255).to(torch.uint8)
+                if self.rescale_idx is not None:
+                    pred = pred.index_select(-2, self.rescale_idx).index_select(
+                        -1, self.rescale_idx)
+                out[task] = pred
         return out
 
     @staticmethod
@@ -462,6 +469,24 @@ def zonal_mesh(config: Dict, device: torch.device, devices=None) -> DataParallel
     return DataParallelMesh([device])
 
 
+#: what every call's record (``LAST_TIMINGS``) holds, 0 until its spans and
+#: counters add to it: host seconds of the spans ``zonal.setup``,
+#: ``zonal.read``, ``zonal.put``, ``zonal.batch`` (``dispatch_s``) and its
+#: children ``zonal.gather``, ``zonal.forward``, ``zonal.stitch`` and
+#: ``stripes.stream``, ``stripes.poll`` (between the stripes' reads),
+#: ``stripes.finalize`` and its children; ``blocked_s``, the host seconds of
+#: the calls that wait for the card; the batches, their valid tiles, the
+#: stripes by tier and the D2H bytes. Spans inside them (``model.*``,
+#: ``zonal.epilogue``, ``stripes.encode``) add under their names.
+RECORD_KEYS = {
+    **dict.fromkeys(("engine_setup_s", "read_s", "put_s", "dispatch_s", "gather_s",
+                     "forward_s", "stitch_s", "stream_s", "poll_s", "finalize_s",
+                     "finalize_plan_s", "finalize_wait_s", "finalize_unpack_s",
+                     "finalize_tiff_write_s", "blocked_s"), 0.0),
+    **dict.fromkeys(("batches", "tiles", "stripes_small", "stripes_mid", "stripes_packed",
+                     "stripes_raw", "d2h_bytes"), 0)}
+
+
 def inference_and_write(model, dataloader, tiles, config: Dict,
                         output_files: Dict[str, WindowedWriter], ref_img,
                         device: torch.device, devices=None) -> None:
@@ -471,237 +496,256 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
     entry of the mesh holds a replica (``model`` itself for the first entry
     on ``device``, a copy loaded from its state elsewhere, two on a device
     listed twice), its ``ZonalStep`` and its copy of the resident rasters;
-    each batch's shards run in mesh order."""
-    LAST_TIMINGS.clear()
-    device = canonical_device(device)
-    mesh = zonal_mesh(config, device, devices)
-    bsz = dataloader.batch_size
-    if bsz % mesh.dp:
-        raise ValueError(
-            f"batch_size {bsz} must be divisible by data_parallel_devices {mesh.dp} "
-            "(an equal shard of each batch for every replica)")
-    shard_rows = bsz // mesh.dp
-    own = mesh.devices.index(device) if device in mesh.devices else None
-    replicas = [model if i == own else copy.deepcopy(model).to(dev)
-                for i, dev in enumerate(mesh.devices)]
-    margin_px = config["margin"]
-    tile_size = config["img_pixels_detection"]
-    ref_res = config["reference_resolution"]
-    out_res = config.get("output_px_meters", ref_res)
-    needs_rescale = abs(ref_res - out_res) > 1e-6
-    b = ref_img.bounds
-    image_bounds = {"left": b.left, "bottom": b.bottom, "right": b.right, "top": b.top}
-    scale_den, scale_num = 1000000, int(round(1000000 * ref_res / out_res))
-    if not needs_rescale:
-        scale_num = scale_den
+    each batch's shards run in mesh order. The call's record is
+    ``LAST_TIMINGS`` (``RECORD_KEYS``, the codec's keys, ``total_s`` the
+    whole call); ``FLAIR_ZONAL_TIMING`` logs its seconds."""
+    t0 = time.perf_counter()
+    with profiling.recording(LAST_TIMINGS):
+        LAST_TIMINGS.update(RECORD_KEYS)
+        path = _inference_and_write(model, dataloader, tiles, config, output_files,
+                                    ref_img, device, devices)
+        LAST_TIMINGS["total_s"] = time.perf_counter() - t0
+    if os.getenv("FLAIR_ZONAL_TIMING"):
+        logger.warning("[timing] %s path: %s", path, " ".join(
+            f"{k[:-2]}={v:.3f}s" for k, v in LAST_TIMINGS.items() if k.endswith("_s")))
+    logger.info("[ok] canvases written")
 
-    tasks = list(output_files.keys())
-    plan = device_tiling_plan(config)
-    device_norm = None
+
+def _inference_and_write(model, dataloader, tiles, config: Dict,
+                         output_files: Dict[str, WindowedWriter], ref_img,
+                         device: torch.device, devices) -> str:
+    """``inference_and_write``'s pass; returns its path, "resident" or
+    "host"."""
+    with profiling.span("zonal.setup", "engine_setup_s"):
+        device = canonical_device(device)
+        mesh = zonal_mesh(config, device, devices)
+        bsz = dataloader.batch_size
+        if bsz % mesh.dp:
+            raise ValueError(
+                f"batch_size {bsz} must be divisible by data_parallel_devices {mesh.dp} "
+                "(an equal shard of each batch for every replica)")
+        shard_rows = bsz // mesh.dp
+        own = mesh.devices.index(device) if device in mesh.devices else None
+        replicas = [model if i == own else copy.deepcopy(model).to(dev)
+                    for i, dev in enumerate(mesh.devices)]
+        margin_px = config["margin"]
+        tile_size = config["img_pixels_detection"]
+        ref_res = config["reference_resolution"]
+        out_res = config.get("output_px_meters", ref_res)
+        needs_rescale = abs(ref_res - out_res) > 1e-6
+        b = ref_img.bounds
+        image_bounds = {"left": b.left, "bottom": b.bottom, "right": b.right, "top": b.top}
+        scale_den, scale_num = 1000000, int(round(1000000 * ref_res / out_res))
+        if not needs_rescale:
+            scale_num = scale_den
+
+        tasks = list(output_files.keys())
+        plan = device_tiling_plan(config)
+        device_norm = None
+        if plan:
+            device_norm = plan["norm_specs"]
+        elif config.get("normalize_on_device"):
+            device_norm = {}
+            for mod, active in config["modalities"]["inputs"].items():
+                if not active or mod.endswith("_TS"):
+                    continue
+                with open_raster(config["modalities"][mod]["input_img_path"]) as src:
+                    dtype = np.dtype(src.dtypes[0])
+                device_norm[mod] = _norm_spec(config["modalities"][mod], dtype) or ("cast",)
+        steps = [ZonalStep(
+            replica, config["output_type"], margin_px, tile_size, scale_num, scale_den,
+            torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else torch.float32,
+            device_norm, dev) for dev, replica in zip(mesh.devices, replicas)]
+
+        def forward_shards(shards) -> Dict[str, torch.Tensor]:
+            """{task: uint8 tiles} of a batch given as its shards (each on its
+            mesh device, in mesh order): every shard's forward is issued before
+            any output is gathered to ``device``."""
+            outs = []
+            for dev, step, shard in zip(mesh.devices, steps, shards):
+                # the kernels launch on the current device: make it the shard's
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                    outs.append(step.forward_convert(shard))
+            if len(outs) == 1:
+                return outs[0]
+            return {t: torch.cat([o[t].to(device) for o in outs]) for t in outs[0]}
+
+        inner = tile_size - 2 * margin_px
+        th = int(round(inner * scale_num / scale_den)) if needs_rescale else inner
+        # canvases padded by one tile each side so every write is in-bounds
+        canvases = {t: torch.zeros((w.count, w.height + th, w.width + th),
+                                   dtype=torch.uint8, device=device)
+                    for t, w in output_files.items()}
+        img_h = {t: output_files[t].height for t in tasks}
+        img_w = {t: output_files[t].width for t in tasks}
+        assert all(img_h[t] == img_h[tasks[0]] and img_w[t] == img_w[tasks[0]]
+                   for t in tasks), "output canvases must share one geometry"
+
+        n_total = len(tiles)
+        tile_tops = np.empty(n_total, np.int64)
+        tile_lefts = np.empty(n_total, np.int64)
+        for i, row in enumerate(tiles):
+            tile_tops[i] = int(round((image_bounds["top"] - row["top"]) / out_res))
+            tile_lefts[i] = int(round((row["left"] - image_bounds["left"]) / out_res))
+        tile_bots = np.minimum(tile_tops + th, img_h[tasks[0]])
+        codec = StripeCodec(*d2h_codec_choice(config, output_files), img_w)
+        stream = StripeStream(tasks, img_h[tasks[0]], codec)
+        # bottom-up row-major: keeps every overlap seam's winner (reference :732)
+        order = np.lexsort((tile_lefts, -tile_tops))
+
+        def out_offsets(indices, valid):
+            offs = np.zeros((len(indices), 2), np.int64)
+            for i, idx in enumerate(indices):
+                if i >= valid:
+                    offs[i] = (img_h[tasks[0]], img_w[tasks[0]])  # padded area
+                else:
+                    offs[i] = (tile_tops[int(idx)], tile_lefts[int(idx)])
+            return offs
+
+        def finish_batch(preds, offsets, valid: int) -> None:
+            """Stitch a batch's tiles, then encode the rows it made final."""
+            nonlocal consumed
+            with profiling.span("zonal.stitch", "stitch_s"):
+                ZonalStep.stitch(preds, offsets, canvases)
+            consumed += valid
+            c = min(consumed, n_total)
+            with profiling.span("stripes.stream", "stream_s"):
+                stream.advance(canvases, fmt[c], fmb[c])
+                if not plan:
+                    codec.poll()
+            profiling.count("batches")
+            profiling.count("tiles", valid)
+
+        consumed = 0
+        if plan:
+            # --- device-resident rasters: gather tiles on the device ------
+            logger.info("[ ] device-resident tiling: %d modality raster(s), %.1f MB H2D",
+                        len(plan["mods"]), plan["bytes"] / 1e6)
+            readers = dataloader.dataset.readers
+            in_offs_all = {}
+            for mod in plan["mods"]:
+                tr = readers[mod].transform
+                offs = np.zeros((n_total, 2), np.int64)
+                for i, row in enumerate(tiles):
+                    win = from_bounds(*row["geometry"].bounds, transform=tr).round()
+                    offs[i] = (int(win.row_off) + margin_px, int(win.col_off) + margin_px)
+                in_offs_all[mod] = offs
+            extras = [{t: torch.zeros((shard_rows, 1, tile_size, tile_size),
+                                      dtype=torch.float32, device=dev)
+                       for t in config["labels"]} for dev in mesh.devices]
+            fmt, fmb = future_frontiers(order, tile_tops, tile_bots, img_h[tasks[0]])
+            batch_starts = list(range(0, n_total, bsz))
+            need_lo = [max(0, int(min(in_offs_all[m][order[s:s + bsz], 0].min()
+                                      for m in plan["mods"])) - margin_px)
+                       for s in batch_starts]
+            # a margin-padded raster per modality on every replica's device
+            bufs = [{} for _ in mesh.devices]
+            for mod in plan["mods"]:
+                r = readers[mod]
+                n_ch = len(config["modalities"][mod].get("channels") or range(r.count))
+                for i, dev in enumerate(mesh.devices):
+                    bufs[i][mod] = torch.zeros(
+                        (n_ch, r.height + 2 * margin_px, r.width + 2 * margin_px),
+                        dtype=_TORCH_DTYPES[np.dtype(r.dtypes[0])], device=dev)
+            height = readers[plan["mods"][0]].height
+            width = readers[plan["mods"][0]].width
+            itemsize = max(np.dtype(readers[m].dtypes[0]).itemsize for m in plan["mods"])
+            stripe_rows = max(64, (8 << 20) // max(1, width * 3 * itemsize))
+            block = max((getattr(readers[m], "block_rows", 1) or 1) for m in plan["mods"])
+            if block > 1:
+                stripe_rows = max(block, (stripe_rows // block) * block)
+        else:
+            # --- host windowed-read path ----------------------------------
+            # the dataset's *_RAW copies and label placeholders never reach
+            # the forward; one-channel device zeros stand in for the labels
+            device_labels = None
+            host_order = None
+            if n_total > 1 and hasattr(dataloader, "order"):
+                if dataloader.order is None:
+                    dataloader.order = order.tolist()
+                if list(dataloader.order) == order.tolist():
+                    host_order = order
+            if host_order is not None:
+                fmt, fmb = future_frontiers(host_order, tile_tops, tile_bots, img_h[tasks[0]])
+            else:  # foreign order: every row lands at finalize
+                fmt = np.zeros(n_total + 1, np.int64)
+                fmb = np.full(n_total + 1, img_h[tasks[0]], np.int64)
+
     if plan:
-        device_norm = plan["norm_specs"]
-    elif config.get("normalize_on_device"):
-        device_norm = {}
-        for mod, active in config["modalities"]["inputs"].items():
-            if not active or mod.endswith("_TS"):
-                continue
-            with open_raster(config["modalities"][mod]["input_img_path"]) as src:
-                dtype = np.dtype(src.dtypes[0])
-            device_norm[mod] = _norm_spec(config["modalities"][mod], dtype) or ("cast",)
-    steps = [ZonalStep(
-        replica, config["output_type"], margin_px, tile_size, scale_num, scale_den,
-        torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else torch.float32,
-        device_norm, dev) for dev, replica in zip(mesh.devices, replicas)]
-
-    def forward_shards(shards) -> Dict[str, torch.Tensor]:
-        """{task: uint8 tiles} of a batch given as its shards (each on its
-        mesh device, in mesh order): every shard's forward is issued before
-        any output is gathered to ``device``."""
-        outs = []
-        for dev, step, shard in zip(mesh.devices, steps, shards):
-            # the kernels launch on the current device: make it the shard's
-            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                outs.append(step.forward_convert(shard))
-        if len(outs) == 1:
-            return outs[0]
-        return {t: torch.cat([o[t].to(device) for o in outs]) for t in outs[0]}
-
-    inner = tile_size - 2 * margin_px
-    th = int(round(inner * scale_num / scale_den)) if needs_rescale else inner
-    # canvases padded by one tile each side so every write is in-bounds
-    canvases = {t: torch.zeros((w.count, w.height + th, w.width + th),
-                               dtype=torch.uint8, device=device)
-                for t, w in output_files.items()}
-    img_h = {t: output_files[t].height for t in tasks}
-    img_w = {t: output_files[t].width for t in tasks}
-    assert all(img_h[t] == img_h[tasks[0]] and img_w[t] == img_w[tasks[0]]
-               for t in tasks), "output canvases must share one geometry"
-
-    n_total = len(tiles)
-    tile_tops = np.empty(n_total, np.int64)
-    tile_lefts = np.empty(n_total, np.int64)
-    for i, row in enumerate(tiles):
-        tile_tops[i] = int(round((image_bounds["top"] - row["top"]) / out_res))
-        tile_lefts[i] = int(round((row["left"] - image_bounds["left"]) / out_res))
-    tile_bots = np.minimum(tile_tops + th, img_h[tasks[0]])
-    codec = StripeCodec(*d2h_codec_choice(config, output_files), img_w)
-    stream = StripeStream(tasks, img_h[tasks[0]], codec)
-    # bottom-up row-major: keeps every overlap seam's winner (reference :732)
-    order = np.lexsort((tile_lefts, -tile_tops))
-
-    def out_offsets(indices, valid):
-        offs = np.zeros((len(indices), 2), np.int64)
-        for i, idx in enumerate(indices):
-            if i >= valid:
-                offs[i] = (img_h[tasks[0]], img_w[tasks[0]])  # padded area
-            else:
-                offs[i] = (tile_tops[int(idx)], tile_lefts[int(idx)])
-        return offs
-
-    consumed = 0
-    t_start = time.perf_counter()
-    if plan:
-        # --- device-resident rasters: gather tiles on the device ----------
-        logger.info("[ ] device-resident tiling: %d modality raster(s), %.1f MB H2D",
-                    len(plan["mods"]), plan["bytes"] / 1e6)
-        readers = dataloader.dataset.readers
-        in_offs_all = {}
-        for mod in plan["mods"]:
-            tr = readers[mod].transform
-            offs = np.zeros((n_total, 2), np.int64)
-            for i, row in enumerate(tiles):
-                win = from_bounds(*row["geometry"].bounds, transform=tr).round()
-                offs[i] = (int(win.row_off) + margin_px, int(win.col_off) + margin_px)
-            in_offs_all[mod] = offs
-        extras = [{t: torch.zeros((shard_rows, 1, tile_size, tile_size),
-                                  dtype=torch.float32, device=dev)
-                   for t in config["labels"]} for dev in mesh.devices]
-        fmt, fmb = future_frontiers(order, tile_tops, tile_bots, img_h[tasks[0]])
-        batch_starts = list(range(0, n_total, bsz))
-        need_lo = [max(0, int(min(in_offs_all[m][order[s:s + bsz], 0].min()
-                                  for m in plan["mods"])) - margin_px)
-                   for s in batch_starts]
-        # a margin-padded raster per modality on every replica's device
-        bufs = [{} for _ in mesh.devices]
-        for mod in plan["mods"]:
-            r = readers[mod]
-            n_ch = len(config["modalities"][mod].get("channels") or range(r.count))
-            for i, dev in enumerate(mesh.devices):
-                bufs[i][mod] = torch.zeros(
-                    (n_ch, r.height + 2 * margin_px, r.width + 2 * margin_px),
-                    dtype=_TORCH_DTYPES[np.dtype(r.dtypes[0])], device=dev)
-        height = readers[plan["mods"][0]].height
-        width = readers[plan["mods"][0]].width
-        itemsize = max(np.dtype(readers[m].dtypes[0]).itemsize for m in plan["mods"])
-        stripe_rows = max(64, (8 << 20) // max(1, width * 3 * itemsize))
-        block = max((getattr(readers[m], "block_rows", 1) or 1) for m in plan["mods"])
-        if block > 1:
-            stripe_rows = max(block, (stripe_rows // block) * block)
         bi = 0
-        t_read = t_put = t_disp = 0.0
 
         def dispatch_ready(read_lo: int):
-            nonlocal bi, consumed
+            nonlocal bi
             while bi < len(batch_starts) and (read_lo <= need_lo[bi] or read_lo <= 0):
-                start = batch_starts[bi]
-                idxs = order[start:min(start + bsz, n_total)]
-                valid = len(idxs)
-                if valid < bsz:
-                    idxs = np.concatenate([idxs, np.full(bsz - valid, idxs[-1], idxs.dtype)])
-                shards = []
-                for i in range(mesh.dp):
-                    ids = idxs[i * shard_rows:(i + 1) * shard_rows]
-                    shard = dict(extras[i])
-                    for mod in plan["mods"]:
-                        shard[mod] = _gather_tiles(bufs[i][mod], in_offs_all[mod][ids],
-                                                   tile_size)
-                    shards.append(shard)
-                ZonalStep.stitch(forward_shards(shards), out_offsets(idxs, valid), canvases)
-                consumed += valid
-                c = min(consumed, n_total)
-                stream.advance(canvases, fmt[c], fmb[c])
+                with profiling.span("zonal.batch", "dispatch_s"):
+                    start = batch_starts[bi]
+                    idxs = order[start:min(start + bsz, n_total)]
+                    valid = len(idxs)
+                    if valid < bsz:
+                        idxs = np.concatenate([idxs, np.full(bsz - valid, idxs[-1], idxs.dtype)])
+                    with profiling.span("zonal.gather", "gather_s"):
+                        shards = []
+                        for i in range(mesh.dp):
+                            ids = idxs[i * shard_rows:(i + 1) * shard_rows]
+                            shard = dict(extras[i])
+                            for mod in plan["mods"]:
+                                shard[mod] = _gather_tiles(bufs[i][mod], in_offs_all[mod][ids],
+                                                           tile_size)
+                            shards.append(shard)
+                    finish_batch(forward_shards(shards), out_offsets(idxs, valid), valid)
                 bi += 1
 
-        spans = [(y0, min(stripe_rows, height - y0)) for y0 in range(0, height, stripe_rows)]
-        for y0, h in reversed(spans):
+        for y0, h in reversed([(y0, min(stripe_rows, height - y0))
+                               for y0 in range(0, height, stripe_rows)]):
             for mod in plan["mods"]:
-                t0 = time.perf_counter()
-                arr = readers[mod].read(indexes=config["modalities"][mod].get("channels"),
-                                        window=Window(0, y0, width, h))
-                if arr.ndim == 2:
-                    arr = arr[None]
-                t1 = time.perf_counter()
-                for dev_bufs in bufs:
-                    dev_bufs[mod][:, y0 + margin_px:y0 + margin_px + h,
-                                  margin_px:margin_px + width].copy_(torch.from_numpy(arr))
-                t_read += t1 - t0
-                t_put += time.perf_counter() - t1
-            t0 = time.perf_counter()
+                with profiling.span("zonal.read", "read_s"):
+                    arr = readers[mod].read(indexes=config["modalities"][mod].get("channels"),
+                                            window=Window(0, y0, width, h))
+                    if arr.ndim == 2:
+                        arr = arr[None]
+                # a copy from pageable memory waits for the card's queue
+                with profiling.span("zonal.put", "put_s"), profiling.blocked():
+                    for dev_bufs in bufs:
+                        dev_bufs[mod][:, y0 + margin_px:y0 + margin_px + h,
+                                      margin_px:margin_px + width].copy_(torch.from_numpy(arr))
             dispatch_ready(y0)
-            codec.poll()
-            t_disp += time.perf_counter() - t0
-        t0 = time.perf_counter()
+            with profiling.span("stripes.poll", "poll_s"):
+                codec.poll()
         dispatch_ready(0)
-        codec.poll()
-        t_disp += time.perf_counter() - t0
-        LAST_TIMINGS.update(read_s=t_read, put_s=t_put, dispatch_s=t_disp)
-    else:
-        # --- host windowed-read path --------------------------------------
-        # the dataset's *_RAW copies and label placeholders never reach the
-        # forward; one-channel device zeros stand in for the labels
-        device_labels = None
-        host_order = None
-        if n_total > 1 and hasattr(dataloader, "order"):
-            if dataloader.order is None:
-                dataloader.order = order.tolist()
-            if list(dataloader.order) == order.tolist():
-                host_order = order
-        if host_order is not None:
-            fmt, fmb = future_frontiers(host_order, tile_tops, tile_bots, img_h[tasks[0]])
-        else:  # foreign order: every row lands at finalize
-            fmt = np.zeros(n_total + 1, np.int64)
-            fmb = np.full(n_total + 1, img_h[tasks[0]], np.int64)
-        for batch in dataloader:
-            valid = batch.pop("valid")
-            indices = np.asarray(batch["index"]).reshape(-1)
-            host = {k: v for k, v in batch.items()
-                    if isinstance(v, np.ndarray) and k != "index"
-                    and not k.endswith("_RAW") and k not in config["labels"]}
-            if device_labels is None:
-                device_labels = [{
-                    t: torch.zeros((len(indices) // mesh.dp, 1)
-                                   + (tuple(np.shape(batch[t])[-2:])
-                                      if t in batch else (tile_size, tile_size)),
-                                   dtype=torch.float32, device=dev)
-                    for t in config["labels"]} for dev in mesh.devices]
-            shards = []
-            for i, dev in enumerate(mesh.devices):
-                shard = {k: torch.from_numpy(v).to(dev)
-                         for k, v in shard_batch(host, i, mesh.dp).items()}
-                shard.update(device_labels[i])
-                shards.append(shard)
-            ZonalStep.stitch(forward_shards(shards), out_offsets(indices, valid), canvases)
-            consumed += int(valid)
-            c = min(consumed, n_total)
-            stream.advance(canvases, fmt[c], fmb[c])
+        with profiling.span("stripes.poll", "poll_s"):
             codec.poll()
-        LAST_TIMINGS.update(dispatch_s=time.perf_counter() - t_start)
+    else:
+        batches = iter(dataloader)
+        while True:
+            with profiling.span("zonal.read", "read_s"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with profiling.span("zonal.batch", "dispatch_s"):
+                valid = batch.pop("valid")
+                indices = np.asarray(batch["index"]).reshape(-1)
+                host = {k: v for k, v in batch.items()
+                        if isinstance(v, np.ndarray) and k != "index"
+                        and not k.endswith("_RAW") and k not in config["labels"]}
+                if device_labels is None:
+                    device_labels = [{
+                        t: torch.zeros((len(indices) // mesh.dp, 1)
+                                       + (tuple(np.shape(batch[t])[-2:])
+                                          if t in batch else (tile_size, tile_size)),
+                                       dtype=torch.float32, device=dev)
+                        for t in config["labels"]} for dev in mesh.devices]
+                shards = []
+                # a copy from pageable memory waits for the card's queue
+                with profiling.span("zonal.put", "put_s"), profiling.blocked():
+                    for i, dev in enumerate(mesh.devices):
+                        shard = {k: torch.from_numpy(v).to(dev)
+                                 for k, v in shard_batch(host, i, mesh.dp).items()}
+                        shard.update(device_labels[i])
+                        shards.append(shard)
+                finish_batch(forward_shards(shards), out_offsets(indices, valid), int(valid))
 
-    t0 = time.perf_counter()
     finalize_canvases(canvases, stream, img_h, output_files)
-    LAST_TIMINGS.update(finalize_s=time.perf_counter() - t0,
-                        total_s=time.perf_counter() - t_start)
-    if os.getenv("FLAIR_ZONAL_TIMING"):
-        if plan:
-            logger.warning("[timing] resident path: read=%.2fs put=%.2fs dispatch=%.2fs "
-                           "finalize=%.2fs total=%.2fs", LAST_TIMINGS["read_s"],
-                           LAST_TIMINGS["put_s"], LAST_TIMINGS["dispatch_s"],
-                           LAST_TIMINGS["finalize_s"], LAST_TIMINGS["total_s"])
-        else:
-            logger.warning("[timing] host path: dispatch=%.2fs finalize=%.2fs total=%.2fs",
-                           LAST_TIMINGS["dispatch_s"], LAST_TIMINGS["finalize_s"],
-                           LAST_TIMINGS["total_s"])
-    logger.info("[ok] canvases written")
+    return "resident" if plan else "host"
 
 
 def raster_to_polygons(output_files, ignore_background=True, background_value=18,

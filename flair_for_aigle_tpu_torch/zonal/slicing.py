@@ -21,6 +21,7 @@ from flair_for_aigle_tpu_torch.geo import geos
 from flair_for_aigle_tpu_torch.geo.geotiff import open_raster
 from flair_for_aigle_tpu_torch.geo.gpkg import write_gpkg
 from flair_for_aigle_tpu_torch.geo.windows import array_bounds
+from flair_for_aigle_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -29,6 +30,7 @@ def create_box_from_bounds(x_min, x_max, y_min, y_max) -> geos.Geometry:
     return geos.box(x_min, min(y_min, y_max), x_max, max(y_min, y_max))
 
 
+@profiling.span("zonal.slice")
 def generate_patches_from_reference(
     config: Dict,
     img_path: str | None = None,

@@ -21,7 +21,6 @@ resolves at once.
 
 from __future__ import annotations
 
-import time
 from typing import Dict
 
 import numpy as np
@@ -29,9 +28,11 @@ import torch
 
 from flair_for_aigle_tpu_torch.ops.pack import pack_labels5, unpack_labels5_into
 from flair_for_aigle_tpu_torch.ops.rle import rle_decode_into, rle_encode5
+from flair_for_aigle_tpu_torch.utils import profiling
 
-#: phase timings of the last inference_and_write call (seconds), the codec's
-#: mode and counts, the D2H bytes and the unpack route
+#: the record of the last inference_and_write call (``utils/profiling.py
+#: recording``): its spans' host seconds and its counters summed by key, the
+#: codec's mode and the unpack route
 LAST_TIMINGS: Dict[str, float] = {}
 
 
@@ -74,7 +75,8 @@ class _Fetch:
         """The host bytes, waiting for the copy to land (no wait, and no
         synchronising call, once it has)."""
         if self.event is not None and not self.event.query():
-            self.event.synchronize()
+            with profiling.blocked():
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -123,6 +125,7 @@ class StripeCodec:
         self.mode = mode
         LAST_TIMINGS["d2h_codec_mode"] = mode
 
+    @profiling.span("stripes.encode")
     def encode(self, canvas: torch.Tensor, t: str, a: int, b: int) -> dict:
         """Encode canvas rows [a, b) and start their async D2H."""
         rec = {"y0": a, "h": b - a}
@@ -190,6 +193,7 @@ class StripeCodec:
                 still.append(rec)
         self._pending = still
 
+    @profiling.span("stripes.plan", "finalize_plan_s")
     def plan_all(self, recs: list) -> None:
         """Phase A: pick every stripe's tier with one host round-trip (the
         pending run counts stacked on the device and fetched as one
@@ -199,36 +203,42 @@ class StripeCodec:
         LAST_TIMINGS["plan_pending"] = len(pend)
         if not pend:
             return
-        counts = torch.stack([r["n_runs"] for r in pend]).tolist()
+        with profiling.blocked():
+            counts = torch.stack([r["n_runs"] for r in pend]).tolist()
         for rec, nr in zip(pend, counts):
             self._decide(rec, int(nr))
         self._pending = [r for r in self._pending if "tier" not in r]
 
-    def decode_into(self, rec: dict, dst: np.ndarray) -> tuple[int, float]:
-        """Phase B: land the stripe into the canvas view; returns (bytes
-        fetched, seconds blocked on the D2H)."""
+    def decode_into(self, rec: dict, dst: np.ndarray) -> int:
+        """Phase B: land the stripe into the canvas view (spans
+        ``stripes.wait``, its D2H landing, and ``stripes.unpack``), count it
+        under its tier (``stripes_small``, ``_mid``, ``_packed``, ``_raw``);
+        returns the bytes fetched."""
         tier = rec.get("tier")
         if tier in ("small", "mid"):
-            t0 = time.perf_counter()
-            runs = (rec["small"] if tier == "small" else rec["mid_h"]).numpy()
-            dt = time.perf_counter() - t0
-            rle_decode_into(runs, rec["nr"], dst)
+            with profiling.span("stripes.wait", "finalize_wait_s"):
+                runs = (rec["small"] if tier == "small" else rec["mid_h"]).numpy()
+            with profiling.span("stripes.unpack", "finalize_unpack_s"):
+                rle_decode_into(runs, rec["nr"], dst)
             # a probe stripe dual-shipped its packed fallback too
-            extra = rec["packed"].numel() if rec.get("packed_sent") else 0
-            return runs.nbytes + 4 + extra, dt
-        if "packed" in rec:
-            t0 = time.perf_counter()
-            arr = rec["packed_h"].numpy()
-            dt = time.perf_counter() - t0
-            # native in-place unpack straight into the canvas slice
-            LAST_TIMINGS["unpack_route"] = unpack_labels5_into(arr, dst)
-            extra = rec["small"].host.numel() + 4 if "small" in rec else 0
-            return arr.nbytes + extra, dt
-        t0 = time.perf_counter()
-        arr = rec["raw"].numpy()
-        dt = time.perf_counter() - t0
-        dst[...] = arr
-        return arr.nbytes, dt
+            nbytes = runs.nbytes + 4 + (rec["packed"].numel() if rec.get("packed_sent") else 0)
+        elif "packed" in rec:
+            tier = "packed"
+            with profiling.span("stripes.wait", "finalize_wait_s"):
+                arr = rec["packed_h"].numpy()
+            with profiling.span("stripes.unpack", "finalize_unpack_s"):
+                # native in-place unpack straight into the canvas slice
+                LAST_TIMINGS["unpack_route"] = unpack_labels5_into(arr, dst)
+            nbytes = arr.nbytes + (rec["small"].host.numel() + 4 if "small" in rec else 0)
+        else:
+            tier = "raw"
+            with profiling.span("stripes.wait", "finalize_wait_s"):
+                arr = rec["raw"].numpy()
+            with profiling.span("stripes.unpack", "finalize_unpack_s"):
+                dst[...] = arr
+            nbytes = arr.nbytes
+        profiling.count("stripes_" + tier)
+        return nbytes
 
 
 class StripeStream:
@@ -263,31 +273,20 @@ class StripeStream:
             self.fetched_bot -= q
 
 
+@profiling.span("stripes.finalize", "finalize_s")
 def finalize_canvases(canvases, stream: StripeStream, img_h, output_files) -> None:
     """Encode the canvas rows not yet streamed, plan every stripe's tier,
     land every stripe in its writer's canvas and write the rasters."""
     codec, stripes = stream.codec, stream.stripes
-    t_wait = t_unpack = t_write = 0.0
-    d2h_bytes = 0
     for t in stream.tasks:
         if stream.fetched_top < min(stream.fetched_bot, img_h[t]):
             stripes[t].append(codec.encode(
                 canvases[t], t, stream.fetched_top, min(stream.fetched_bot, img_h[t])))
-    t0 = time.perf_counter()
     codec.plan_all([rec for t in stream.tasks for rec in stripes[t]])
-    t_plan = time.perf_counter() - t0
     for t in stream.tasks:
         w = output_files[t]
         for rec in stripes[t]:
             y0, rows = rec["y0"], rec["h"]
-            t0 = time.perf_counter()
-            nbytes, dt = codec.decode_into(rec, w.canvas[:, y0:y0 + rows, :])
-            d2h_bytes += nbytes
-            t_wait += dt
-            t_unpack += time.perf_counter() - t0 - dt
-        t0 = time.perf_counter()
-        w.close()
-        t_write += time.perf_counter() - t0
-    LAST_TIMINGS.update(
-        finalize_plan_s=t_plan, finalize_wait_s=t_wait, finalize_unpack_s=t_unpack,
-        finalize_tiff_write_s=t_write, d2h_bytes=d2h_bytes)
+            profiling.count("d2h_bytes", codec.decode_into(rec, w.canvas[:, y0:y0 + rows, :]))
+        with profiling.span("stripes.write", "finalize_tiff_write_s"):
+            w.close()
