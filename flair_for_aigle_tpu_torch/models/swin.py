@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from flair_for_aigle_tpu_torch.device import device_constant
 from flair_for_aigle_tpu_torch.models.layers import (
     MLP,
     TorchConv,
@@ -106,11 +107,12 @@ class WindowAttention(nn.Module):
     def position_bias(self, ws: int) -> torch.Tensor:
         """(nh, T, T) float32 bias gathered from the table."""
         t = ws * ws
-        with profiling.blocked():  # a copy from pageable memory waits for the card
-            idx = torch.as_tensor(
-                _relative_position_index(ws, ws, self.table_window).reshape(-1),
-                device=self.relative_position_bias_table.device)
-        bias = self.relative_position_bias_table[idx].reshape(t, t, -1)
+        table = self.relative_position_bias_table
+        # the index lives on the card, one a (window, table) shared by every
+        # block; the gather runs in every forward, so gradients reach the table
+        idx = device_constant(_relative_position_index, ws, ws, self.table_window,
+                              device=table.device).reshape(-1)
+        bias = table[idx].reshape(t, t, -1)
         return bias.permute(2, 0, 1).float()
 
     def forward(self, x: torch.Tensor, *, window_size: int, shift_size: int,

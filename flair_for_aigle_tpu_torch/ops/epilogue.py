@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from flair_for_aigle_tpu_torch.device import device_constant
 from flair_for_aigle_tpu_torch.ops import _build
 
 MAX_CLASSES = 64
@@ -237,19 +238,12 @@ def epilogue_plan(h4: int, scale: int, margin: int) -> EpiloguePlan:
                         row_tile, col_start, group_base, col_w)
 
 
-_TABLE_CACHE: dict = {}
-
-
-def _device_tables(plan: EpiloguePlan, key, device) -> tuple:
-    """The plan's six tables on ``device`` (made once a geometry and
-    device)."""
-    key = (*key, str(device))
-    if key not in _TABLE_CACHE:
-        _TABLE_CACHE[key] = tuple(
-            torch.as_tensor(np.ascontiguousarray(a), device=device)
-            for a in (plan.row_loc, plan.row_w, plan.row_tile, plan.col_start,
-                      plan.group_base, plan.col_w))
-    return _TABLE_CACHE[key]
+def _plan_tables(h4: int, scale: int, margin: int) -> tuple:
+    """The six tables of ``epilogue_plan(h4, scale, margin)``, in the
+    kernel's argument order."""
+    plan = epilogue_plan(h4, scale, margin)
+    return (plan.row_loc, plan.row_w, plan.row_tile, plan.col_start, plan.group_base,
+            plan.col_w)
 
 
 def upsample_crop_convert(logits_s4: torch.Tensor, *, margin: int,
@@ -278,7 +272,7 @@ def upsample_crop_convert(logits_s4: torch.Tensor, *, margin: int,
         raise ValueError(f"epilogue kernel: unsupported K={k_cls}, "
                          f"{h4}x{w4}, margin={margin}")
     plan = epilogue_plan(h4, scale, margin)
-    tables = _device_tables(plan, (h4, scale, margin), logits_s4.device)
+    tables = device_constant(_plan_tables, h4, scale, margin, device=logits_s4.device)
     # the kernel stages the logits 16 bytes at a time
     logits_s4 = _build.aligned(logits_s4)
     n_out = 1 if output_type == "argmax" else k_cls

@@ -4,7 +4,8 @@ Port of ``flair_for_aigle_tpu/ops/resize.py``: the same index maps and
 two-tap float32 weights (torch bilinear with align_corners False and True,
 torch nearest, scipy ``zoom(order=0)``) and the same ``AdaptiveAvgPool2d``
 bins. The bilinear and pooling maps are applied as two float32 matrix
-products, which reproduces the reference's summation order.
+products, which reproduces the reference's summation order. The matrices
+and indices are uploaded once a geometry and device (``device_constant``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from flair_for_aigle_tpu_torch.utils import profiling
+from flair_for_aigle_tpu_torch.device import device_constant
 
 
 def _torch_bilinear_weights(in_size: int, out_size: int):
@@ -102,16 +103,15 @@ def _batch_invariant_blas(device: torch.device):
         torch.backends.cuda.preferred_blas_library(saved)
 
 
-def _apply_hw(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
+def _apply_hw(x: torch.Tensor, matrix, out_h: int, out_w: int) -> torch.Tensor:
     """out[o, p] = sum_h sum_w mh[o, h] x[h, w] mw[p, w] over (..., H, W, C),
+    mh = matrix(H, out_h), mw = matrix(W, out_w) kept on x's device;
     float32, rows first; each row independent of the others in its batch."""
-    xf = x.float()
-    with profiling.blocked():  # copies from pageable memory wait for the card
-        mh_t = torch.as_tensor(mh, device=x.device)
-        mw_t = torch.as_tensor(mw, device=x.device)
+    mh = device_constant(matrix, x.shape[-3], out_h, device=x.device)
+    mw = device_constant(matrix, x.shape[-2], out_w, device=x.device)
     with _batch_invariant_blas(x.device):
-        out = torch.einsum("oh,...hwc->...owc", mh_t, xf)
-        out = torch.einsum("pw,...owc->...opc", mw_t, out)
+        out = torch.einsum("oh,...hwc->...owc", mh, x.float())
+        out = torch.einsum("pw,...owc->...opc", mw, out)
     return out.to(x.dtype)
 
 
@@ -120,7 +120,7 @@ def resize_bilinear_nhwc(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tenso
     h, w = x.shape[-3], x.shape[-2]
     if (h, w) == (out_h, out_w):
         return x
-    return _apply_hw(x, _bilinear_matrix(h, out_h), _bilinear_matrix(w, out_w))
+    return _apply_hw(x, _bilinear_matrix, out_h, out_w)
 
 
 def resize_bilinear_ac_nhwc(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -128,8 +128,7 @@ def resize_bilinear_ac_nhwc(x: torch.Tensor, out_h: int, out_w: int) -> torch.Te
     h, w = x.shape[-3], x.shape[-2]
     if (h, w) == (out_h, out_w):
         return x
-    return _apply_hw(x, _bilinear_ac_matrix(h, out_h),
-                     _bilinear_ac_matrix(w, out_w))
+    return _apply_hw(x, _bilinear_ac_matrix, out_h, out_w)
 
 
 def resize_nearest_nhwc(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -140,13 +139,11 @@ def resize_nearest_nhwc(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor
     if out_h % h == 0 and out_w % w == 0:
         out = torch.repeat_interleave(x, out_h // h, dim=-3)
         return torch.repeat_interleave(out, out_w // w, dim=-2)
-    with profiling.blocked():  # copies from pageable memory wait for the card
-        ih = torch.as_tensor(_torch_nearest_index(h, out_h), device=x.device)
-        iw = torch.as_tensor(_torch_nearest_index(w, out_w), device=x.device)
+    ih = device_constant(_torch_nearest_index, h, out_h, device=x.device)
+    iw = device_constant(_torch_nearest_index, w, out_w, device=x.device)
     return x.index_select(-3, ih).index_select(-2, iw)
 
 
 def adaptive_avg_pool_nhwc(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """torch AdaptiveAvgPool2d bins on (..., H, W, C)."""
-    h, w = x.shape[-3], x.shape[-2]
-    return _apply_hw(x, _pool_matrix(h, out_h), _pool_matrix(w, out_w))
+    return _apply_hw(x, _pool_matrix, out_h, out_w)

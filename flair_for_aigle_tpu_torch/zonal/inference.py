@@ -476,7 +476,8 @@ def zonal_mesh(config: Dict, device: torch.device, devices=None) -> DataParallel
 #: ``stripes.stream``, ``stripes.poll`` (between the stripes' reads),
 #: ``stripes.finalize`` and its children; ``blocked_s``, the host seconds of
 #: the calls that wait for the card; the batches, their valid tiles, the
-#: stripes by tier and the D2H bytes. Spans inside them (``model.*``,
+#: stripes by tier, the D2H bytes and the forward's constants uploaded to the
+#: card (``device.py device_constant``). Spans inside them (``model.*``,
 #: ``zonal.epilogue``, ``stripes.encode``) add under their names.
 RECORD_KEYS = {
     **dict.fromkeys(("engine_setup_s", "read_s", "put_s", "dispatch_s", "gather_s",
@@ -484,7 +485,7 @@ RECORD_KEYS = {
                      "finalize_plan_s", "finalize_wait_s", "finalize_unpack_s",
                      "finalize_tiff_write_s", "blocked_s"), 0.0),
     **dict.fromkeys(("batches", "tiles", "stripes_small", "stripes_mid", "stripes_packed",
-                     "stripes_raw", "d2h_bytes"), 0)}
+                     "stripes_raw", "d2h_bytes", "const_uploads"), 0)}
 
 
 def inference_and_write(model, dataloader, tiles, config: Dict,

@@ -45,7 +45,10 @@ without spill at the blocks per SM their launch bounds promise. The
 clamp of the attn_f32 softmax: K2, K6 and both dtypes' cores on scores
 200 past exp's range (one spike a row; every score) at T = 16 and 144,
 finite and within the bounds above. The UPerNet's pools and resizes: a
-batch's first 8 tiles alone give that batch's rows bit for bit.
+batch's first 8 tiles alone give that batch's rows bit for bit. The
+forward's constants (``device.py device_constant``): a second
+swin-base-UPerNet zonal forward uploads none and writes the labels of the
+first, made on an empty cache.
 """
 
 import pytest
@@ -540,6 +543,39 @@ def test_swin_micro_model_on_the_card_matches_cpu(dev):
         model.to(dev)
         got = model({k: v.to(dev) for k, v in batch.items()})[0]["T"].cpu()
     _assert_close(got, want, torch.float32)
+
+
+def test_second_zonal_forward_uploads_no_constant(dev, monkeypatch):
+    """swin-base-UPerNet at batch 2, 512 px, bf16, through the zonal step
+    (K1-K5): the first forward, on an empty cache, uploads Swin's position
+    indices, UPerNet's resize matrices and K4's tables; the second counts
+    no upload and no wait in its record, and writes the same labels."""
+    from flair_for_aigle_tpu_torch import device as dev_mod
+    from flair_for_aigle_tpu_torch.models.flair_model import FlairHubModel
+    from flair_for_aigle_tpu_torch.models.layers import init_weights
+    from flair_for_aigle_tpu_torch.utils import profiling
+    from flair_for_aigle_tpu_torch.zonal.inference import ZonalStep
+    from flair_for_aigle_tpu_torch.zonal.model_utils import prepare_model_config
+
+    cfg = prepare_model_config({
+        "model_weights": "", "monotemp_arch": "swin_base_patch4_window12_384-upernet",
+        "modalities": {"inputs": {"AERIAL_RGBI": True}, "AERIAL_RGBI": {"channels": [1, 2, 3]}},
+        "tasks": [{"name": "T", "active": True, "class_names": [str(i) for i in range(19)]}]})
+    cfg["zonal_stride4_logits"] = True
+    model = init_weights(FlairHubModel(cfg), torch.Generator().manual_seed(0)).to(dev).eval()
+    step = ZonalStep(model, "argmax", 40, 512, 1, 1, torch.bfloat16, None, dev)
+    x = torch.randn((2, 3, 512, 512), generator=torch.Generator().manual_seed(1))
+    batch = {"AERIAL_RGBI": x.to(dev), "T": torch.zeros((2, 1, 512, 512), device=dev)}
+    monkeypatch.setattr(dev_mod, "_CONSTANTS", {})
+    first, again = {}, {}
+    with profiling.recording(first):
+        want = step.forward_convert(batch)["T"].cpu()
+    with profiling.recording(again):
+        got = step.forward_convert(batch)["T"].cpu()
+    assert first["const_uploads"] == sum(
+        len(v) if isinstance(v, tuple) else 1 for v in dev_mod._CONSTANTS.values()) > 0
+    assert again.get("const_uploads", 0) == 0 and again.get("blocked_s", 0) == 0, again
+    assert torch.equal(got, want)
 
 
 # swin-base@512's three merges on an odd batch, stage 3->4 at batch 2 (the

@@ -17,7 +17,8 @@ once under ``profile_trace`` and once with no profiler:
 * ``put_s`` and ``dispatch_s`` are the sums of the ``zonal.put`` and
   ``zonal.batch`` spans; the top-level spans of the call are the path's
   phases and fit in ``total_s``; every key the benchmark, ``bench.py``,
-  ``chip_smoke.py`` and the README read is present.
+  ``chip_smoke.py`` and the README read is present, and the second call
+  uploads no constant of the forward (``const_uploads`` 0).
 
 ``Steps.train_step`` under the profiler emits ``train.step`` with
 ``train.h2d``, ``train.forward``, ``train.backward``, ``train.optimizer``
@@ -55,7 +56,7 @@ TASK = "AERIAL_LABEL-COSIA"
 #: README read
 KEPT = {"read_s", "put_s", "dispatch_s", "finalize_s", "finalize_plan_s", "finalize_wait_s",
         "finalize_unpack_s", "finalize_tiff_write_s", "total_s", "d2h_bytes",
-        "d2h_codec_mode", "rle_probes", "plan_pending", "unpack_route"}
+        "d2h_codec_mode", "rle_probes", "plan_pending", "unpack_route", "const_uploads"}
 TOP_LEVEL = {"resident": {"zonal.setup", "zonal.read", "zonal.put", "zonal.batch",
                           "stripes.poll", "stripes.finalize"},
              "host": {"zonal.setup", "zonal.read", "zonal.batch", "stripes.finalize"}}
@@ -197,6 +198,8 @@ def test_every_kept_key_is_present(runs):
         assert set(zi.RECORD_KEYS) <= set(rec)
         assert rec["d2h_codec_mode"] in ("rle", "pack5")
         assert rec["blocked_s"] >= 0 and rec["forward_s"] > 0 and rec["stitch_s"] > 0
+    # the second call at the same geometry finds every constant on the device
+    assert runs["plain"][0]["const_uploads"] == 0
 
 
 def _train_config():
