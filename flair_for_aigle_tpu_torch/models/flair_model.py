@@ -23,6 +23,7 @@ logits per task. Mono encoders and decoders are any family of
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 from typing import Any, Dict
@@ -310,10 +311,14 @@ class FlairHubModel(nn.Module):
         only). Returns ({task: logits}, {aux key: logits}); logits are NCHW
         at full resolution, or NHWC stride-4 in stride-4 mode.
         ``generator`` draws the modality dropout and, in training mode,
-        UTAE's and the decoders' dropout."""
+        UTAE's and the decoders' dropout. Spans: ``model.encoder`` (with
+        ``model.encoder.utae`` a time series) and ``model.decoder`` (with
+        ``model.fusion`` where modalities are fused), the inner two timed
+        on the card while a profiler session is on."""
         plan = self.plan
         labels = plan["labels"]
         img_size = batch[labels[0]].shape[-1]
+        device = batch[labels[0]].device
         fmaps: dict[str, Any] = {}
         logits_tasks: dict[str, torch.Tensor] = {}
         logits_aux: dict[str, torch.Tensor] = {}
@@ -328,9 +333,10 @@ class FlairHubModel(nn.Module):
                         out = resize_bilinear_nhwc(out, img_size, img_size)
                         logits_aux[f"aux_{mod}_{task}"] = out.permute(0, 3, 1, 2)
             for mod in plan["active_multi"]:
-                lg, maps = self.encoders[mod](batch[mod].permute(0, 1, 3, 4, 2),
-                                              batch_positions=batch.get(mod.replace("TS", "DATES")),
-                                              generator=generator)
+                dates = batch.get(mod.replace("TS", "DATES"))
+                with profiling.span("model.encoder.utae", device=device):
+                    lg, maps = self.encoders[mod](batch[mod].permute(0, 1, 3, 4, 2),
+                                                  batch_positions=dates, generator=generator)
                 lg = resize_bilinear_nhwc(lg, img_size, img_size)
                 logits_tasks[mod] = lg
                 fmaps[mod] = maps
@@ -343,10 +349,12 @@ class FlairHubModel(nn.Module):
             if apply_mod_dropout:
                 fmaps = self.drop_modalities(fmaps, generator)
 
-            if plan["active_mono"]:
-                fused = self.fusion_handler(fmaps, fmaps[plan["active_mono"][0]])
-            else:
-                fused = self.fusion_handler(logits_tasks, logits_tasks[plan["active_multi"][0]])
+            maps_in, target = ((fmaps, fmaps[plan["active_mono"][0]]) if plan["active_mono"]
+                               else (logits_tasks, logits_tasks[plan["active_multi"][0]]))
+            # a span only where modalities are fused: one passes through
+            with (profiling.span("model.fusion", device=device) if len(maps_in) > 1
+                  else contextlib.nullcontext()):
+                fused = self.fusion_handler(maps_in, target)
 
             out_tasks = {}
             for task in labels:

@@ -20,7 +20,10 @@ it replaces with spans inside the program:
   viewable in Perfetto or ``chrome://tracing``.
 
 The record and the device sums are the process's: spans are entered from
-the thread that drives the card.
+the thread that drives the card, but for ``zonal.series``, entered from the
+zonal loader's thread under a key of its own (``series_s``). A profiler
+session traces the thread that starts it, so that span adds to the record
+and does not lie in the trace.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import contextlib
 import functools
 import logging
 import os
+import threading
 import time
 from typing import Dict, Tuple
 
@@ -42,6 +46,7 @@ tracing = torch._C._autograd._profiler_enabled
 
 _clock = time.perf_counter
 _record: Dict | None = None
+_record_lock = threading.Lock()
 #: (span name, start event, end event) not yet read; name -> [ms, count]
 _pending: list = []
 _device_ms: Dict[str, list] = {}
@@ -61,10 +66,12 @@ def recording(record: Dict):
 
 
 def count(key: str, n: float = 1) -> None:
-    """Add ``n`` to ``key`` of the current call's record, if any."""
+    """Add ``n`` to ``key`` of the current call's record, if any (under a
+    lock: the zonal loader's threads add to it beside the driving thread)."""
     rec = _record
     if rec is not None:
-        rec[key] = rec.get(key, 0) + n
+        with _record_lock:
+            rec[key] = rec.get(key, 0) + n
 
 
 class span:
@@ -102,7 +109,8 @@ class span:
         rec = _record
         if rec is not None:
             key = self.key
-            rec[key] = rec.get(key, 0.0) + dt
+            with _record_lock:
+                rec[key] = rec.get(key, 0.0) + dt
 
     def __call__(self, fn):
         name, key, device = self.name, self.key, self.device

@@ -13,6 +13,13 @@ TPU adaptations:
   (``BatchedLoader``) feeds fixed-size batches (last batch padded) so the
   jit'd step never retraces.
 * time series are padded/truncated to a fixed T bucket per run.
+
+A tile's time-series work (read, cloud and snow filter, bucket, cast) is
+the span ``zonal.series`` (``series_s`` of the zonal call's record), entered
+from the loader's thread. The loader counts the frames a batch's series
+holds (``series_frames``, B x T) and the padding among them
+(``series_frames_padded``: the collate's, to the batch's largest T, and a
+fixed-T bucket's, as each tile is read).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from flair_for_aigle_tpu_torch.data.sentinel import (
 from flair_for_aigle_tpu_torch.data.transforms import norm as normalize_array
 from flair_for_aigle_tpu_torch.geo.geotiff import open_raster
 from flair_for_aigle_tpu_torch.geo.windows import from_bounds
+from flair_for_aigle_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -79,6 +87,10 @@ class MultiModalSlicedDataset:
         self.patch_sizes = patch_size_dict
         self.ref_date_str = ref_date_str
         self.fixed_t = fixed_t
+        #: whether items carry zero label placeholders (the model reads the
+        #: output size from them); ``inference_and_write`` turns them off
+        self.emit_label_placeholders = (
+            modalities_config.get("emit_label_placeholders") is not False)
 
         self.readers = {}
         preload = modalities_config.get("preload_rasters", "auto")
@@ -206,6 +218,27 @@ class MultiModalSlicedDataset:
             coverage = None  # T axis is now periods, not the masked dates
         return patch, diffs, coverage
 
+    def _series_patch(self, mod_name, reader, bounds, cfg, patch_size):
+        """A tile's time series as the model takes it: the windowed read of
+        every date's bands, the cloud and snow filter, the fixed-T bucket
+        when one is set, float32 frames (T, C, H, W) and day offsets (T,)."""
+        patch, window = self._load_patch(reader, bounds, cfg, patch_size, mod_name)
+        patch, diffs, coverage = self._process_time_series_patch(
+            mod_name, patch, window, cfg
+        )
+        if self.fixed_t:
+            profiling.count("series_frames_padded", max(self.fixed_t - len(diffs), 0))
+            # same coverage -> same kept indices for data and dates
+            patch = pad_to_fixed_t(
+                patch.astype(np.float32), self.fixed_t, 0.0,
+                coverage=coverage, what=mod_name,
+            )
+            diffs = pad_to_fixed_t(
+                np.asarray(diffs, np.float32), self.fixed_t, 0.0,
+                coverage=coverage, what=mod_name + " dates",
+            )
+        return np.asarray(patch, np.float32), np.asarray(diffs, np.float32)
+
     def __len__(self):
         return len(self.tiles)
 
@@ -217,43 +250,31 @@ class MultiModalSlicedDataset:
         for mod_name, cfg in self.modalities.items():
             reader = self.readers[mod_name]
             patch_size = self.patch_sizes[mod_name]
+            if mod_name.endswith("_TS"):
+                with profiling.span("zonal.series", "series_s"):
+                    patch, diffs = self._series_patch(mod_name, reader, bounds, cfg,
+                                                      patch_size)
+                tile_data[mod_name] = patch
+                tile_data[mod_name.replace("_TS", "_DATES")] = diffs
+                continue
             patch, window = self._load_patch(reader, bounds, cfg, patch_size,
                                              mod_name)
-            if mod_name.endswith("_TS"):
-                patch, diffs, coverage = self._process_time_series_patch(
-                    mod_name, patch, window, cfg
-                )
-                if self.fixed_t:
-                    # same coverage -> same kept indices for data and dates
-                    patch = pad_to_fixed_t(
-                        patch.astype(np.float32), self.fixed_t, 0.0,
-                        coverage=coverage, what=mod_name,
-                    )
-                    diffs = pad_to_fixed_t(
-                        np.asarray(diffs, np.float32), self.fixed_t, 0.0,
-                        coverage=coverage, what=mod_name + " dates",
-                    )
-                tile_data[mod_name] = np.asarray(patch, np.float32)
-                tile_data[mod_name.replace("_TS", "_DATES")] = np.asarray(
-                    diffs, np.float32
-                )
+            if self.modalities_config.get("normalize_on_device"):
+                # raw patch in native dtype; the jit'd step normalizes
+                # on the TPU (zonal/inference.py make_infer_step) — a
+                # single CPU cannot keep up with float64 host norm.
+                tile_data[mod_name] = np.ascontiguousarray(patch)
             else:
-                if self.modalities_config.get("normalize_on_device"):
-                    # raw patch in native dtype; the jit'd step normalizes
-                    # on the TPU (zonal/inference.py make_infer_step) — a
-                    # single CPU cannot keep up with float64 host norm.
-                    tile_data[mod_name] = np.ascontiguousarray(patch)
-                else:
-                    raw = patch.copy()
-                    patch = self._normalize_patch(patch, cfg)
-                    tile_data[mod_name] = np.ascontiguousarray(patch, np.float32)
-                    tile_data[mod_name + "_RAW"] = np.ascontiguousarray(
-                        raw, np.float32
-                    )
+                raw = patch.copy()
+                patch = self._normalize_patch(patch, cfg)
+                tile_data[mod_name] = np.ascontiguousarray(patch, np.float32)
+                tile_data[mod_name + "_RAW"] = np.ascontiguousarray(
+                    raw, np.float32
+                )
 
         tile_data["index"] = np.array([idx], np.int64)
 
-        if self.modalities_config.get("emit_label_placeholders") is False:
+        if not self.emit_label_placeholders:
             # fast path: the engine substitutes device-resident zero labels;
             # stacking ~20MB/task of host zeros per tile is pure waste
             return tile_data
@@ -310,6 +331,11 @@ class BatchedLoader:
         for key in samples[0]:
             vals = [s[key] for s in samples]
             if isinstance(vals[0], np.ndarray):
+                if key.endswith("_TS"):
+                    t_max = max(v.shape[0] for v in vals)
+                    profiling.count("series_frames", len(vals) * t_max)
+                    profiling.count("series_frames_padded",
+                                    sum(t_max - v.shape[0] for v in vals))
                 # time axes may differ if no fixed_t: pad to max
                 if vals[0].ndim >= 1 and any(
                     v.shape != vals[0].shape for v in vals

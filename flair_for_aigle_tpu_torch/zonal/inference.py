@@ -478,7 +478,10 @@ def zonal_mesh(config: Dict, device: torch.device, devices=None) -> DataParallel
 #: the calls that wait for the card; the batches, their valid tiles, the
 #: stripes by tier, the D2H bytes and the forward's constants uploaded to the
 #: card (``device.py device_constant``). Spans inside them (``model.*``,
-#: ``zonal.epilogue``, ``stripes.encode``) add under their names.
+#: ``zonal.epilogue``, ``stripes.encode``) add under their names. A call with
+#: a time series adds ``series_s`` (the loader's ``zonal.series``) and the
+#: counters ``series_frames`` and ``series_frames_padded`` (the loader's,
+#: ``dataset.py``); a call without one holds none of the three.
 RECORD_KEYS = {
     **dict.fromkeys(("engine_setup_s", "read_s", "put_s", "dispatch_s", "gather_s",
                      "forward_s", "stitch_s", "stream_s", "poll_s", "finalize_s",
@@ -657,9 +660,12 @@ def _inference_and_write(model, dataloader, tiles, config: Dict,
                 stripe_rows = max(block, (stripe_rows // block) * block)
         else:
             # --- host windowed-read path ----------------------------------
-            # the dataset's *_RAW copies and label placeholders never reach
-            # the forward; one-channel device zeros stand in for the labels
+            # the dataset's *_RAW copies never reach the forward, and
+            # one-channel device zeros stand in for the labels, so the loader
+            # stacks no label placeholder (a float32 plane a class and tile)
             device_labels = None
+            if isinstance(getattr(dataloader, "dataset", None), MultiModalSlicedDataset):
+                dataloader.dataset.emit_label_placeholders = False
             host_order = None
             if n_total > 1 and hasattr(dataloader, "order"):
                 if dataloader.order is None:
