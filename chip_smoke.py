@@ -81,7 +81,17 @@ Phases, one printed line each (any failure raises and exits non-zero):
    to 2e-3 + 2e-3 |ref| against the float64 product; K2 and K6 at attn_f32
    True on scores 200 past exp's range (the min(s, 80) clamp: one spike a
    score row, then every score) at T = 144 in both dtypes (``clamp_lines``:
-   finite, and on the spike case within their bounds);
+   finite, and on the spike case within their bounds); K9 (a ConvNeXt
+   block's depthwise 7x7 conv, bias and LayerNorm, ``ops/dw_ln.py``) at
+   ConvNeXt-B's four stages at batch 16 in both dtypes against its plain
+   version (one bf16 unit, float32 1e-4 of the largest magnitude), two calls
+   bit-identical, in bf16 its CUDA-event and device times
+   (``tools/time_dw_ln.py``) beside its plain version, its bound (bytes once
+   against 49 FMAs an element at the float32 SIMT rate) and two yardsticks as
+   device time (``F.conv2d(groups=C)`` + ``F.layer_norm``, and the
+   ``TorchConv`` + ``TorchLayerNorm`` pair the block ran before), also over a
+   ConvNeXt-B forward's 36 blocks; its kernel's resources under each stage's
+   plan (no spill, the blocks per SM the plan counts on);
 4. slice: the port's zonal ``run_inference`` on a synthetic, spatially
    correlated 2048 x 2048 3-band uint8 raster at 0.2 m/px (25 tiles of
    512 px, margin 40, batch 16,
@@ -128,8 +138,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
    resnet34-unet, resnet50-deeplabv3plus, efficientnet_b4-unetplusplus,
    convnext_base-upernet and swin_base_patch4_window12_384-fpn through
    ``run_inference``: output geometry, labels < 19, every kernel's launches
-   (the Swin kernels for the Swin arch only, K4 for the UPerNet one only;
-   ``launches_families`` in the kernels line), argmax agreement of one
+   (the Swin kernels for the Swin arch only, K9 for the ConvNeXt one only,
+   its zonal record's ``dw_ln_launches`` 36 a batch, K4 for the UPerNet
+   one only; ``launches_families`` in the kernels line), argmax agreement of one
    batch in bf16 with the same model in float32 on the card (0.99
    reported as met or not, the run failing below 0.98: random weights leave
    near-ties that bf16 flips in the JAX package as well,
@@ -263,6 +274,9 @@ KERNELS = {
                            "tools/exp_attn_dots.py:44"),
     "attn_dots_grouped": ("flair_for_aigle_tpu_torch/csrc/attn_dots.cu",
                           "tools/exp_attn_dots.py:57"),
+    # no TPU kernel: the JAX package's ConvNeXt block runs XLA's convolution
+    "dw_ln": ("flair_for_aigle_tpu_torch/csrc/dw_ln.cu",
+              "flair_for_aigle_tpu/models/convnext.py:45"),
 }
 # kernels that run only under the reference's opt-in fused-block switches
 SWITCHED = {"ffn_bwd": ("FLAIR_FFN_BWD", "kernel"), "finish": ("FLAIR_SWIN_FINISH", "1")}
@@ -285,7 +299,15 @@ STEPS_WARM, STEPS_TIMED = 2, 5  # train_step timing: warm-up, then timed
 
 def kernel_fns() -> dict:
     """name -> the wrapper whose ``launches`` counts that kernel."""
-    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, finish, merge, prep, window_attn
+    from flair_for_aigle_tpu_torch.ops import (
+        dw_ln,
+        epilogue,
+        ffn,
+        finish,
+        merge,
+        prep,
+        window_attn,
+    )
 
     return {"prep": prep.fused_ln_shift_partition,
             "window_attn": window_attn.fused_window_attention,
@@ -294,7 +316,8 @@ def kernel_fns() -> dict:
             "ffn_bwd": ffn.fused_ln_mlp_residual_backward,
             "merge": merge.fused_patch_merge,
             "finish": finish.fused_reverse_ln_mlp_residual,
-            "epilogue": epilogue.upsample_crop_convert}
+            "epilogue": epilogue.upsample_crop_convert,
+            "dw_ln": dw_ln.depthwise7_ln}
 
 
 def zero_launches(names) -> dict:
@@ -322,11 +345,20 @@ def switch(name: str, value: str):
 @contextlib.contextmanager
 def plain_versions():
     """The model's ops resolve to their plain versions inside the block."""
-    from flair_for_aigle_tpu_torch.ops import epilogue, ffn, finish, merge, prep, window_attn
+    from flair_for_aigle_tpu_torch.ops import (
+        dw_ln,
+        epilogue,
+        ffn,
+        finish,
+        merge,
+        prep,
+        window_attn,
+    )
 
     mods = [(prep, "fused_ln_shift_partition"), (window_attn, "fused_window_attention"),
             (ffn, "fused_ln_mlp_residual"), (merge, "fused_patch_merge"),
-            (finish, "fused_reverse_ln_mlp_residual"), (epilogue, "upsample_crop_convert")]
+            (finish, "fused_reverse_ln_mlp_residual"), (epilogue, "upsample_crop_convert"),
+            (dw_ln, "depthwise7_ln")]
     saved = [getattr(m, n) for m, n in mods]
     try:
         for m, n in mods:
@@ -1246,6 +1278,92 @@ def epilogue_line(stats, lg, output_type) -> None:
         st[key] = st.get(key, 0.0) + t[key]
 
 
+# ConvNeXt-B at 512 px: (H = W, C, blocks) of each stage
+DW_LN_STAGES = [(128, 128, 3), (64, 256, 3), (32, 512, 27), (16, 1024, 3)]
+
+
+def dw_ln_lines(stats, gen) -> None:
+    """K9 at ConvNeXt-B's four stages at the zonal batch 16 in both dtypes
+    against its plain version (one bf16 unit at the largest magnitude,
+    float32 1e-4 of it), two calls bit-identical; in bf16 (the zonal
+    path's) ``tools/time_dw_ln.py``'s times: kernel by CUDA events and as
+    device time, its plain version, and as yardsticks ``F.conv2d(groups=C)``
+    + ``F.layer_norm`` and the ``TorchConv`` -> ``TorchLayerNorm`` pair the
+    block ran before K9, all as device time, beside its bound (bytes once
+    against 49 FMAs an element at the float32 SIMT rate). Sums over the
+    stages in ``stats["dw_ln"]`` and over ConvNeXt-B's 36 blocks in
+    ``["dw_ln_blocks"]``."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import dw_ln
+    from flair_for_aigle_tpu_torch.tools.time_dw_ln import stage_inputs, stage_times
+
+    for hw, c, depth in DW_LN_STAGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dts = "bf16" if dtype == torch.bfloat16 else "f32"
+            args = stage_inputs(BATCH, hw, c, dtype, gen)
+            tag = f"B{BATCH} {hw}x{hw}x{c} {dts}"
+            got = dw_ln.depthwise7_ln(*args)
+            same = torch.equal(got, dw_ln.depthwise7_ln(*args))
+            want = dw_ln.depthwise7_ln_reference(*args)
+            say("kernel", f"dw_ln {tag}: repeat {'bit-identical ok' if same else 'DIFFERS FAIL'}")
+            if not same:
+                raise AssertionError(f"dw_ln {tag}: two calls differ")
+            scale = max(1.0, want.float().abs().max().item())
+            bound = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4) * scale
+            cost = (2 * BATCH * hw * hw * c * (2 if dts == "bf16" else 4) + 52 * c * 4,
+                    98 * BATCH * hw * hw * c, "f32")
+            if dtype != torch.bfloat16:
+                err = (got.float() - want.float()).abs().max().item()
+                say("kernel", f"dw_ln {tag}: max_abs_err {err:.3e} bound {bound:.3e} "
+                    f"{'ok' if err <= bound else 'FAIL'}")
+                if err > bound:
+                    raise AssertionError(f"dw_ln {tag}: max_abs_err {err} > bound {bound}")
+                continue
+            t = stage_times(*args)
+            note = (f"; device time kernel {t['device_ms']:.4f} ms, plain "
+                    f"{t['plain_device_ms']:.4f} ms, F.conv2d(groups=C) + F.layer_norm "
+                    f"{t['library_device_ms']:.4f} ms, TorchConv + TorchLayerNorm "
+                    f"{t['layers_device_ms']:.4f} ms; {depth} blocks a ConvNeXt-B forward")
+            _compare("dw_ln", tag, got, want, bound, t["ms"], t["plain_ms"], stats, cost,
+                     note=note)
+            for name, k in (("dw_ln", 1), ("dw_ln_blocks", depth)):
+                _add_time(stats, name, k * t["ms"], k * t["plain_ms"],
+                          (k * cost[0], k * cost[1], cost[2]))
+                st = stats[name]
+                for key in ("device_ms", "plain_device_ms", "library_device_ms",
+                            "layers_device_ms"):
+                    st[key] = st.get(key, 0.0) + k * t[key]
+            del args, got, want
+
+
+def dw_ln_info_lines(stats) -> None:
+    """K9's kernel under the plan of each of ConvNeXt-B's stages at the
+    zonal batch, both dtypes: its tile and chunk, registers, spill bytes,
+    shared bytes and blocks per SM. Raises on a spill or below the blocks
+    per SM its plan counts on."""
+    import torch
+
+    from flair_for_aigle_tpu_torch.ops import dw_ln
+
+    worst = {"spill_bytes": 0, "max_regs": 0, "min_blocks_per_sm": 99}
+    for dtype in (torch.bfloat16, torch.float32):
+        dts = "bf16" if dtype == torch.bfloat16 else "f32"
+        for hw, c, _ in DW_LN_STAGES:
+            i = dw_ln.dw_ln_info(BATCH, hw, hw, c, dtype)
+            say("kernel", f"dw_ln B{BATCH} {hw}x{hw}x{c} {dts} (tiles of {i['tw']} x {i['th']} "
+                f"pixels, chunks of {i['cc']} channels): {i['regs']} registers, "
+                f"{i['spill_bytes']} spill bytes, {i['shared_bytes']} shared bytes per block, "
+                f"{i['blocks_per_sm']} blocks per SM (bound: 0 spill bytes, >= "
+                f"{i['resident']} blocks per SM)")
+            if i["spill_bytes"] > 0 or i["blocks_per_sm"] < i["resident"]:
+                raise AssertionError(f"dw_ln {hw}x{hw}x{c} {dts} spills or misses its plan: {i}")
+            worst["spill_bytes"] = max(worst["spill_bytes"], i["spill_bytes"])
+            worst["max_regs"] = max(worst["max_regs"], i["regs"])
+            worst["min_blocks_per_sm"] = min(worst["min_blocks_per_sm"], i["blocks_per_sm"])
+    stats["dw_ln"]["info"] = worst
+
+
 def finish_epilogue_info_lines(stats) -> None:
     """K4's kernels at the zonal geometry (19 classes, 128 px, margin 40)
     in both dtypes and output types, and K8's gather pass at each stage's C
@@ -1772,6 +1890,9 @@ def phase_kernels() -> dict:
             for output_type in ("argmax", "class_prob"):
                 epilogue_line(stats, lg, output_type)
             del lg
+    # K9: ConvNeXt-B's depthwise conv and LayerNorm at its four stages at
+    # the zonal batch
+    dw_ln_lines(stats, g)
     # the A/B tool's kernels at the stage geometries, batch 16, bw 1 and 4
     # (stage 1 at bw 4 is the tool's defaults, whose times go into stats)
     # against their plain version, beside the library call
@@ -1806,6 +1927,7 @@ def phase_kernels() -> dict:
     ffn_bwd_info_lines(stats)
     prep_merge_info_lines(stats)
     finish_epilogue_info_lines(stats)
+    dw_ln_info_lines(stats)
     gemm_mma_unchanged(stats)
     attn_dots_info_lines(stats)
     for name, st in stats.items():
@@ -1817,6 +1939,8 @@ def phase_kernels() -> dict:
                 lib += f"cuBLAS products {st['cublas_device_ms']:.4f} ms, "
             if "library_device_ms" in st:
                 lib += f"yardstick {st['library_device_ms']:.4f} ms, "
+            if "layers_device_ms" in st:
+                lib += f"the layers it replaced {st['layers_device_ms']:.4f} ms, "
         x3 = (f", at 3xTF32's rate {st['bound_3xtf32_ms']:.4f} ms" if "bound_3xtf32_ms" in st
               else "")
         say("kernel", f"{name}: summed kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -2297,7 +2421,7 @@ FORWARD_ARCHS = ["resnet34-linknet", "resnet34-manet", "resnet34-pan", "resnet34
                  "resnet34-deeplabv3"]
 SPOT_RES = 1.6  # SPOT_RGBI at 1.6 m: 64 px tiles over the aerial 512 px ones
 FAMILY_TRAIN_ARCH = "resnet34-fpn"
-ZONAL_KERNELS = ("prep", "window_attn", "ffn", "merge", "finish", "epilogue")
+ZONAL_KERNELS = ("prep", "window_attn", "ffn", "merge", "finish", "epilogue", "dw_ln")
 
 
 def f32_top2_gap(step, batch):
@@ -2377,6 +2501,7 @@ def phase_families(card: str, write_geotiff) -> dict:
     import torch
     from safetensors.torch import save_file
 
+    from flair_for_aigle_tpu_torch.models import monotemp as tmt
     from flair_for_aigle_tpu_torch.train.optim import make_optimizer
     from flair_for_aigle_tpu_torch.train.stages import build_model
     from flair_for_aigle_tpu_torch.train.task import make_steps
@@ -2399,6 +2524,7 @@ def phase_families(card: str, write_geotiff) -> dict:
     def route(arch: str) -> set:
         """The kernels an arch must launch; it must launch no other."""
         return ((swin_path if arch.startswith("swin") else set())
+                | ({"dw_ln"} if arch.startswith("convnext") else set())
                 | ({"epilogue"} if arch.endswith("-upernet") else set()))
 
     for arch in FAMILY_ARCHS:
@@ -2420,6 +2546,11 @@ def phase_families(card: str, write_geotiff) -> dict:
         launches = {k: fns[k].launches for k in ZONAL_KERNELS}
         for k, n in launches.items():
             total[k] += n
+        # the zonal record counts K9's launches: one a ConvNeXt block a batch
+        rec = dict(zi.LAST_TIMINGS)
+        blocks = sum(tmt.convnext_spec(arch.split("-")[0])[1]) if arch.startswith(
+            "convnext") else 0
+        count_ok = rec["dw_ln_launches"] == blocks * rec["batches"] == launches["dw_ln"]
         with zi.open_raster(out) as src:
             pred = src.read()
             t = src.transform
@@ -2434,8 +2565,10 @@ def phase_families(card: str, write_geotiff) -> dict:
         say("families", f"{arch}: run_inference {t_entry:.2f} s (model build included), "
             f"{head}; labels {pred.shape} {int(pred.min())}..{int(pred.max())} (bound < "
             f"{N_CLASSES}), geometry {'ok' if geo_ok else 'WRONG'}; launches {launches} "
-            f"(bound: > 0 for {sorted(must) or 'none'}, 0 for the others)")
-        if not (geo_ok and pred.max() < N_CLASSES and route_ok):
+            f"(bound: > 0 for {sorted(must) or 'none'}, 0 for the others); the record's "
+            f"dw_ln_launches {rec['dw_ln_launches']} over {rec['batches']} batches (bound: "
+            f"{blocks} a batch)")
+        if not (geo_ok and pred.max() < N_CLASSES and route_ok and count_ok):
             raise AssertionError(f"{arch}: wrong output or route, launches {launches}")
 
         step = _step(model, norm)
@@ -4040,6 +4173,14 @@ def main() -> int:
     for pre, name in ((f"b{BATCH}", f"epilogue_b{BATCH}"), ("class_prob", "epilogue_class_prob"),
                       (f"class_prob_b{BATCH}", f"epilogue_class_prob_b{BATCH}")):
         extra["epilogue"].update({f"{pre}_{k}": stats[name][k] for k in epi})
+    # K9 (bf16, ConvNeXt-B's four stages at the zonal batch, once each: the
+    # entry's own numbers) also as device time beside its plain version and
+    # the yardsticks; over a ConvNeXt-B forward's 36 blocks; its worst
+    # resources
+    dwk = ("device_ms", "plain_device_ms", "library_device_ms", "layers_device_ms")
+    extra["dw_ln"] = {**{k: stats["dw_ln"][k] for k in dwk}, **stats["dw_ln"]["info"],
+                      **{f"blocks_{k}": stats["dw_ln_blocks"][k]
+                         for k in ("ms", "plain_ms", "bound_ms", *dwk)}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(name, 0) for r in runs.values()),

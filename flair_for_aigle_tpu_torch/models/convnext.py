@@ -10,6 +10,10 @@ smp's TimmUniversalEncoder pyramid ``[x, zero-channel dummy at stride 2,
 s4, s8, s16, s32]``, as the Swin encoder does. ``remat=True`` recomputes
 each block in the backward (``models/layers.py remat``, JAX
 ``convnext.py:79``), in training mode only.
+
+A block's conv, its bias and the LayerNorm run as one op,
+``ops/dw_ln.py depthwise7_ln`` (K9 on the card, its plain version on the
+CPU); ``conv_dw`` and ``norm`` hold its parameters under timm's keys.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from flair_for_aigle_tpu_torch.models.layers import (
     remat,
     remat_active,
 )
+from flair_for_aigle_tpu_torch.ops import dw_ln
 from flair_for_aigle_tpu_torch.utils import profiling
 
 
@@ -42,7 +47,9 @@ class ConvNeXtBlock(nn.Module):
             self.gamma.fill_(1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.mlp(self.norm(self.conv_dw(x)))
+        y = dw_ln.depthwise7_ln(x, self.conv_dw.weight, self.conv_dw.bias, self.norm.weight,
+                                self.norm.bias, eps=self.norm.eps)
+        y = self.mlp(y)
         return x + self.gamma.to(y.dtype) * y
 
 

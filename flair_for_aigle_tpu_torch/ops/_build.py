@@ -109,6 +109,12 @@ _SIGNATURES = {
     # grouped, out (int[4]: registers, local bytes, shared bytes, blocks
     # per SM)
     "attn_dots_info": [_I, _P],
+    # x, taps, b_dw, ln_w, ln_b, out, b, h, w, c, tw_log, ts_log, cc, blocks,
+    # eps, dtype, stream
+    "dw_ln_fwd": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    # dtype, tw_log, ts_log, cc, c, out (int[4]: registers, local bytes,
+    # shared bytes, blocks per SM)
+    "dw_ln_info": [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -476,8 +476,9 @@ def zonal_mesh(config: Dict, device: torch.device, devices=None) -> DataParallel
 #: ``stripes.stream``, ``stripes.poll`` (between the stripes' reads),
 #: ``stripes.finalize`` and its children; ``blocked_s``, the host seconds of
 #: the calls that wait for the card; the batches, their valid tiles, the
-#: stripes by tier, the D2H bytes and the forward's constants uploaded to the
-#: card (``device.py device_constant``). Spans inside them (``model.*``,
+#: stripes by tier, the D2H bytes, the forward's constants uploaded to the
+#: card (``device.py device_constant``) and K9's launches (``dw_ln_launches``,
+#: ``ops/dw_ln.py``: one a ConvNeXt block). Spans inside them (``model.*``,
 #: ``zonal.epilogue``, ``stripes.encode``) add under their names. A call with
 #: a time series adds ``series_s`` (the loader's ``zonal.series``) and the
 #: counters ``series_frames`` and ``series_frames_padded`` (the loader's,
@@ -488,7 +489,7 @@ RECORD_KEYS = {
                      "finalize_plan_s", "finalize_wait_s", "finalize_unpack_s",
                      "finalize_tiff_write_s", "blocked_s"), 0.0),
     **dict.fromkeys(("batches", "tiles", "stripes_small", "stripes_mid", "stripes_packed",
-                     "stripes_raw", "d2h_bytes", "const_uploads"), 0)}
+                     "stripes_raw", "d2h_bytes", "const_uploads", "dw_ln_launches"), 0)}
 
 
 def inference_and_write(model, dataloader, tiles, config: Dict,

@@ -9,6 +9,7 @@ import torch
 
 from flair_for_aigle_tpu_torch.ops import (
     attn_dots,
+    dw_ln,
     epilogue,
     ffn,
     finish,
@@ -41,7 +42,8 @@ def _ffn_params(randn, c):
 #: the wrappers, by the kernel each launches
 WRAPPERS = ["prep", "window_attn", "window_attn_bwd", "window_attn_core",
             "window_attn_core_bwd", "window_attn_bwd_gemm", "window_attn_bwd_wgrad", "ffn",
-            "ffn_bwd", "merge", "finish", "epilogue", "attn_dots_per_head", "attn_dots_grouped"]
+            "ffn_bwd", "merge", "finish", "epilogue", "attn_dots_per_head", "attn_dots_grouped",
+            "dw_ln"]
 
 
 def wrapper_case(name: str, dtype, device, seed: int = 0):
@@ -108,6 +110,10 @@ def wrapper_case(name: str, dtype, device, seed: int = 0):
     if name == "epilogue":
         return (epilogue.upsample_crop_convert, epilogue.upsample_crop_convert_reference,
                 [randn(2, 5, 16, 16, std=3.0, dt=dtype)], dict(margin=8, output_type="class_prob"))
+    if name == "dw_ln":
+        return (dw_ln.depthwise7_ln, dw_ln.depthwise7_ln_reference,
+                [randn(2, 9, 6, 32, dt=dtype), randn(32, 1, 7, 7, std=1 / 7),
+                 randn(32, std=0.1), randn(32, std=0.1) + 1, randn(32, std=0.1)], {})
     if name in ("attn_dots_per_head", "attn_dots_grouped"):
         fn = getattr(attn_dots, name)
         ref = attn_dots.attn_dots_reference

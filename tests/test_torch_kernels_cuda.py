@@ -48,7 +48,12 @@ finite and within the bounds above. The UPerNet's pools and resizes: a
 batch's first 8 tiles alone give that batch's rows bit for bit. The
 forward's constants (``device.py device_constant``): a second
 swin-base-UPerNet zonal forward uploads none and writes the labels of the
-first, made on an empty cache.
+first, made on an empty cache. K9 (a ConvNeXt block's depthwise conv and
+LayerNorm) at ConvNeXt-B's four stage geometries at batch 16 and at ragged
+shapes, in both dtypes, against its plain version (one bf16 unit; float32
+1e-4), twice bit-identical, without spill at the blocks per SM its plan
+promises; convnext_micro's encoder on the card against the CPU, forward
+and gradients, one launch a block.
 """
 
 import pytest
@@ -56,6 +61,7 @@ import torch
 
 from flair_for_aigle_tpu_torch.ops import (
     attn_dots,
+    dw_ln,
     epilogue,
     ffn,
     finish,
@@ -1082,3 +1088,89 @@ def test_attn_dots_resources(dev, grouped, blocks):
     grouped (one stage of 108 KB, swizzled rows) two."""
     info = attn_dots.attn_dots_info(grouped)
     assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= blocks, info
+
+
+# ConvNeXt-B's four stages at 512 px and the zonal batch 16 (B, H, W, C),
+# then ragged shapes: H and W no whole number of tiles (13 x 17) at C = 96
+# and 1024, C = 16 (convnext_micro's first stage), C = 2048 (ConvNeXt-XL's
+# last)
+DW_LN_GEOMS = [(16, 128, 128, 128), (16, 64, 64, 256), (16, 32, 32, 512), (16, 16, 16, 1024),
+               (3, 13, 17, 96), (2, 13, 17, 1024), (1, 9, 6, 16), (1, 11, 10, 2048)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c", DW_LN_GEOMS)
+def test_dw_ln_kernel(dev, dtype, b, h, w, c):
+    """K9 against its plain version (one bf16 unit at the largest
+    magnitude: both round float32 sums once; float32 1e-4 of it), two calls
+    bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(c + h)
+    x = torch.randn((b, h, w, c), generator=g, device=dev).to(dtype)
+    p = (torch.randn((c, 1, 7, 7), generator=g, device=dev) / 7,
+         torch.randn(c, generator=g, device=dev) * 0.1,
+         torch.randn(c, generator=g, device=dev) * 0.1 + 1,
+         torch.randn(c, generator=g, device=dev) * 0.1)
+    dw_ln.depthwise7_ln.launches = 0
+    got = dw_ln.depthwise7_ln(x, *p)
+    again = dw_ln.depthwise7_ln(x, *p)
+    want = dw_ln.depthwise7_ln_reference(x, *p)
+    torch.cuda.synchronize()
+    assert dw_ln.depthwise7_ln.launches == 2
+    assert got.shape == x.shape and got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, again)
+    _assert_close(got, want, dtype, bf16_ulps=1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c", DW_LN_GEOMS)
+def test_dw_ln_resources(dev, dtype, b, h, w, c):
+    """K9's kernel under each geometry's plan: no spill, the plan's
+    shared memory, and at least the blocks per SM the plan counts on."""
+    info = dw_ln.dw_ln_info(b, h, w, c, dtype)
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] == info["smem"], info
+    assert info["blocks_per_sm"] >= info["resident"], info
+
+
+def test_dw_ln_raises_on_what_the_kernel_does_not_take(dev):
+    p = (torch.randn((12, 1, 7, 7), device=dev), torch.zeros(12, device=dev),
+         torch.ones(12, device=dev), torch.zeros(12, device=dev))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dw_ln.depthwise7_ln(torch.randn((1, 8, 8, 12), device=dev), *p)
+    with pytest.raises(ValueError):  # float16
+        dw_ln.depthwise7_ln(torch.randn((1, 8, 8, 16), device=dev).half(),
+                            torch.randn((16, 1, 7, 7), device=dev), *(t[:1].expand(16)
+                                                                      for t in p[1:]))
+
+
+def test_convnext_encoder_on_the_card_matches_cpu(dev):
+    """convnext_micro (one block a stage) in float32, layer scales 0.5 so
+    that every block reaches the features: the card's features and
+    gradients (K9 forward, its plain version's vjp backward) against the
+    CPU's, and one K9 launch a block."""
+    from flair_for_aigle_tpu_torch.models import monotemp as tmt
+    from flair_for_aigle_tpu_torch.models.layers import init_weights
+
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", dev):
+        enc = init_weights(tmt.make_encoder("convnext_micro", 3),
+                           torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for name, q in enc.named_parameters():
+                if name.endswith("gamma"):
+                    q.fill_(0.5)
+        enc.to(d)
+        xd = x.detach().to(d).requires_grad_()
+        dw_ln.depthwise7_ln.launches = 0
+        feats = enc(xd)
+        launches = dw_ln.depthwise7_ln.launches
+        sum(f.square().sum() for f in feats if f.numel()).backward()
+        out[str(d)] = ([f.detach().cpu() for f in feats], launches,
+                       torch.cat([xd.grad.flatten().cpu()]
+                                 + [q.grad.flatten().cpu() for q in enc.parameters()]))
+    (f0, n0, g0), (f1, n1, g1) = out["cpu"], out[str(dev)]
+    assert n0 == 0 and n1 == 4
+    for a, b in zip(f1, f0):
+        if b.numel():
+            _assert_close(a, b, torch.float32)
+    assert torch.nn.functional.cosine_similarity(g0, g1, dim=0).item() >= 0.9999
