@@ -23,6 +23,8 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 _CONSTANTS: dict = {}
+#: the tensors uploaded by ``device_constant``, a key of every zonal call's record
+profiling.declare(const_uploads=0)
 
 
 def device_constant(make, *sizes: int, device):

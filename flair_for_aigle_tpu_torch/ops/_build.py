@@ -221,7 +221,13 @@ def param(p, device, dtype):
     """A kernel's view of a parameter: ``p`` itself where it already lies
     on ``device`` in ``dtype``, contiguous and 16-byte aligned (the
     models' parameters, call after call: no copy and no new tensor), else
-    an aligned contiguous copy there."""
+    an aligned contiguous copy there, detached from autograd.
+
+    The wrappers' one parameter path: every wrapper that hands a kernel a
+    module parameter, or the computed position bias, takes it through
+    here (K1-K3, K5-K8, K9's bias and LayerNorm), so how a kernel sees
+    its parameters (where they lie, in which dtype, whether a copy is
+    kept) is decided here alone. Activations take ``aligned``."""
     if (p.device == device and p.dtype == dtype and p.is_contiguous()
             and p.data_ptr() % 16 == 0):
         return p

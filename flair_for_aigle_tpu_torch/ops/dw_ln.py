@@ -238,6 +238,8 @@ def depthwise7_ln(x: torch.Tensor, w_dw, b_dw, ln_w, ln_b, *,
 
 
 depthwise7_ln.launches = 0
+#: the kernel's launches, a key of every zonal call's record
+profiling.declare(dw_ln_launches=0)
 
 
 def dw_ln_info(b: int, h: int, w: int, c: int, dtype=torch.bfloat16) -> dict:

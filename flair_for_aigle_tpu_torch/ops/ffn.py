@@ -107,10 +107,8 @@ def _launch(x, attn, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
         raise ValueError(f"ffn kernel: unsupported C={c}, hidden={hidden}")
     x = _build.aligned(x.contiguous())
     attn = _build.aligned(attn.to(x.device, dt).contiguous())
-    lns, lnb = (_build.aligned(p.detach().to(x.device, torch.float32).contiguous())
-                for p in (ln_scale, ln_bias))
-    w1, b1, w2, b2 = (_build.aligned(p.detach().to(x.device, dt).contiguous())
-                      for p in (w1, b1, w2, b2))
+    lns, lnb = (_build.param(p, x.device, torch.float32) for p in (ln_scale, ln_bias))
+    w1, b1, w2, b2 = (_build.param(p, x.device, dt) for p in (w1, b1, w2, b2))
     if (w1.shape != (hidden, c) or b1.shape != (hidden,)
             or w2.shape != (c, hidden) or b2.shape != (c,)
             or lns.shape != (c,) or lnb.shape != (c,)):
@@ -312,10 +310,8 @@ def fused_ln_mlp_residual_backward(g, x, attn, ln_scale, ln_bias, w1, b1, w2,
     xc = _build.aligned(x.contiguous())
     ac = _build.aligned(attn.to(dev, dt).contiguous())
     gc = _build.aligned(g.to(dev, dt).contiguous())
-    lns, lnb = (_build.aligned(p.detach().to(dev, torch.float32).contiguous())
-                for p in (ln_scale, ln_bias))
-    w1c, b1c, w2c = (_build.aligned(p.detach().to(dev, dt).contiguous())
-                     for p in (w1, b1, w2))
+    lns, lnb = (_build.param(p, dev, torch.float32) for p in (ln_scale, ln_bias))
+    w1c, b1c, w2c = (_build.param(p, dev, dt) for p in (w1, b1, w2))
     if (w1c.shape != (hidden, c) or b1c.shape != (hidden,)
             or w2c.shape != (c, hidden) or lns.shape != (c,) or lnb.shape != (c,)):
         raise ValueError(f"{what}: parameter shapes do not match x")

@@ -99,10 +99,8 @@ def _launch(win, x, ln_scale, ln_bias, w1, b1, w2, b2, ws: int, ss: int,
     # the gather pass and the GEMMs read their operands 16 bytes at a time
     x = _build.aligned(x)
     win = _build.aligned(win.to(x.device, dt).contiguous())
-    lns, lnb = (_build.aligned(p.detach().to(x.device, torch.float32).contiguous())
-                for p in (ln_scale, ln_bias))
-    w1, b1, w2, b2 = (_build.aligned(p.detach().to(x.device, dt).contiguous())
-                      for p in (w1, b1, w2, b2))
+    lns, lnb = (_build.param(p, x.device, torch.float32) for p in (ln_scale, ln_bias))
+    w1, b1, w2, b2 = (_build.param(p, x.device, dt) for p in (w1, b1, w2, b2))
     if (w1.shape != (hidden, c) or b1.shape != (hidden,)
             or w2.shape != (c, hidden) or b2.shape != (c,)
             or lns.shape != (c,) or lnb.shape != (c,)):

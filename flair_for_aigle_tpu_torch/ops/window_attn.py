@@ -216,9 +216,9 @@ def _params(x, wqkv, bqkv, wproj, bproj, bias, nh: int, bias_dtype, what: str):
     x's device, contiguous, on a 16-byte boundary, shape-checked."""
     _, t, c = x.shape
     dt = x.dtype
-    wqkv, bqkv, wproj, bproj = (_build.aligned(p.detach().to(x.device, dt).contiguous())
+    wqkv, bqkv, wproj, bproj = (_build.param(p, x.device, dt)
                                 for p in (wqkv, bqkv, wproj, bproj))
-    bias = _build.aligned(bias.detach().to(x.device, bias_dtype).contiguous())
+    bias = _build.param(bias, x.device, bias_dtype)
     if (wqkv.shape != (3 * c, c) or bqkv.shape != (3 * c,)
             or wproj.shape != (c, c) or bproj.shape != (c,)
             or bias.shape != (nh, t, t)):
@@ -320,8 +320,7 @@ def window_attention_core(qkv, bias, *, num_heads: int, window_size: int,
     bnw = m // t
     _check(qkv, num_heads, window_size, grid_hw, what, shape=(bnw, t, c))
     qkv = _build.aligned(qkv)
-    bias = bias.detach().to(qkv.device, torch.float32 if attn_f32 else qkv.dtype)
-    bias = _build.aligned(bias.contiguous())
+    bias = _build.param(bias, qkv.device, torch.float32 if attn_f32 else qkv.dtype)
     if bias.shape != (num_heads, t, t):
         raise ValueError(f"{what}: bias must be ({num_heads}, {t}, {t})")
     o = torch.empty((m, c), dtype=qkv.dtype, device=qkv.device)
@@ -494,7 +493,7 @@ def window_attention_core_backward(qkv, do, bias, *, num_heads: int,
         raise ValueError(f"{what}: do must be ({m}, {c}), got {tuple(do.shape)}")
     qkv = _build.aligned(qkv)
     do = _build.aligned(do.to(qkv.device, qkv.dtype).contiguous())
-    bias = _build.aligned(bias.detach().to(qkv.device, torch.float32).contiguous())
+    bias = _build.param(bias, qkv.device, torch.float32)
     if bias.shape != (nh, t, t):
         raise ValueError(f"{what}: bias must be ({nh}, {t}, {t})")
     dev = qkv.device

@@ -13,9 +13,12 @@ it replaces with spans inside the program:
   flag read and two clock reads. A span given a CUDA ``device`` also
   records a ``torch.cuda.Event`` at each edge while the profiler is on;
   ``device_times()`` sums their intervals by span name.
-* ``count(key, n)`` adds to the current call's record, and ``blocked()``
-  adds the host seconds of a call that waits for the card to its
-  ``blocked_s``.
+* ``count(key, n)`` adds to the current call's record, ``note(key,
+  value)`` sets a key of it, and ``blocked()`` adds the host seconds of a
+  call that waits for the card to its ``blocked_s``.
+* ``declare(**zeros)`` names keys of a call's record beside the code that
+  adds to them, each with its zero; ``declared()`` gives them all (the
+  zonal call's record starts with them).
 * ``profile_trace(logdir)`` profiles a block and writes its Chrome trace,
   viewable in Perfetto or ``chrome://tracing``.
 
@@ -50,6 +53,20 @@ _record_lock = threading.Lock()
 #: (span name, start event, end event) not yet read; name -> [ms, count]
 _pending: list = []
 _device_ms: Dict[str, list] = {}
+#: key -> zero of every declared key (``declare``)
+_declared: Dict[str, float] = {}
+
+
+def declare(**zeros) -> Dict[str, float]:
+    """Declare keys of a call's record, each with its zero, beside the
+    code that adds to them; returns ``zeros``."""
+    _declared.update(zeros)
+    return zeros
+
+
+def declared() -> Dict[str, float]:
+    """{key: zero} of every key declared so far."""
+    return dict(_declared)
 
 
 @contextlib.contextmanager
@@ -72,6 +89,14 @@ def count(key: str, n: float = 1) -> None:
     if rec is not None:
         with _record_lock:
             rec[key] = rec.get(key, 0) + n
+
+
+def note(key: str, value) -> None:
+    """Set ``key`` of the current call's record to ``value``, if any."""
+    rec = _record
+    if rec is not None:
+        with _record_lock:
+            rec[key] = value
 
 
 class span:
@@ -134,6 +159,9 @@ class blocked:
 
     def __exit__(self, exc_type, exc, tb) -> None:
         count("blocked_s", _clock() - self._t0)
+
+
+declare(blocked_s=0.0)
 
 
 def device_times() -> Dict[str, Tuple[float, int]]:

@@ -4,7 +4,8 @@ on-device stitching.
 Port of ``flair_for_aigle_tpu/zonal/inference.py``. Per raster:
 
   host: overlap tiling -> windowed reads (thread-prefetched), or row stripes
-        into a device-resident, margin-padded raster (device tile gather)
+        into a device-resident, margin-padded raster (device tile gather):
+        the two tile sources of ``zonal/tiles.py``
   device: normalise -> compute dtype -> forward -> fused epilogue (or crop
           + argmax / class_prob) -> optional nearest rescale -> uint8 canvas
   host: streamed D2H of final canvas rows (raw, 5-bit packed or run-length
@@ -50,7 +51,7 @@ from flair_for_aigle_tpu_torch.geo.geotiff import (
 )
 from flair_for_aigle_tpu_torch.geo.gpkg import read_gpkg
 from flair_for_aigle_tpu_torch.geo.polygonize import raster_to_polygons as _raster_to_polys
-from flair_for_aigle_tpu_torch.geo.windows import Window, from_bounds, from_origin
+from flair_for_aigle_tpu_torch.geo.windows import from_origin
 from flair_for_aigle_tpu_torch.zonal.config import (
     config_recap_1,
     config_recap_2,
@@ -65,7 +66,6 @@ from flair_for_aigle_tpu_torch.parallel.mesh import (
     DataParallelMesh,
     canonical_device,
     make_mesh,
-    shard_batch,
 )
 from flair_for_aigle_tpu_torch.zonal.model_utils import (
     build_inference_model,
@@ -77,8 +77,8 @@ from flair_for_aigle_tpu_torch.zonal.stripes import (
     StripeCodec,
     StripeStream,
     finalize_canvases,
-    future_frontiers,
 )
+from flair_for_aigle_tpu_torch.zonal.tiles import HostTiles, ResidentTiles, device_tiling_plan
 
 logger = logging.getLogger(__name__)
 
@@ -286,58 +286,6 @@ def load_geozone_contour(config, db=None) -> list:
     return out
 
 
-def device_tiling_plan(config: Dict) -> Dict | None:
-    """Whether inference can run from device-resident rasters (reference
-    :286): no time series, every modality at the reference resolution and
-    of one size, normalisation expressible on the device ('custom' needs
-    ``normalize_on_device`` in auto mode), decoded rasters within
-    ``device_tiles_max_bytes`` (default 3 GiB)."""
-    flag = config.get("device_resident_tiles", "auto")
-    if not flag:
-        return None
-    active = [m for m, a in config["modalities"]["inputs"].items() if a]
-    if any(m.endswith("_TS") for m in active):
-        return None
-    ref_res = config["reference_resolution"]
-    norm_specs: Dict[str, tuple] = {}
-    total_bytes = 0
-    dims = None
-    for mod in active:
-        if abs(config["modality_resolutions"][mod] - ref_res) > 1e-9:
-            return None
-        mcfg = config["modalities"][mod]
-        with open_raster(mcfg["input_img_path"]) as src:
-            dtype = np.dtype(src.dtypes[0])
-            total_bytes += src.width * src.height * src.count * dtype.itemsize
-            if dims is None:
-                dims = (src.width, src.height)
-            elif dims != (src.width, src.height):
-                return None
-        spec = _norm_spec(mcfg, dtype, flag == "auto"
-                          and not config.get("normalize_on_device"))
-        if spec is None:
-            return None
-        norm_specs[mod] = spec
-    if total_bytes > config.get("device_tiles_max_bytes", 3 << 30):
-        return None
-    return {"mods": active, "norm_specs": norm_specs, "bytes": total_bytes}
-
-
-def _norm_spec(mcfg: Dict, dtype: np.dtype, host_custom: bool = False):
-    """Device normalisation spec of one modality: ("custom", means, stds),
-    ("scaling", max) or ("cast",); None when it must stay on the host."""
-    ncfg = mcfg.get("normalization") or {}
-    ntype = ncfg.get("type", "without")
-    if ntype == "custom":
-        return None if host_custom else ("custom", ncfg["means"], ncfg["stds"])
-    if ntype == "scaling" and not np.issubdtype(dtype, np.floating):
-        info = np.iinfo(dtype)
-        return ("scaling", float(max(abs(info.min), info.max)))
-    if ntype in ("scaling", "without"):
-        return ("cast",)
-    return None
-
-
 class ZonalStep:
     """One batch on the device: normalise -> compute dtype -> forward ->
     epilogue (or crop + argmax / class_prob) -> nearest rescale, and the
@@ -426,21 +374,6 @@ class ZonalStep:
                 canvas[:, oy:oy + th, ox:ox + tw] = tiles[i]
 
 
-def _gather_tiles(buf: torch.Tensor, offs: np.ndarray, size: int) -> torch.Tensor:
-    """(B, C, size, size) tiles sliced out of a (C, H, W) device raster,
-    offsets clamped in-bounds like dynamic_slice."""
-    hmax, wmax = buf.shape[-2] - size, buf.shape[-1] - size
-    return torch.stack([
-        buf[:, min(max(int(y), 0), hmax):min(max(int(y), 0), hmax) + size,
-            min(max(int(x), 0), wmax):min(max(int(x), 0), wmax) + size]
-        for y, x in offs])
-
-
-_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int16): torch.int16,
-                 np.dtype(np.uint16): torch.uint16, np.dtype(np.int32): torch.int32,
-                 np.dtype(np.float32): torch.float32}
-
-
 def d2h_codec_choice(config: Dict, output_files: Dict[str, WindowedWriter]) -> tuple:
     """(pack, use_rle) of the stripe D2H codec (JAX inference.py:674-687):
     device-side RLE with 5-bit packing as the incompressible fallback
@@ -469,27 +402,27 @@ def zonal_mesh(config: Dict, device: torch.device, devices=None) -> DataParallel
     return DataParallelMesh([device])
 
 
-#: what every call's record (``LAST_TIMINGS``) holds, 0 until its spans and
-#: counters add to it: host seconds of the spans ``zonal.setup``,
-#: ``zonal.read``, ``zonal.put``, ``zonal.batch`` (``dispatch_s``) and its
-#: children ``zonal.gather``, ``zonal.forward``, ``zonal.stitch`` and
-#: ``stripes.stream``, ``stripes.poll`` (between the stripes' reads),
-#: ``stripes.finalize`` and its children; ``blocked_s``, the host seconds of
-#: the calls that wait for the card; the batches, their valid tiles, the
-#: stripes by tier, the D2H bytes, the forward's constants uploaded to the
-#: card (``device.py device_constant``) and K9's launches (``dw_ln_launches``,
-#: ``ops/dw_ln.py``: one a ConvNeXt block). Spans inside them (``model.*``,
-#: ``zonal.epilogue``, ``stripes.encode``) add under their names. A call with
-#: a time series adds ``series_s`` (the loader's ``zonal.series``) and the
-#: counters ``series_frames`` and ``series_frames_padded`` (the loader's,
-#: ``dataset.py``); a call without one holds none of the three.
-RECORD_KEYS = {
+#: the engine's and the stripes' keys of every call's record
+#: (``LAST_TIMINGS``), 0 until they add to it: host seconds of the spans
+#: ``zonal.setup``, ``zonal.read``, ``zonal.put``, ``zonal.batch``
+#: (``dispatch_s``) and its children ``zonal.gather``, ``zonal.forward``,
+#: ``zonal.stitch`` and ``stripes.stream``, ``stripes.poll`` (between the
+#: stripes' reads), ``stripes.finalize`` and its children; the batches, their
+#: valid tiles, the stripes by tier, the D2H bytes. The record starts with
+#: every declared key (``utils/profiling.py declare``), so also with those
+#: the layers below declare beside their counts: ``blocked_s``,
+#: ``const_uploads`` (``device.py``), ``dw_ln_launches`` (``ops/dw_ln.py``).
+#: Spans inside them (``model.*``, ``zonal.epilogue``, ``stripes.encode``)
+#: add under their names. A call with a time series adds ``series_s`` (the
+#: loader's ``zonal.series``) and the counters ``series_frames`` and
+#: ``series_frames_padded`` (``dataset.py``); a call without one, none of them.
+RECORD_KEYS = profiling.declare(
     **dict.fromkeys(("engine_setup_s", "read_s", "put_s", "dispatch_s", "gather_s",
                      "forward_s", "stitch_s", "stream_s", "poll_s", "finalize_s",
                      "finalize_plan_s", "finalize_wait_s", "finalize_unpack_s",
-                     "finalize_tiff_write_s", "blocked_s"), 0.0),
+                     "finalize_tiff_write_s"), 0.0),
     **dict.fromkeys(("batches", "tiles", "stripes_small", "stripes_mid", "stripes_packed",
-                     "stripes_raw", "d2h_bytes", "const_uploads", "dw_ln_launches"), 0)}
+                     "stripes_raw", "d2h_bytes"), 0))
 
 
 def inference_and_write(model, dataloader, tiles, config: Dict,
@@ -501,35 +434,47 @@ def inference_and_write(model, dataloader, tiles, config: Dict,
     entry of the mesh holds a replica (``model`` itself for the first entry
     on ``device``, a copy loaded from its state elsewhere, two on a device
     listed twice), its ``ZonalStep`` and its copy of the resident rasters;
-    each batch's shards run in mesh order. The call's record is
-    ``LAST_TIMINGS`` (``RECORD_KEYS``, the codec's keys, ``total_s`` the
-    whole call); ``FLAIR_ZONAL_TIMING`` logs its seconds."""
+    each batch's shards run in mesh order. The tiles come from one of two
+    sources, chosen by ``device_tiling_plan``: ``zonal/tiles.py ResidentTiles``
+    or ``HostTiles``. The call's record is ``LAST_TIMINGS`` (``RECORD_KEYS``,
+    the declared keys, the codec's, ``total_s`` the whole call);
+    ``FLAIR_ZONAL_TIMING`` logs its seconds."""
     t0 = time.perf_counter()
     with profiling.recording(LAST_TIMINGS):
-        LAST_TIMINGS.update(RECORD_KEYS)
-        path = _inference_and_write(model, dataloader, tiles, config, output_files,
-                                    ref_img, device, devices)
-        LAST_TIMINGS["total_s"] = time.perf_counter() - t0
+        LAST_TIMINGS.update(profiling.declared())
+        with profiling.span("zonal.setup", "engine_setup_s"):
+            plan = device_tiling_plan(config)
+            tile_source = ResidentTiles if plan else HostTiles
+            call = _ZonalCall(model, tiles, config, output_files, ref_img, device, devices,
+                              dataloader.batch_size, tile_source.device_norm(config, plan))
+            source = tile_source(call, dataloader, tiles, config, plan)
+        for shards_of in source.batches():
+            with profiling.span("zonal.batch", "dispatch_s"):
+                indices, valid, shards = shards_of()
+                call.finish_batch(call.forward_shards(shards), indices, valid, source)
+        finalize_canvases(call.canvases, call.stream, call.img_h, output_files)
+        profiling.note("total_s", time.perf_counter() - t0)
     if os.getenv("FLAIR_ZONAL_TIMING"):
-        logger.warning("[timing] %s path: %s", path, " ".join(
+        logger.warning("[timing] %s path: %s", source.name, " ".join(
             f"{k[:-2]}={v:.3f}s" for k, v in LAST_TIMINGS.items() if k.endswith("_s")))
     logger.info("[ok] canvases written")
 
 
-def _inference_and_write(model, dataloader, tiles, config: Dict,
-                         output_files: Dict[str, WindowedWriter], ref_img,
-                         device: torch.device, devices) -> str:
-    """``inference_and_write``'s pass; returns its path, "resident" or
-    "host"."""
-    with profiling.span("zonal.setup", "engine_setup_s"):
-        device = canonical_device(device)
-        mesh = zonal_mesh(config, device, devices)
-        bsz = dataloader.batch_size
+class _ZonalCall:
+    """What a call shares whatever source gives its tiles: the mesh and a
+    replica with its ``ZonalStep`` on each of its devices, the padded
+    canvases, the tiles' output offsets and bottom-up order, the stripe
+    codec and stream; and each batch's work once its shards are placed."""
+
+    def __init__(self, model, tiles, config: Dict, output_files: Dict[str, WindowedWriter],
+                 ref_img, device: torch.device, devices, bsz: int, device_norm):
+        self.device = device = canonical_device(device)
+        self.mesh = mesh = zonal_mesh(config, device, devices)
         if bsz % mesh.dp:
             raise ValueError(
                 f"batch_size {bsz} must be divisible by data_parallel_devices {mesh.dp} "
                 "(an equal shard of each batch for every replica)")
-        shard_rows = bsz // mesh.dp
+        self.bsz, self.shard_rows = bsz, bsz // mesh.dp
         own = mesh.devices.index(device) if device in mesh.devices else None
         replicas = [model if i == own else copy.deepcopy(model).to(dev)
                     for i, dev in enumerate(mesh.devices)]
@@ -538,222 +483,71 @@ def _inference_and_write(model, dataloader, tiles, config: Dict,
         ref_res = config["reference_resolution"]
         out_res = config.get("output_px_meters", ref_res)
         needs_rescale = abs(ref_res - out_res) > 1e-6
-        b = ref_img.bounds
-        image_bounds = {"left": b.left, "bottom": b.bottom, "right": b.right, "top": b.top}
         scale_den, scale_num = 1000000, int(round(1000000 * ref_res / out_res))
         if not needs_rescale:
             scale_num = scale_den
-
-        tasks = list(output_files.keys())
-        plan = device_tiling_plan(config)
-        device_norm = None
-        if plan:
-            device_norm = plan["norm_specs"]
-        elif config.get("normalize_on_device"):
-            device_norm = {}
-            for mod, active in config["modalities"]["inputs"].items():
-                if not active or mod.endswith("_TS"):
-                    continue
-                with open_raster(config["modalities"][mod]["input_img_path"]) as src:
-                    dtype = np.dtype(src.dtypes[0])
-                device_norm[mod] = _norm_spec(config["modalities"][mod], dtype) or ("cast",)
-        steps = [ZonalStep(
+        self.steps = [ZonalStep(
             replica, config["output_type"], margin_px, tile_size, scale_num, scale_den,
             torch.bfloat16 if config.get("compute_dtype") == "bfloat16" else torch.float32,
             device_norm, dev) for dev, replica in zip(mesh.devices, replicas)]
 
-        def forward_shards(shards) -> Dict[str, torch.Tensor]:
-            """{task: uint8 tiles} of a batch given as its shards (each on its
-            mesh device, in mesh order): every shard's forward is issued before
-            any output is gathered to ``device``."""
-            outs = []
-            for dev, step, shard in zip(mesh.devices, steps, shards):
-                # the kernels launch on the current device: make it the shard's
-                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                    outs.append(step.forward_convert(shard))
-            if len(outs) == 1:
-                return outs[0]
-            return {t: torch.cat([o[t].to(device) for o in outs]) for t in outs[0]}
-
         inner = tile_size - 2 * margin_px
         th = int(round(inner * scale_num / scale_den)) if needs_rescale else inner
         # canvases padded by one tile each side so every write is in-bounds
-        canvases = {t: torch.zeros((w.count, w.height + th, w.width + th),
-                                   dtype=torch.uint8, device=device)
-                    for t, w in output_files.items()}
-        img_h = {t: output_files[t].height for t in tasks}
+        self.canvases = {t: torch.zeros((w.count, w.height + th, w.width + th),
+                                        dtype=torch.uint8, device=device)
+                         for t, w in output_files.items()}
+        tasks = list(output_files.keys())
+        self.img_h = {t: output_files[t].height for t in tasks}
         img_w = {t: output_files[t].width for t in tasks}
-        assert all(img_h[t] == img_h[tasks[0]] and img_w[t] == img_w[tasks[0]]
+        assert all(self.img_h[t] == self.img_h[tasks[0]] and img_w[t] == img_w[tasks[0]]
                    for t in tasks), "output canvases must share one geometry"
-
-        n_total = len(tiles)
-        tile_tops = np.empty(n_total, np.int64)
-        tile_lefts = np.empty(n_total, np.int64)
+        self.height, self.width = self.img_h[tasks[0]], img_w[tasks[0]]
+        b = ref_img.bounds
+        self.n_total = len(tiles)
+        self.tile_tops = np.empty(self.n_total, np.int64)
+        self.tile_lefts = np.empty(self.n_total, np.int64)
         for i, row in enumerate(tiles):
-            tile_tops[i] = int(round((image_bounds["top"] - row["top"]) / out_res))
-            tile_lefts[i] = int(round((row["left"] - image_bounds["left"]) / out_res))
-        tile_bots = np.minimum(tile_tops + th, img_h[tasks[0]])
-        codec = StripeCodec(*d2h_codec_choice(config, output_files), img_w)
-        stream = StripeStream(tasks, img_h[tasks[0]], codec)
+            self.tile_tops[i] = int(round((b.top - row["top"]) / out_res))
+            self.tile_lefts[i] = int(round((row["left"] - b.left) / out_res))
+        self.tile_bots = np.minimum(self.tile_tops + th, self.height)
+        self.codec = StripeCodec(*d2h_codec_choice(config, output_files), img_w)
+        self.stream = StripeStream(tasks, self.height, self.codec)
         # bottom-up row-major: keeps every overlap seam's winner (reference :732)
-        order = np.lexsort((tile_lefts, -tile_tops))
+        self.order = np.lexsort((self.tile_lefts, -self.tile_tops))
+        self.consumed = 0
 
-        def out_offsets(indices, valid):
-            offs = np.zeros((len(indices), 2), np.int64)
-            for i, idx in enumerate(indices):
-                if i >= valid:
-                    offs[i] = (img_h[tasks[0]], img_w[tasks[0]])  # padded area
-                else:
-                    offs[i] = (tile_tops[int(idx)], tile_lefts[int(idx)])
-            return offs
+    def forward_shards(self, shards) -> Dict[str, torch.Tensor]:
+        """{task: uint8 tiles} of a batch given as its shards (each on its
+        mesh device, in mesh order): every shard's forward is issued before
+        any output is gathered to the canvases' device."""
+        outs = []
+        for dev, step, shard in zip(self.mesh.devices, self.steps, shards):
+            # the kernels launch on the current device: make it the shard's
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                outs.append(step.forward_convert(shard))
+        if len(outs) == 1:
+            return outs[0]
+        return {t: torch.cat([o[t].to(self.device) for o in outs]) for t in outs[0]}
 
-        def finish_batch(preds, offsets, valid: int) -> None:
-            """Stitch a batch's tiles, then encode the rows it made final."""
-            nonlocal consumed
-            with profiling.span("zonal.stitch", "stitch_s"):
-                ZonalStep.stitch(preds, offsets, canvases)
-            consumed += valid
-            c = min(consumed, n_total)
-            with profiling.span("stripes.stream", "stream_s"):
-                stream.advance(canvases, fmt[c], fmb[c])
-                if not plan:
-                    codec.poll()
-            profiling.count("batches")
-            profiling.count("tiles", valid)
-
-        consumed = 0
-        if plan:
-            # --- device-resident rasters: gather tiles on the device ------
-            logger.info("[ ] device-resident tiling: %d modality raster(s), %.1f MB H2D",
-                        len(plan["mods"]), plan["bytes"] / 1e6)
-            readers = dataloader.dataset.readers
-            in_offs_all = {}
-            for mod in plan["mods"]:
-                tr = readers[mod].transform
-                offs = np.zeros((n_total, 2), np.int64)
-                for i, row in enumerate(tiles):
-                    win = from_bounds(*row["geometry"].bounds, transform=tr).round()
-                    offs[i] = (int(win.row_off) + margin_px, int(win.col_off) + margin_px)
-                in_offs_all[mod] = offs
-            extras = [{t: torch.zeros((shard_rows, 1, tile_size, tile_size),
-                                      dtype=torch.float32, device=dev)
-                       for t in config["labels"]} for dev in mesh.devices]
-            fmt, fmb = future_frontiers(order, tile_tops, tile_bots, img_h[tasks[0]])
-            batch_starts = list(range(0, n_total, bsz))
-            need_lo = [max(0, int(min(in_offs_all[m][order[s:s + bsz], 0].min()
-                                      for m in plan["mods"])) - margin_px)
-                       for s in batch_starts]
-            # a margin-padded raster per modality on every replica's device
-            bufs = [{} for _ in mesh.devices]
-            for mod in plan["mods"]:
-                r = readers[mod]
-                n_ch = len(config["modalities"][mod].get("channels") or range(r.count))
-                for i, dev in enumerate(mesh.devices):
-                    bufs[i][mod] = torch.zeros(
-                        (n_ch, r.height + 2 * margin_px, r.width + 2 * margin_px),
-                        dtype=_TORCH_DTYPES[np.dtype(r.dtypes[0])], device=dev)
-            height = readers[plan["mods"][0]].height
-            width = readers[plan["mods"][0]].width
-            itemsize = max(np.dtype(readers[m].dtypes[0]).itemsize for m in plan["mods"])
-            stripe_rows = max(64, (8 << 20) // max(1, width * 3 * itemsize))
-            block = max((getattr(readers[m], "block_rows", 1) or 1) for m in plan["mods"])
-            if block > 1:
-                stripe_rows = max(block, (stripe_rows // block) * block)
-        else:
-            # --- host windowed-read path ----------------------------------
-            # the dataset's *_RAW copies never reach the forward, and
-            # one-channel device zeros stand in for the labels, so the loader
-            # stacks no label placeholder (a float32 plane a class and tile)
-            device_labels = None
-            if isinstance(getattr(dataloader, "dataset", None), MultiModalSlicedDataset):
-                dataloader.dataset.emit_label_placeholders = False
-            host_order = None
-            if n_total > 1 and hasattr(dataloader, "order"):
-                if dataloader.order is None:
-                    dataloader.order = order.tolist()
-                if list(dataloader.order) == order.tolist():
-                    host_order = order
-            if host_order is not None:
-                fmt, fmb = future_frontiers(host_order, tile_tops, tile_bots, img_h[tasks[0]])
-            else:  # foreign order: every row lands at finalize
-                fmt = np.zeros(n_total + 1, np.int64)
-                fmb = np.full(n_total + 1, img_h[tasks[0]], np.int64)
-
-    if plan:
-        bi = 0
-
-        def dispatch_ready(read_lo: int):
-            nonlocal bi
-            while bi < len(batch_starts) and (read_lo <= need_lo[bi] or read_lo <= 0):
-                with profiling.span("zonal.batch", "dispatch_s"):
-                    start = batch_starts[bi]
-                    idxs = order[start:min(start + bsz, n_total)]
-                    valid = len(idxs)
-                    if valid < bsz:
-                        idxs = np.concatenate([idxs, np.full(bsz - valid, idxs[-1], idxs.dtype)])
-                    with profiling.span("zonal.gather", "gather_s"):
-                        shards = []
-                        for i in range(mesh.dp):
-                            ids = idxs[i * shard_rows:(i + 1) * shard_rows]
-                            shard = dict(extras[i])
-                            for mod in plan["mods"]:
-                                shard[mod] = _gather_tiles(bufs[i][mod], in_offs_all[mod][ids],
-                                                           tile_size)
-                            shards.append(shard)
-                    finish_batch(forward_shards(shards), out_offsets(idxs, valid), valid)
-                bi += 1
-
-        for y0, h in reversed([(y0, min(stripe_rows, height - y0))
-                               for y0 in range(0, height, stripe_rows)]):
-            for mod in plan["mods"]:
-                with profiling.span("zonal.read", "read_s"):
-                    arr = readers[mod].read(indexes=config["modalities"][mod].get("channels"),
-                                            window=Window(0, y0, width, h))
-                    if arr.ndim == 2:
-                        arr = arr[None]
-                # a copy from pageable memory waits for the card's queue
-                with profiling.span("zonal.put", "put_s"), profiling.blocked():
-                    for dev_bufs in bufs:
-                        dev_bufs[mod][:, y0 + margin_px:y0 + margin_px + h,
-                                      margin_px:margin_px + width].copy_(torch.from_numpy(arr))
-            dispatch_ready(y0)
-            with profiling.span("stripes.poll", "poll_s"):
-                codec.poll()
-        dispatch_ready(0)
-        with profiling.span("stripes.poll", "poll_s"):
-            codec.poll()
-    else:
-        batches = iter(dataloader)
-        while True:
-            with profiling.span("zonal.read", "read_s"):
-                batch = next(batches, None)
-            if batch is None:
-                break
-            with profiling.span("zonal.batch", "dispatch_s"):
-                valid = batch.pop("valid")
-                indices = np.asarray(batch["index"]).reshape(-1)
-                host = {k: v for k, v in batch.items()
-                        if isinstance(v, np.ndarray) and k != "index"
-                        and not k.endswith("_RAW") and k not in config["labels"]}
-                if device_labels is None:
-                    device_labels = [{
-                        t: torch.zeros((len(indices) // mesh.dp, 1)
-                                       + (tuple(np.shape(batch[t])[-2:])
-                                          if t in batch else (tile_size, tile_size)),
-                                       dtype=torch.float32, device=dev)
-                        for t in config["labels"]} for dev in mesh.devices]
-                shards = []
-                # a copy from pageable memory waits for the card's queue
-                with profiling.span("zonal.put", "put_s"), profiling.blocked():
-                    for i, dev in enumerate(mesh.devices):
-                        shard = {k: torch.from_numpy(v).to(dev)
-                                 for k, v in shard_batch(host, i, mesh.dp).items()}
-                        shard.update(device_labels[i])
-                        shards.append(shard)
-                finish_batch(forward_shards(shards), out_offsets(indices, valid), int(valid))
-
-    finalize_canvases(canvases, stream, img_h, output_files)
-    return "resident" if plan else "host"
+    def finish_batch(self, preds, indices, valid: int, source) -> None:
+        """Stitch a batch's tiles (its padding off the image), then encode
+        the rows it made final by ``source``'s frontiers."""
+        offsets = np.zeros((len(indices), 2), np.int64)
+        for i, idx in enumerate(indices):
+            if i >= valid:
+                offsets[i] = (self.height, self.width)  # padded area
+            else:
+                offsets[i] = (self.tile_tops[int(idx)], self.tile_lefts[int(idx)])
+        with profiling.span("zonal.stitch", "stitch_s"):
+            ZonalStep.stitch(preds, offsets, self.canvases)
+        self.consumed += valid
+        c = min(self.consumed, self.n_total)
+        with profiling.span("stripes.stream", "stream_s"):
+            self.stream.advance(self.canvases, source.fmt[c], source.fmb[c])
+            source.in_stream()
+        profiling.count("batches")
+        profiling.count("tiles", valid)
 
 
 def raster_to_polygons(output_files, ignore_background=True, background_value=18,

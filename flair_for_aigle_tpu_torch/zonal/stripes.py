@@ -117,13 +117,13 @@ class StripeCodec:
         # its first stripes and the whole run commits to one codec
         self.mode = "probe" if (pack and use_rle) else ("pack5" if pack else "raw")
         self._probes = 0
-        LAST_TIMINGS["d2h_codec_mode"] = self.mode
+        profiling.note("d2h_codec_mode", self.mode)
         if pack:
             self.w8 = {t: -(-w // 8) * 8 for t, w in img_w.items()}
 
     def _commit(self, mode: str) -> None:
         self.mode = mode
-        LAST_TIMINGS["d2h_codec_mode"] = mode
+        profiling.note("d2h_codec_mode", mode)
 
     @profiling.span("stripes.encode")
     def encode(self, canvas: torch.Tensor, t: str, a: int, b: int) -> dict:
@@ -155,7 +155,7 @@ class StripeCodec:
                     rec["packed_h"] = _Fetch(packed)
                     rec["packed_sent"] = True
                     self._probes += 1
-                    LAST_TIMINGS["rle_probes"] = self._probes
+                    profiling.note("rle_probes", self._probes)
                 self._pending.append(rec)
                 self.poll()
                 return rec
@@ -200,7 +200,7 @@ class StripeCodec:
         tensor), then start every on-demand fetch, so all transfers are in
         flight before phase B waits on the first."""
         pend = [r for r in recs if "n_runs" in r and "tier" not in r]
-        LAST_TIMINGS["plan_pending"] = len(pend)
+        profiling.note("plan_pending", len(pend))
         if not pend:
             return
         with profiling.blocked():
@@ -228,7 +228,7 @@ class StripeCodec:
                 arr = rec["packed_h"].numpy()
             with profiling.span("stripes.unpack", "finalize_unpack_s"):
                 # native in-place unpack straight into the canvas slice
-                LAST_TIMINGS["unpack_route"] = unpack_labels5_into(arr, dst)
+                profiling.note("unpack_route", unpack_labels5_into(arr, dst))
             nbytes = arr.nbytes + (rec["small"].host.numel() + 4 if "small" in rec else 0)
         else:
             tier = "raw"

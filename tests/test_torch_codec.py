@@ -46,6 +46,7 @@ from flair_for_aigle_tpu.zonal.inference import run_inference as jax_run_inferen
 from flair_for_aigle_tpu.zonal.model_utils import example_batch_for
 from flair_for_aigle_tpu.zonal.model_utils import prepare_model_config as jax_prepare
 from flair_for_aigle_tpu_torch.ops import pack, rle
+from flair_for_aigle_tpu_torch.utils import profiling
 from flair_for_aigle_tpu_torch.zonal import inference as zi
 from flair_for_aigle_tpu_torch.zonal import stripes
 from tests._torch_threads import few_torch_threads  # noqa: F401
@@ -153,9 +154,11 @@ def _encode_all(codec, canvas, n: int = 4):
 @pytest.mark.parametrize("kind,mode", [("bands", "rle"), ("noise", "pack5")])
 def test_stripe_codec_probe_commits_as_jax(kind, mode):
     canvas = _bands() if kind == "bands" else _noise()
-    codec = stripes.StripeCodec(True, True, {"T": W})
-    assert codec.mode == "probe"
-    recs = _encode_all(codec, torch.from_numpy(canvas))
+    # the codec writes its keys into the current call's record, as the engine's
+    with profiling.recording(stripes.LAST_TIMINGS):
+        codec = stripes.StripeCodec(True, True, {"T": W})
+        assert codec.mode == "probe"
+        recs = _encode_all(codec, torch.from_numpy(canvas))
     jcodec = jstripes.StripeCodec(True, True, {"T": W})
     jrecs = _encode_all(jcodec, jnp.asarray(canvas))
     assert codec.mode == jcodec.mode == mode
@@ -206,14 +209,15 @@ def test_probes_stop_after_max_probes_unresolved(monkeypatch):
     """No run count lands (a slow link): after MAX_PROBES dual-shipped
     probes the codec commits to pack5, and every stripe still lands."""
     monkeypatch.setattr(stripes._Fetch, "ready", lambda self: False)
-    codec = stripes.StripeCodec(True, True, {"T": W})
     canvas = _bands()
-    recs = [codec.encode(torch.from_numpy(canvas), "T", i * 512, (i + 1) * 512)
-            for i in range(4)]
-    assert codec.mode == "pack5" and stripes.LAST_TIMINGS["rle_probes"] == 3
-    assert [("n_runs" in r) for r in recs] == [True, True, True, False]
-    codec.plan_all(recs)
-    assert stripes.LAST_TIMINGS["plan_pending"] == 3
+    with profiling.recording(stripes.LAST_TIMINGS):
+        codec = stripes.StripeCodec(True, True, {"T": W})
+        recs = [codec.encode(torch.from_numpy(canvas), "T", i * 512, (i + 1) * 512)
+                for i in range(4)]
+        assert codec.mode == "pack5" and stripes.LAST_TIMINGS["rle_probes"] == 3
+        assert [("n_runs" in r) for r in recs] == [True, True, True, False]
+        codec.plan_all(recs)
+        assert stripes.LAST_TIMINGS["plan_pending"] == 3
     for i, r in enumerate(recs):
         dst = np.empty((1, 512, W), np.uint8)
         codec.decode_into(r, dst)

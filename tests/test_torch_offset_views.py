@@ -33,6 +33,36 @@ def test_aligned_copies_exactly_the_views_off_a_16_byte_boundary(dtype):
     assert _build.aligned(fresh) is fresh
 
 
+@pytest.mark.parametrize("case", ["aligned_f32", "bf16_copy", "offset_view", "requires_grad"])
+def test_param_is_the_wrappers_one_parameter_path(case):
+    """``_build.param``, which every wrapper hands its parameters through:
+    a parameter already in place comes back as itself; any other request
+    makes the aligned contiguous copy the kernel reads, equal to the
+    parameter converted, detached from autograd."""
+    cpu = torch.device("cpu")
+    w = torch.randn((24, 40), generator=torch.Generator().manual_seed(0))
+    assert w.data_ptr() % 16 == 0
+    if case == "aligned_f32":
+        assert _build.param(w, cpu, torch.float32) is w
+    elif case == "bf16_copy":
+        got = _build.param(w, cpu, torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, w.to(torch.bfloat16))
+    elif case == "offset_view":
+        view = w.reshape(-1)[1:961]  # 4 bytes off a 16-byte boundary
+        assert view.data_ptr() % 16 == 4
+        got = _build.param(view, cpu, torch.float32)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert torch.equal(got, view)
+    else:
+        p = torch.nn.Parameter(w.clone())
+        kept = _build.param(p, cpu, torch.float32)
+        assert kept is p and torch.equal(kept, w)
+        got = _build.param(p, cpu, torch.bfloat16)
+        assert not got.requires_grad and got.grad_fn is None
+        assert torch.equal(got, w.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("name", WRAPPERS)
 def test_wrapper_on_offset_views_computes_the_plain_version(name):
     """Every tensor argument of the wrapper a view off a 16-byte boundary:

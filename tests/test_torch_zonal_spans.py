@@ -195,7 +195,7 @@ def test_top_level_spans_fit_in_total_s(runs):
 def test_every_kept_key_is_present(runs):
     for rec in (runs["traced"][0], runs["plain"][0]):
         assert KEPT <= set(rec), KEPT - set(rec)
-        assert set(zi.RECORD_KEYS) <= set(rec)
+        assert set(zi.RECORD_KEYS) <= set(profiling.declared()) <= set(rec)
         assert rec["d2h_codec_mode"] in ("rle", "pack5")
         assert rec["blocked_s"] >= 0 and rec["forward_s"] > 0 and rec["stitch_s"] > 0
     # the second call at the same geometry finds every constant on the device
